@@ -1,0 +1,454 @@
+"""Host-side graph substrate: global CSR + distributed partitioning.
+
+A numpy copy of the reference's ``repro.core.graph`` (halo 1), kept here so
+the port imports no jax, plus the host→device step (``to_device``,
+``arrays_from_numpy``, ``view_from_numpy``).
+
+The distributed layout mirrors the paper (§2.2): each processor owns a
+contiguous block of vertices; for every cross-partition edge both
+endpoints' processors know the edge.  Vertices whose neighbours are all
+local are *internal*; the rest are *boundary*.  Remote neighbours appear
+locally as *ghost* slots.
+
+Device layout (per processor p, padded to common maxima so the arrays stack
+on a leading P axis):
+
+  view slots  = [0, n_local_max)                local vertices
+              | [n_local_max, n_local_max+g)    ghosts (stale remote colors)
+              | sentinel slot (always color 0)  at index n_slots-1
+
+``nbr`` is the adjacency in padded-neighbour (ELL) form: one
+``(n_local_max, maxd)`` row of slot ids per vertex, padded with the sentinel
+slot, so a tile of vertices gathers its neighbourhood with one
+``view[nbr[rows]]`` — the layout the selection kernels consume.
+``boundary`` lists local boundary slots; only boundary colors travel.  Under
+the broadcast scheme ghost g of processor p is owned by ``ghost_owner[g]``
+and lives at position ``ghost_slot[g]`` of that owner's payload; under the
+sparse scheme (``CommPlan``) each processor ships per-destination send lists
+over a static ring-shift round schedule.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Graph:
+    """Global symmetric CSR graph (host, numpy)."""
+
+    n: int
+    indptr: np.ndarray  # (n+1,) int64
+    indices: np.ndarray  # (2m,) int32 (int64 past the 2**31 id bound)
+
+    @property
+    def m(self) -> int:
+        return int(self.indices.shape[0]) // 2
+
+    @property
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.indptr).astype(np.int32)
+
+
+#: per-shard slot index arrays (slots, ELL neighbours) are int32 below this.
+INT32_LIMIT = 2**31
+#: hard ceiling of the id layout — int64 ids cannot represent past this.
+INT64_LIMIT = 2**63
+
+
+@dataclasses.dataclass(frozen=True)
+class IdPolicy:
+    """The single id-width decision point.
+
+    Global ids (``gvid``, ``prio``, CSR ``indices``) are int32 while
+    ``n_global < 2**31`` and int64 past it; the flattened ELL index
+    ``v * maxd + k`` is int32 while ``n_local_max * maxd`` stays under
+    2**31.  Per-shard slot ids stay int32 regardless.
+    """
+
+    n_global: int
+    ell: int                 # n_local_max * max(maxd, 1)
+    id_dtype: object         # numpy dtype for global vertex ids
+    ell_dtype: object        # numpy dtype for flattened ELL indices
+
+
+def id_policy(n_global: int, n_local_max: int, maxd: int) -> IdPolicy:
+    """Decide the id widths for a (partitioned) graph's device layout.
+
+    Crossing either int32 bound promotes the affected dtype to int64;
+    int64 itself overflowing is an error.
+    """
+    ell = n_local_max * max(maxd, 1)
+    if n_global >= INT64_LIMIT or ell >= INT64_LIMIT:
+        raise ValueError(
+            f"graph exceeds the int64 id range: n_global={n_global}, "
+            f"n_local_max * maxd = {ell} (>= {INT64_LIMIT})")
+    return IdPolicy(
+        n_global=n_global, ell=ell,
+        id_dtype=np.int64 if n_global >= INT32_LIMIT else np.int32,
+        ell_dtype=np.int64 if ell >= INT32_LIMIT else np.int32)
+
+
+def _pad2(rows: list[np.ndarray], width: int, fill: int) -> np.ndarray:
+    out = np.full((len(rows), width), fill, dtype=np.int32)
+    for i, r in enumerate(rows):
+        out[i, : len(r)] = r
+    return out
+
+
+def _unique_pairs(a: np.ndarray, b: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Sort index pairs by (a, b) and drop duplicates — no packed keys."""
+    order = np.lexsort((b, a))
+    a, b = a[order], b[order]
+    keep = np.empty(a.shape[0], dtype=bool)
+    keep[:1] = True
+    keep[1:] = (a[1:] != a[:-1]) | (b[1:] != b[:-1])
+    return a[keep], b[keep]
+
+
+def _ceil_pow2(x: int) -> int:
+    return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
+
+
+@dataclasses.dataclass(frozen=True)
+class CommPlan:
+    """Static sparse-exchange schedule (paper's neighbour-to-neighbour sends).
+
+    In round ``r`` every shard p sends one buffer to ``(p + shifts[r]) % P``.
+    Only shifts with traffic exist; ``widths`` are the pow2-rung padded
+    buffer widths, ``exact_widths`` the true pmax payload counts (what
+    ``wire_bytes`` measures).  ``send_slot[p, r]`` lists the local boundary
+    slots the round-r destination reads; ghost g of shard q arrives in
+    round ``shift_to_round[ghost_shift[q, g]]`` at buffer position
+    ``ghost_pos[q, g]``.
+    """
+
+    shifts: tuple          # static nonzero ring shifts with any traffic
+    widths: tuple          # per-shift *padded* buffer width (pow2 rung)
+    exact_widths: tuple    # per-shift true pmax payload width (<= widths)
+    max_send: int          # max(widths), the send_slot pad width
+    n_send: np.ndarray     # (P, P) per-(src, dst) payload counts
+    send_slot: np.ndarray  # (P, n_rounds, max_send) local slots, pad=sentinel
+    ghost_shift: np.ndarray  # (P, max_ghost) ring shift of each ghost, pad=-1
+    ghost_pos: np.ndarray    # (P, max_ghost) position in owner's send row
+    shift_to_round: np.ndarray  # (P, P) shift value -> round index, -1 unused
+
+    def arrays(self) -> dict[str, np.ndarray]:
+        P = self.send_slot.shape[0]
+        rw = np.zeros((max(len(self.shifts), 1),), np.int32)
+        rw[:len(self.exact_widths)] = self.exact_widths
+        return dict(send_slot=self.send_slot, ghost_shift=self.ghost_shift,
+                    ghost_pos=self.ghost_pos,
+                    shift_to_round=self.shift_to_round,
+                    round_widths=np.broadcast_to(rw, (P, rw.shape[0])).copy())
+
+    def bytes_per_exchange(self, itemsize: int = 4, *,
+                           padded: bool = False) -> int:
+        """Per-shard wire bytes of one full sparse exchange (exact plan
+        widths; ``padded=True`` counts the pow2-rung buffers shipped)."""
+        ws = self.widths if padded else self.exact_widths
+        return int(sum(ws)) * itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedGraph:
+    """Per-processor padded arrays, stacked on a leading P axis (host, numpy).
+
+    `n_slots = n_local_max + max_ghost + 1`.
+    """
+
+    P: int
+    n_global: int
+    n_local_max: int
+    max_ghost: int
+    max_boundary: int
+    m_local_max: int
+    maxd: int
+    offs: np.ndarray           # (P+1,) block boundaries in global ids
+    n_local: np.ndarray        # (P,)
+    n_ghost: np.ndarray        # (P,)
+    n_boundary: np.ndarray     # (P,)
+    indptr: np.ndarray         # (P, n_local_max+1)
+    indices: np.ndarray        # (P, m_local_max) slot ids, pad=sentinel
+    nbr: np.ndarray            # (P, n_local_max, maxd) ELL slot ids, pad=sentinel
+    edge_src: np.ndarray       # (P, m_local_max) local row per edge, pad=n_local_max
+    boundary: np.ndarray       # (P, max_boundary) local slots, pad=sentinel
+    ghost_owner: np.ndarray    # (P, max_ghost)
+    ghost_slot: np.ndarray     # (P, max_ghost)
+    gvid: np.ndarray           # (P, n_slots) global vertex id per slot, pad=-1
+    prio: np.ndarray           # (P, n_slots) random tie-break priority, pad=-1
+    is_internal: np.ndarray    # (P, n_local_max) bool
+    degree: np.ndarray         # (P, n_local_max) int32 local-graph-visible degree
+    quantize_plan: bool = True  # pow2-rung round widths in ``comm_plan``
+
+    @property
+    def n_slots(self) -> int:
+        return self.n_local_max + self.max_ghost + 1
+
+    @property
+    def sentinel(self) -> int:
+        return self.n_slots - 1
+
+    @functools.cached_property
+    def comm_plan(self) -> CommPlan:
+        """Sparse-exchange schedule; built once, cached on the instance."""
+        return build_comm_plan(self)
+
+    def arrays(self, *, sparse: bool = True) -> dict[str, np.ndarray]:
+        """Host dict of everything the device code consumes (the
+        reference's ``PartitionedGraph.arrays()`` layout)."""
+        out = dict(
+            n_local=self.n_local.astype(np.int32),
+            indptr=self.indptr,
+            indices=self.indices,
+            nbr=self.nbr,
+            edge_src=self.edge_src,
+            boundary=self.boundary,
+            ghost_owner=self.ghost_owner,
+            ghost_slot=self.ghost_slot,
+            prio=self.prio,
+            is_internal=self.is_internal,
+            degree=self.degree,
+        )
+        if sparse:
+            out.update(self.comm_plan.arrays())
+        return out
+
+    def gather_global_colors(self, local_colors: np.ndarray) -> np.ndarray:
+        """(P, n_slots) or (P, n_local_max) views -> (n_global,) colors."""
+        out = np.zeros(self.n_global, dtype=local_colors.dtype)
+        for p in range(self.P):
+            nl = int(self.n_local[p])
+            out[self.offs[p] : self.offs[p] + nl] = local_colors[p, :nl]
+        return out
+
+
+def partition_graph(g: Graph, P: int, *, seed: int = 0,
+                    permute: bool = False, halo: int = 1) -> PartitionedGraph:
+    """Block-partition `g` onto P processors and build the device layout.
+
+    ``permute=True`` applies a random vertex permutation first.  Only the
+    one-hop halo is ported; ``halo=2`` (distance-2 coloring) raises.
+    """
+    if halo != 1:
+        raise NotImplementedError(
+            "halo=2 (distance-2 coloring) is not ported yet")
+    rng = np.random.default_rng(seed)
+    id_dt = id_policy(g.n, 1, 1).id_dtype
+    if permute:
+        perm = rng.permutation(g.n).astype(id_dt)
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(g.n, dtype=id_dt)
+        deg = g.degrees
+        new_indptr = np.zeros(g.n + 1, dtype=np.int64)
+        new_indptr[1:] = np.cumsum(deg[perm])
+        new_indices = np.empty_like(g.indices)
+        for new_v in range(g.n):
+            old_v = perm[new_v]
+            s, e = g.indptr[old_v], g.indptr[old_v + 1]
+            new_indices[new_indptr[new_v] : new_indptr[new_v + 1]] = inv[g.indices[s:e]]
+        g = Graph(g.n, new_indptr, new_indices)
+
+    offs = np.linspace(0, g.n, P + 1).astype(np.int64)
+    owner_of = np.searchsorted(offs, np.arange(g.n), side="right") - 1
+    prio_global = rng.permutation(g.n).astype(id_dt)  # random total order (§2.2)
+
+    n_local = (offs[1:] - offs[:-1]).astype(np.int32)
+    n_local_max = int(n_local.max())
+
+    # pass 1: per-shard edge slices and halo sets (the remote vertices whose
+    # colors this shard reads)
+    ghosts_of: list[np.ndarray] = []
+    edge_of: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+    for p in range(P):
+        lo, hi = int(offs[p]), int(offs[p + 1])
+        nl = hi - lo
+        nbrs = g.indices[g.indptr[lo] : g.indptr[hi]]
+        row = np.repeat(np.arange(nl, dtype=np.int32),
+                        np.diff(g.indptr[lo : hi + 1]).astype(np.int32))
+        remote = (nbrs < lo) | (nbrs >= hi)
+        edge_of.append((nbrs, row, remote))
+        ghosts_of.append(np.unique(nbrs[remote]))
+
+    # boundary = local vertices some other shard reads
+    read_remote = np.zeros(g.n, dtype=bool)
+    for gh in ghosts_of:
+        read_remote[gh] = True
+
+    rows_indptr, rows_indices, rows_src = [], [], []
+    rows_boundary, rows_gowner = [], []
+    rows_internal, rows_degree = [], []
+    n_ghost = np.zeros(P, dtype=np.int32)
+    n_boundary = np.zeros(P, dtype=np.int32)
+
+    for p in range(P):
+        lo, hi = int(offs[p]), int(offs[p + 1])
+        nbrs, row, remote = edge_of[p]
+        gh = ghosts_of[p]
+        slots = np.where(remote, 0, nbrs - lo).astype(np.int32)
+        if remote.any():
+            slots[remote] = (n_local_max
+                             + np.searchsorted(gh, nbrs[remote])).astype(
+                                 np.int32)
+        is_bnd = read_remote[lo:hi].copy()
+        bnd = np.nonzero(is_bnd)[0].astype(np.int32)
+        n_boundary[p] = len(bnd)
+        n_ghost[p] = len(gh)
+
+        rows_indptr.append(np.diff(g.indptr[lo : hi + 1]).astype(np.int32))
+        rows_indices.append(slots)
+        rows_src.append(row)
+        rows_boundary.append(bnd)
+        gowner = owner_of[gh].astype(np.int32) if len(gh) else np.zeros(0, np.int32)
+        rows_gowner.append(gowner)
+        rows_internal.append(~is_bnd)
+        rows_degree.append(np.diff(g.indptr[lo : hi + 1]).astype(np.int32))
+
+    # ghost -> (owner, slot-in-owner-boundary-payload) via one global table
+    bslot_global = np.full(g.n, -1, dtype=np.int32)
+    for p in range(P):
+        lo = int(offs[p])
+        bslot_global[rows_boundary[p] + lo] = np.arange(
+            len(rows_boundary[p]), dtype=np.int32)
+    gslot_rows = [bslot_global[gh] for gh in ghosts_of]
+
+    max_ghost = max(1, int(n_ghost.max()))
+    max_boundary = max(1, int(n_boundary.max()))
+    m_local_max = max(1, max(len(r) for r in rows_indices))
+    n_slots = n_local_max + max_ghost + 1
+    sentinel = n_slots - 1
+
+    indptr = np.zeros((P, n_local_max + 1), dtype=np.int32)
+    gvid = np.full((P, n_slots), -1, dtype=id_dt)
+    prio = np.full((P, n_slots), -1, dtype=id_dt)
+    is_internal = np.zeros((P, n_local_max), dtype=bool)
+    degree = np.zeros((P, n_local_max), dtype=np.int32)
+    for p in range(P):
+        nl = int(n_local[p])
+        indptr[p, 1 : nl + 1] = np.cumsum(rows_indptr[p])
+        indptr[p, nl + 1 :] = indptr[p, nl]
+        gh, lo = ghosts_of[p], int(offs[p])
+        gvid[p, :nl] = np.arange(lo, lo + nl, dtype=id_dt)
+        gvid[p, n_local_max : n_local_max + len(gh)] = gh
+        prio[p, :nl] = prio_global[lo : lo + nl]
+        prio[p, n_local_max : n_local_max + len(gh)] = prio_global[gh]
+        is_internal[p, :nl] = rows_internal[p]
+        degree[p, :nl] = rows_degree[p]
+
+    indices = _pad2(rows_indices, m_local_max, sentinel)
+    edge_src = _pad2(rows_src, m_local_max, n_local_max)
+
+    # ELL form of the same adjacency, padded with the sentinel (color 0)
+    maxd = max(1, max(int(r.max(initial=0)) for r in rows_indptr))
+    id_policy(g.n, n_local_max, maxd)  # before the ELL allocation
+    nbr = np.full((P, n_local_max, maxd), sentinel, dtype=np.int32)
+    for p in range(P):
+        deg_p = rows_indptr[p].astype(np.int64)
+        starts = np.concatenate([[0], np.cumsum(deg_p)])[:-1]
+        row = rows_src[p].astype(np.int64)
+        col = np.arange(len(row), dtype=np.int64) - starts[row]
+        nbr[p, row, col] = rows_indices[p]
+    boundary = _pad2(rows_boundary, max_boundary, sentinel)
+    ghost_owner = _pad2(rows_gowner, max_ghost, 0)
+    ghost_slot = _pad2(gslot_rows, max_ghost, 0)
+
+    return PartitionedGraph(
+        P=P, n_global=g.n, n_local_max=n_local_max, max_ghost=max_ghost,
+        max_boundary=max_boundary, m_local_max=m_local_max, maxd=maxd,
+        offs=offs, n_local=n_local, n_ghost=n_ghost, n_boundary=n_boundary,
+        indptr=indptr, indices=indices, nbr=nbr, edge_src=edge_src,
+        boundary=boundary, ghost_owner=ghost_owner, ghost_slot=ghost_slot,
+        gvid=gvid, prio=prio, is_internal=is_internal, degree=degree,
+    )
+
+
+def build_comm_plan(pg: PartitionedGraph, *,
+                    quantize: bool | None = None) -> CommPlan:
+    """Derive the sparse neighbour-to-neighbour schedule from the ghosts.
+
+    Shard q's ghosts are sorted by global id and block partitioning makes
+    the owner monotone in the id, so the ghosts owned by one shard p form
+    one contiguous run: p's send list to q.  ``quantize`` (default
+    ``pg.quantize_plan``) rounds every round's buffer width up to a power
+    of two; byte accounting keeps the exact widths.
+    """
+    P = pg.P
+    n_send = np.zeros((P, P), dtype=np.int32)
+    send_lists: dict[tuple[int, int], np.ndarray] = {}
+    ghost_pos = np.zeros((P, pg.max_ghost), dtype=np.int32)
+    ghost_shift = np.full((P, pg.max_ghost), -1, dtype=np.int32)
+
+    for q in range(P):
+        ng = int(pg.n_ghost[q])
+        if ng == 0:
+            continue
+        owners = pg.ghost_owner[q, :ng]
+        vids = pg.gvid[q, pg.n_local_max : pg.n_local_max + ng]
+        starts = np.flatnonzero(np.r_[True, owners[1:] != owners[:-1]])
+        ends = np.r_[starts[1:], ng]
+        for s, e in zip(starts, ends):
+            p = int(owners[s])
+            send_lists[(p, q)] = (vids[s:e] - pg.offs[p]).astype(np.int32)
+            n_send[p, q] = e - s
+            ghost_pos[q, s:e] = np.arange(e - s, dtype=np.int32)
+            ghost_shift[q, s:e] = (q - p) % P
+
+    srcs, dsts = np.nonzero(n_send)
+    all_shifts = (dsts - srcs) % P
+    shifts = tuple(int(k) for k in np.unique(all_shifts))
+    exact_widths = tuple(
+        int(n_send[np.arange(P), (np.arange(P) + k) % P].max())
+        for k in shifts)
+    if quantize is None:
+        quantize = pg.quantize_plan
+    widths = (tuple(_ceil_pow2(w) for w in exact_widths) if quantize
+              else exact_widths)
+    max_send = max(widths, default=0)
+
+    send_slot = np.full((P, max(len(shifts), 1), max(max_send, 1)),
+                        pg.sentinel, dtype=np.int32)
+    for r, k in enumerate(shifts):
+        for p in range(P):
+            q = (p + k) % P
+            sl = send_lists.get((p, q))
+            if sl is not None:
+                send_slot[p, r, : len(sl)] = sl
+
+    shift_to_round = np.full((P,), -1, dtype=np.int32)
+    for r, k in enumerate(shifts):
+        shift_to_round[k] = r
+
+    return CommPlan(
+        shifts=shifts, widths=widths, exact_widths=exact_widths,
+        max_send=max_send, n_send=n_send,
+        send_slot=send_slot, ghost_shift=ghost_shift, ghost_pos=ghost_pos,
+        shift_to_round=np.broadcast_to(shift_to_round, (P, P)).copy(),
+    )
+
+
+# --------------------------------------------------------- host -> device --
+
+def arrays_from_numpy(arrs: dict, device) -> dict[str, torch.Tensor]:
+    """A ``PartitionedGraph.arrays()``-layout numpy dict -> device tensors.
+
+    Takes the dict of this module's ``PartitionedGraph.arrays()`` or the
+    reference's (the two are array-for-array equal), so a reference
+    partition can be fed to the port unchanged.  Dtypes are kept.
+    """
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in arrs.items()}
+
+
+def to_device(pg: PartitionedGraph, device, *,
+              sparse: bool = True) -> dict[str, torch.Tensor]:
+    """The device dict of ``pg`` (``sparse=False`` skips the comm plan)."""
+    return arrays_from_numpy(pg.arrays(sparse=sparse), device)
+
+
+def view_from_numpy(view, device) -> torch.Tensor:
+    """A ``(P, n_slots)`` color view (numpy or reference array) -> device
+    int32 tensor."""
+    return torch.from_numpy(np.array(view, dtype=np.int32)).to(device)

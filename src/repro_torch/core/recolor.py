@@ -1,0 +1,361 @@
+"""Distributed synchronous recoloring (paper §3), all shards on one device.
+
+The reference's ``repro.core.recolor`` over ``(P, …)`` tensors.  Given a
+valid coloring with K classes, one iteration recolors in K steps: step t
+first-fit-colors the whole class ranked t — an independent set, so the step
+is data-parallel and conflict-free.  Vertices are sorted by step once and
+each class is consumed as fixed-size chunks (an ELL gather + a bitset
+first fit through ``kernels.ops.select_colors``); per-class chunk counts
+are maxed over shards, so every shard runs the same schedule.
+
+Piggybacking (§3.1): a ghost color written at step s is only read at a
+later step t, so the boundary exchange after s is deferred to t-1 and
+everything pending rides one exchange; under the sparse scheme the
+schedule is refined per ring-shift round.
+
+The schedule (the class count, chunks per class and exchange events) is
+computed on the device and read to the host once per iteration; the chunk
+loop then runs with host-known bounds and exchange decisions.  Only the
+RV, NI and ND class permutations are ported (RAND raises).
+"""
+from __future__ import annotations
+
+import bisect
+import dataclasses
+
+import torch
+
+from repro_torch import rng
+from repro_torch.kernels import ops
+
+from .comm import (AUTO, DEFAULT_SCHEME, SCHEME_CHOICES, SPARSE, AxisComm,
+                   CommConfig, make_exchange, sparse_rounds, stats_to_host,
+                   take_rows)
+from .graph import PartitionedGraph, to_device
+from .speculative import resolve_cfg, resolve_device, validate_color_bounds
+
+RV = "rv"
+NI = "ni"
+ND = "nd"
+RAND = "rand"
+ALL_PERMS = (RV, NI, ND, RAND)
+PERM_IDS = {kind: i for i, kind in enumerate(ALL_PERMS)}
+INT32_MAX = 2**31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class RecolorConfig:
+    """Static configuration of one recoloring iteration.
+
+    ``max_colors`` bounds the *seed* coloring's ids (32-aligned);
+    ``chunk`` is vertices selected per ELL tile (clamped to the shard's
+    row count).  ``distance=2`` raises (not ported yet).
+    """
+
+    max_colors: int = 1024         # bound on colors of the SEED coloring
+    piggyback: bool = True         # paper §3.1 (False = exchange every step)
+    scheme: str = DEFAULT_SCHEME   # "sparse" | "allgather" | "auto"
+    wire16: bool = False           # int16 boundary payloads
+    chunk: int = 256               # vertices selected per chunk (ELL tile rows)
+    backend: str = "auto"          # kernels.ops backend: auto | torch | cuda
+    distance: int = 1
+    seed: int = 0
+
+    def __post_init__(self):
+        validate_color_bounds(self.max_colors, self.wire16, self.backend)
+        if self.scheme not in SCHEME_CHOICES:
+            raise ValueError(f"bad scheme {self.scheme!r}")
+        if self.chunk <= 0:
+            raise ValueError("chunk must be > 0")
+        if self.distance != 1:
+            raise NotImplementedError(
+                "distance-2 recoloring is not ported yet")
+
+    @property
+    def comm_config(self) -> CommConfig:
+        return CommConfig(scheme=self.scheme, wire16=self.wire16)
+
+
+def class_sizes(view, n_local, n_local_max: int, max_colors: int):
+    """Global color-class sizes ``(max_colors,)`` and the count of local
+    colors outside ``[0, max_colors)`` (masked out of the sizes), both on
+    the device.  Class 0 (uncolored) counts 0."""
+    raw = view[:, :n_local_max]
+    valid = (torch.arange(n_local_max, device=view.device)
+             < n_local[:, None])
+    in_range = (raw >= 0) & (raw < max_colors)
+    oor = AxisComm.psum((valid & ~in_range).sum(dim=1))
+    counted = valid & in_range
+    sizes = torch.zeros(max_colors, dtype=torch.int64, device=view.device)
+    sizes.scatter_add_(0, torch.where(counted, raw, 0).reshape(-1).long(),
+                       counted.reshape(-1).long())
+    sizes[0] = 0
+    return sizes, oor
+
+
+def permutation_rank(sizes, kind: str, key=None) -> torch.Tensor:
+    """rank[c] = recoloring step (1-based) of color class c; 0 for absent
+    classes and class 0.  Ties break by color id; empty classes sort last.
+    """
+    mc = sizes.shape[0]
+    colors = torch.arange(mc, device=sizes.device)
+    present = (sizes > 0) & (colors > 0)
+    if kind == RV:
+        key_v = -colors
+    elif kind == NI:
+        key_v = -sizes
+    elif kind == ND:
+        key_v = sizes
+    elif kind == RAND:
+        raise NotImplementedError(
+            "the RAND permutation needs rng.permutation, not ported yet")
+    else:
+        raise ValueError(f"unknown permutation {kind!r}")
+    key_v = torch.where(present, key_v, INT32_MAX)
+    order = torch.argsort(key_v, stable=True)      # stable: color tie-break
+    rank = torch.zeros(mc, dtype=torch.int64, device=sizes.device)
+    rank[order] = torch.arange(1, mc + 1, device=sizes.device)
+    return torch.where(present, rank, 0)
+
+
+def _cross_deps(step_of, arrs, n_local_max: int):
+    """Per cross edge: (dep mask, reader step s_v, ghost index of the
+    writer).  A dependency exists where the local reader reads a ghost
+    whose writer recolors at an earlier step."""
+    src, dst = arrs["edge_src"], arrs["indices"]
+    P = step_of.shape[0]
+    step_rows = torch.cat(
+        [step_of[:, :n_local_max],
+         torch.zeros((P, 1), dtype=step_of.dtype, device=step_of.device)],
+        dim=1)
+    s_v = take_rows(step_rows, src)
+    s_u = take_rows(step_of, dst)
+    n_ghost_cols = step_of.shape[1] - 1 - n_local_max
+    is_ghost = (dst >= n_local_max) & (dst < step_of.shape[1] - 1)
+    dep = is_ghost & (s_u > 0) & (s_v > s_u)
+    # sentinel/local entries never form a dependency; clamp their ghost
+    # index into range (the reference's gather clamps the same way)
+    return dep, s_v, (dst - n_local_max).clamp(0, n_ghost_cols - 1)
+
+
+def _needed_exchanges(step_of, arrs, n_local_max: int, n_classes,
+                      max_colors: int, piggyback: bool):
+    """The piggybacking schedule: needed[t] = exchange event after step t.
+    Entry ``max_colors`` is the end-of-iteration exchange (always on)."""
+    dev = step_of.device
+    if piggyback:
+        # OR over all shards' dependencies; non-dependencies write to a
+        # spare last entry (no mask indexing: it would sync the device)
+        needed = torch.zeros(max_colors + 2, dtype=torch.bool, device=dev)
+        dep, s_v, _ = _cross_deps(step_of, arrs, n_local_max)
+        needed[torch.where(dep, s_v - 1, max_colors + 1)] = True
+        needed = needed[:max_colors + 1]
+        needed[0] = False
+    else:
+        needed = torch.arange(max_colors + 1, device=dev) <= n_classes
+    needed[max_colors] = True
+    return needed
+
+
+def _needed_exchange_rounds(step_of, arrs, n_local_max: int, n_classes,
+                            max_colors: int, piggyback: bool,
+                            n_rounds: int):
+    """Sparse piggybacking: needed[t, r] = ring-shift round r after step t
+    (each dependency marks only its writer's round).  Row ``max_colors``
+    runs every round."""
+    dev = step_of.device
+    P = step_of.shape[0]
+    if piggyback:
+        needed = torch.zeros((max_colors + 2, max(n_rounds, 1)),
+                             dtype=torch.bool, device=dev)
+        dep, s_v, gi = _cross_deps(step_of, arrs, n_local_max)
+        p = torch.arange(P, device=dev)[:, None]
+        shift = (p - take_rows(arrs["ghost_owner"], gi).long()) % P
+        rnd = take_rows(arrs["shift_to_round"], shift)
+        needed[torch.where(dep, s_v - 1, max_colors + 1),
+               torch.where(dep, rnd, 0).long()] = True
+        needed = needed[:max_colors + 1, :n_rounds]
+        needed[0] = False
+    else:
+        needed = (torch.arange(max_colors + 1, device=dev)
+                  <= n_classes)[:, None].expand(max_colors + 1,
+                                                n_rounds).clone()
+    needed[max_colors] = True
+    return needed
+
+
+@dataclasses.dataclass
+class _Schedule:
+    """One iteration's chunk schedule, host side, plus its device parts."""
+
+    n_classes: int
+    cum: list            # cum[t] = chunks through class t
+    chunks: list         # chunks of class t
+    needed: list         # exchange event after step t (entry mc = end)
+    needed_rounds: list | None   # sparse: rounds of each event
+    sorted_pad: torch.Tensor     # (P, n_local_max + chunk) step-sorted rows
+    start_local: torch.Tensor    # (P, mc + 1) first sorted position of t
+    local_sizes: torch.Tensor    # (P, mc + 1) rows of class t per shard
+
+
+def recolor_schedule(arrs, view, rank, n_classes, cfg: RecolorConfig,
+                     n_rounds: int) -> _Schedule:
+    """Step map, piggyback events and per-class chunk schedule of one
+    iteration; ends with its one device->host read."""
+    P, n_slots = view.shape
+    n_local_max = arrs["indptr"].shape[1] - 1
+    mc = cfg.max_colors
+    chunk = min(cfg.chunk, n_local_max)
+    dev = view.device
+    step_of = rank[view.long().clamp(0, mc - 1)]
+    step_of[:, n_slots - 1] = 0                        # sentinel
+    if cfg.scheme == SPARSE:
+        needed_rounds = _needed_exchange_rounds(
+            step_of, arrs, n_local_max, n_classes, mc, cfg.piggyback,
+            n_rounds)
+        needed = needed_rounds.any(dim=1)
+        needed[mc] = True
+    else:
+        needed_rounds = None
+        needed = _needed_exchanges(step_of, arrs, n_local_max, n_classes, mc,
+                                   cfg.piggyback)
+
+    valid_local = (torch.arange(n_local_max, device=dev)
+                   < arrs["n_local"][:, None])
+    sort_key = torch.where(valid_local, step_of[:, :n_local_max], mc + 1)
+    sorted_rows = torch.argsort(sort_key, dim=1, stable=True)
+    sorted_pad = torch.cat(
+        [sorted_rows, torch.zeros((P, chunk), dtype=torch.int64, device=dev)],
+        dim=1)
+    local_sizes = torch.zeros((P, mc + 2), dtype=torch.int64, device=dev)
+    local_sizes.scatter_add_(1, sort_key, torch.ones_like(sort_key))
+    local_sizes = local_sizes[:, :mc + 1]
+    start_local = local_sizes.cumsum(dim=1) - local_sizes
+    max_sizes = AxisComm.pmax(local_sizes)
+    t = torch.arange(mc + 1, device=dev)
+    per_class = torch.where((t >= 1) & (t <= n_classes),
+                            (-(-max_sizes // chunk)).clamp(min=1), 0)
+    cum = per_class.cumsum(dim=0)
+
+    parts = [n_classes.reshape(1).long(), cum, per_class, needed.long()]
+    if needed_rounds is not None:
+        parts.append(needed_rounds.reshape(-1).long())
+    host = torch.cat(parts).tolist()                   # the one read
+    k = mc + 1
+    rounds = None
+    if needed_rounds is not None:
+        flat = host[1 + 3 * k:]
+        rounds = [flat[i * n_rounds:(i + 1) * n_rounds] for i in range(k)]
+    return _Schedule(n_classes=host[0], cum=host[1:1 + k],
+                     chunks=host[1 + k:1 + 2 * k],
+                     needed=host[1 + 2 * k:1 + 3 * k], needed_rounds=rounds,
+                     sorted_pad=sorted_pad, start_local=start_local,
+                     local_sizes=local_sizes)
+
+
+def recolor_steps(arrs, sched: _Schedule, exchange, cfg: RecolorConfig):
+    """The chunked step loop of one iteration over a host-known schedule.
+
+    Returns ``(new_view, stats)``: ``n_colors`` as a device scalar,
+    ``n_colors_before``/``n_steps`` (the class count), ``n_exchanges`` and
+    ``wire_bytes`` as python ints.
+    """
+    P, n_slots = arrs["prio"].shape
+    n_local_max = arrs["indptr"].shape[1] - 1
+    mc = cfg.max_colors
+    chunk = min(cfg.chunk, n_local_max)
+    dev = sched.sorted_pad.device
+    nbr = arrs["nbr"]
+    lane = torch.arange(chunk, device=dev)
+    new_view = torch.zeros((P, n_slots), dtype=torch.int32, device=dev)
+    n_ex = n_bytes = 0
+    n_classes = sched.n_classes
+    for ci in range(sched.cum[mc]):
+        t = bisect.bisect_right(sched.cum, ci)
+        j = ci - (sched.cum[t] - sched.chunks[t])      # chunk # within class
+        pos = (sched.start_local[:, t] + j * chunk).clamp(max=n_local_max)
+        active = lane < (sched.local_sizes[:, t] - j * chunk)[:, None]
+        rows = sched.sorted_pad.gather(1, pos[:, None] + lane)
+        rows = torch.where(active, rows, 0)
+        nbr_colors = take_rows(new_view, take_rows(nbr, rows))
+        colors = ops.select_colors(nbr_colors, active, max_colors=mc,
+                                   selection=ops.FIRST_FIT,
+                                   backend=cfg.backend)
+        idx = torch.where(active, rows, n_slots - 1)   # park writes on the
+        val = torch.where(active, colors, 0)           # sentinel (stays 0)
+        new_view.scatter_(1, idx, val)
+        is_end = t == n_classes
+        if ci + 1 == sched.cum[t] and (sched.needed[min(t, mc)] or is_end):
+            mask = None
+            if sched.needed_rounds is not None and not is_end:
+                mask = sched.needed_rounds[min(t, mc)]
+            new_view, b = exchange(new_view, mask)
+            n_ex, n_bytes = n_ex + 1, n_bytes + b
+
+    valid_local = (torch.arange(n_local_max, device=dev)
+                   < arrs["n_local"][:, None])
+    stats = dict(
+        n_colors=torch.where(valid_local, new_view[:, :n_local_max], 0).max(),
+        n_colors_before=n_classes,
+        n_exchanges=n_ex,
+        n_steps=n_classes,
+        wire_bytes=n_bytes,
+    )
+    return new_view, stats
+
+
+def recolor_shards(arrs: dict, view: torch.Tensor, perm_kind: str,
+                   cfg: RecolorConfig, key=None):
+    """One synchronous recoloring iteration of all P shards (the
+    reference's ``recolor_spmd`` under ``run_sim``).
+
+    ``view`` is a valid ``(P, n_slots)`` coloring with fresh ghosts.
+    Returns the new view and python-int stats ``n_colors``,
+    ``n_colors_distinct``, ``n_colors_before``, ``n_exchanges``,
+    ``n_steps``, ``wire_bytes``, ``n_out_of_range``.
+    """
+    if cfg.scheme == AUTO:
+        raise ValueError("scheme='auto' must be resolved by an entry point "
+                         "(resolve_cfg) before the run")
+    n_local_max = arrs["indptr"].shape[1] - 1
+    sizes, n_oor = class_sizes(view, arrs["n_local"], n_local_max,
+                               cfg.max_colors)
+    n_classes = (sizes > 0).sum()
+    rank = permutation_rank(sizes, perm_kind, key)
+    exchange = make_exchange(arrs, cfg.comm_config)
+    sched = recolor_schedule(arrs, view, rank, n_classes, cfg,
+                             sparse_rounds(arrs))
+    new_view, stats = recolor_steps(arrs, sched, exchange, cfg)
+    sizes_after, _ = class_sizes(new_view, arrs["n_local"], n_local_max,
+                                 cfg.max_colors)
+    stats["n_colors_distinct"] = (sizes_after > 0).sum()
+    stats["n_out_of_range"] = n_oor
+    return new_view, stats_to_host(stats)
+
+
+def recolor_sim(pg: PartitionedGraph, view, perm_kind: str,
+                cfg: RecolorConfig, key=None, *, device=None):
+    """One synchronous RC iteration of ``pg`` on one device.
+
+    ``view`` — ``(P, n_slots)`` valid coloring with fresh ghosts (a tensor,
+    or numpy via ``view_from_numpy``); ``perm_kind`` — ``RV``/``NI``/``ND``.
+    ``key`` is accepted for the RAND permutation (not ported yet).
+    Returns ``(view, stats)`` as ``recolor_shards``.
+    """
+    device = resolve_device(device)
+    cfg = resolve_cfg(pg, cfg)
+    arrs = to_device(pg, device, sparse=cfg.scheme == SPARSE)
+    if key is None:
+        key = rng.key(cfg.seed)
+    return recolor_shards(arrs, torch.as_tensor(view, device=device),
+                          perm_kind, cfg, key)
+
+
+def schedule_for_iteration(it: int, base: str = ND, rand_every: int = 0,
+                           rand_pow2: bool = False) -> str:
+    """Permutation for iteration `it` (1-based): ND-RAND%x / ND-RAND%2^i."""
+    if rand_pow2:
+        return RAND if it & (it - 1) == 0 and it > 1 else base
+    if rand_every and it % rand_every == 0:
+        return RAND
+    return base

@@ -1,0 +1,297 @@
+"""Speculative greedy distributed coloring (Bozdağ et al. framework, §2.2).
+
+The reference's ``repro.core.speculative`` on its tile-parallel path, over
+``(P, …)`` tensors of one device:
+
+  while conflicts remain:
+    compact uncolored vertices to the front of the visit order
+    for each superstep chunk of `superstep` vertices:
+        color it as tile-parallel sub-tiles against the (stale) view:
+        one ELL gather + ``kernels.ops.select_colors`` per tile
+        exchange boundary colors (every `exchange_every` supersteps),
+        skipped when no shard colored a boundary vertex since the last one
+    detect conflicts over the round's frontier (``ops.detect_conflicts``);
+    the lower-priority endpoint is uncolored and retried next round
+
+The reference's ``lax`` loops become Python loops.  Their trip counts and
+exchange decisions are shard-uniform, so each round reads the device once:
+the frontier size, the per-chunk boundary flags, and the previous round's
+conflict count and final-exchange flag travel together.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import rng
+from repro_torch.kernels import ops
+
+from .comm import (AUTO, DEFAULT_SCHEME, SCHEME_CHOICES, SPARSE, AxisComm,
+                   CommConfig, make_exchange, resolve_scheme, stats_to_host,
+                   take_rows)
+from .graph import PartitionedGraph, to_device
+
+
+def validate_color_bounds(max_colors: int, wire16: bool, backend: str):
+    """Shared config checks of ColorConfig / RecolorConfig."""
+    if max_colors % 32 or max_colors <= 0:
+        raise ValueError("max_colors must be a positive multiple of 32")
+    if wire16 and max_colors > 32767:
+        raise ValueError(f"wire16 carries colors as int16; max_colors="
+                         f"{max_colors} exceeds 32767")
+    if backend not in ops.BACKENDS:
+        raise ValueError(f"bad backend {backend!r}, want one of "
+                         f"{ops.BACKENDS}")
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU.  Raises when CUDA is asked for (the default) but missing."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class ColorConfig:
+    """Static configuration of one distributed coloring run.
+
+    ``superstep`` and ``tile`` are vertex counts per chunk (clamped to the
+    shard's row count); ``max_colors`` is the 32-aligned color-id bound;
+    ``exchange_every`` counts supersteps between boundary exchanges;
+    ``max_rounds`` bounds the speculate/repair rounds.  Only the
+    tile-parallel, distance-1 path is ported: ``parallel_chunk=False``,
+    ``least_used``, ``distance=2`` and ``partial`` raise.
+    """
+
+    max_colors: int = 1024
+    superstep: int = 512           # paper's superstep size (vertices per chunk)
+    selection: str = ops.FIRST_FIT
+    random_x: int = 10             # X for Random-X Fit
+    stagger_estimate: int = 64     # initial color estimate for Staggered FF
+    exchange_every: int = 1        # 1 = synchronous; k>1 = bounded staleness
+    max_rounds: int = 64
+    scheme: str = DEFAULT_SCHEME   # "sparse" | "allgather" | "auto"
+    wire16: bool = False           # int16 boundary payloads
+    parallel_chunk: bool = True    # tile-parallel supersteps
+    tile: int = 128                # vertices colored at once within a superstep
+    backend: str = "auto"          # kernels.ops backend: auto | torch | cuda
+    distance: int = 1
+    partial: bool = False
+    seed: int = 0
+
+    def __post_init__(self):
+        validate_color_bounds(self.max_colors, self.wire16, self.backend)
+        if self.scheme not in SCHEME_CHOICES:
+            raise ValueError(f"bad scheme {self.scheme!r}")
+        if self.tile <= 0 or self.superstep <= 0 or self.exchange_every <= 0:
+            raise ValueError("tile, superstep and exchange_every must be > 0")
+        if self.selection == ops.LEAST_USED or not self.parallel_chunk:
+            raise NotImplementedError(
+                "the sequential path (parallel_chunk=False, least_used) is "
+                "not ported yet")
+        if self.selection not in ops.SELECTIONS:
+            raise ValueError(f"unknown selection {self.selection!r}")
+        if self.distance != 1 or self.partial:
+            raise NotImplementedError(
+                "distance-2 and partial coloring are not ported yet")
+
+    @property
+    def comm_config(self) -> CommConfig:
+        return CommConfig(scheme=self.scheme, wire16=self.wire16)
+
+    def stagger_offset(self, p_idx):
+        """Staggered First Fit start color of processor ``p_idx``."""
+        return (p_idx * self.stagger_estimate) % self.max_colors
+
+
+def _parallel_chunk(view, order_pad, rand, start: int, arrs, offset,
+                    cfg: ColorConfig, superstep: int):
+    """Color one superstep as tile-parallel sub-tiles against the stale view.
+
+    Each sub-tile of ``cfg.tile`` vertices per shard colors at once; the
+    view updates between sub-tiles.  Same-tile neighbours may conflict —
+    the round loop repairs them.  Updates ``view`` in place.
+    """
+    n_slots = view.shape[1]
+    tile = min(cfg.tile, superstep)
+    last = order_pad.shape[1] - tile      # lax.dynamic_slice clamps here
+    for ti in range(-(-superstep // tile)):
+        s0 = min(start + ti * tile, last)
+        chunk = order_pad[:, s0:s0 + tile]                 # (P, tile)
+        v_safe = chunk.clamp(min=0)
+        active = (chunk >= 0) & (take_rows(view, v_safe) == 0)
+        nbr_colors = take_rows(view, take_rows(arrs["nbr"], v_safe))
+        colors = ops.select_colors(
+            nbr_colors, active, take_rows(rand, v_safe),
+            max_colors=cfg.max_colors, selection=cfg.selection,
+            x=cfg.random_x, offset=offset, backend=cfg.backend)
+        colors = colors.clamp(max=cfg.max_colors - 1)
+        idx = torch.where(active, v_safe, n_slots - 1)   # park writes on the
+        val = torch.where(active, colors, 0)             # sentinel (stays 0)
+        view.scatter_(1, idx.long(), val.to(view.dtype))
+    return view
+
+
+def _detect_conflicts_frontier(view, arrs, order_pad, n_steps: int, n_need,
+                               superstep: int, backend: str = "auto"):
+    """Uncolor the lower-priority endpoint of every same-color frontier edge.
+
+    Chunked over the round's visit order: only the ``n_need`` vertices
+    colored this round are rescanned.  Every chunk reads the same
+    pre-detection ``view`` and writes uncolorings into a copy.  Returns
+    (new_view, n_conflicts, any_boundary_conflict) — the last two as
+    device scalars.
+    """
+    nbr, prio, is_internal = arrs["nbr"], arrs["prio"], arrs["is_internal"]
+    n_slots = view.shape[1]
+    new_view = view.clone()
+    n_conf = torch.zeros((), dtype=torch.int64, device=view.device)
+    bnd = torch.zeros((), dtype=torch.bool, device=view.device)
+    offs = torch.arange(superstep, device=view.device)
+    for si in range(n_steps):
+        rows = order_pad[:, si * superstep:(si + 1) * superstep]
+        active = (rows >= 0) & (si * superstep + offs < n_need[:, None])
+        r_safe = rows.clamp(min=0)
+        nbr_rows = take_rows(nbr, r_safe)
+        conf = ops.detect_conflicts(
+            take_rows(view, r_safe), take_rows(prio, r_safe),
+            take_rows(view, nbr_rows), take_rows(prio, nbr_rows), active,
+            backend=backend)
+        idx = torch.where(conf, r_safe, n_slots - 1)   # sentinel stays 0
+        new_view.scatter_(1, idx.long(), 0)
+        n_conf = n_conf + conf.sum()
+        bnd = bnd | (conf & ~take_rows(is_internal, r_safe)).any()
+    return new_view, n_conf, bnd
+
+
+def _compact_order(order, view):
+    """Stable-move still-uncolored vertices to the front of each shard's
+    visit order; returns (order, per-shard count)."""
+    v_safe = order.clamp(min=0)
+    needs = (order >= 0) & (take_rows(view, v_safe) == 0)
+    perm = torch.argsort((~needs).to(torch.uint8), dim=1, stable=True)
+    return order.gather(1, perm), needs.sum(dim=1)
+
+
+def _speculate(arrs: dict, order: torch.Tensor, key: torch.Tensor,
+               cfg: ColorConfig, exchange):
+    """The speculate/repair round loop; returns (view, n_rounds,
+    n_exchanges, wire_bytes)."""
+    P, n_slots = arrs["prio"].shape
+    n_local_max = arrs["indptr"].shape[1] - 1
+    dev = order.device
+    comm = AxisComm(P)
+    # the superstep clamps to the shard's row count: bitwise-identical, and
+    # small graphs stop gathering pure padding
+    S = min(cfg.superstep, n_local_max)
+    n_chunks_max = -(-n_local_max // S)
+    view = torch.zeros((P, n_slots), dtype=torch.int32, device=dev)
+    offset = None
+    if cfg.selection == ops.STAGGERED:
+        offset = cfg.stagger_offset(comm.index(dev)).to(torch.int32)[:, None]
+    shard_ids = comm.index(dev)
+    pos = torch.arange(n_chunks_max * S, device=dev)
+
+    rnd = n_rounds = n_ex = n_bytes = 0
+    n_conf = torch.ones((), dtype=torch.int64, device=dev)   # round 0 runs
+    do_final = torch.zeros((), dtype=torch.int64, device=dev)
+    while True:
+        order_r, n_need = _compact_order(order, view)
+        order_pad = torch.cat(
+            [order_r, torch.full((P, S), -1, dtype=order_r.dtype, device=dev)],
+            dim=1)
+        # which superstep chunks color a boundary vertex on any shard: the
+        # exchanges the others would trigger are elided (ghosts cannot move)
+        opad = order_pad[:, :n_chunks_max * S]
+        bnd = ((opad >= 0) & (pos < n_need[:, None])
+               & ~take_rows(arrs["is_internal"], opad.clamp(min=0)))
+        chunk_bnd = comm.pmax(bnd.reshape(P, n_chunks_max, S).any(dim=2))
+        # the round's one device->host read
+        head = torch.stack([n_conf, do_final.long(), comm.pmax(n_need).long()])
+        host = torch.cat([head, chunk_bnd.long()]).tolist()
+        conf_prev, final_prev, n_need_max = host[:3]
+        chunk_bnd_h = host[3:]
+        if final_prev:     # publish the previous round's uncolorings
+            view, b = exchange(view)
+            n_ex, n_bytes = n_ex + 1, n_bytes + b
+        if not (conf_prev > 0 and rnd < cfg.max_rounds):
+            break
+        n_rounds += 1
+        n_steps = -(-n_need_max // S)
+        rkeys = rng.fold_in(rng.fold_in(key, rnd), shard_ids)
+        rand = rng.as_int32_bits(rng.bits(rkeys, n_local_max))
+        pending = False
+        for si in range(n_steps):
+            view = _parallel_chunk(view, order_pad, rand, si * S, arrs,
+                                   offset, cfg, S)
+            pending = pending or bool(chunk_bnd_h[si])
+            due = (si + 1) % cfg.exchange_every == 0 or si == n_steps - 1
+            if due and pending:
+                view, b = exchange(view)
+                n_ex, n_bytes, pending = n_ex + 1, n_bytes + b, False
+        view, n_conf, do_final = _detect_conflicts_frontier(
+            view, arrs, order_pad, n_steps, n_need, S, backend=cfg.backend)
+        rnd += 1
+    return view, n_rounds, n_ex, n_bytes
+
+
+def color_shards(arrs: dict, order: torch.Tensor, key: torch.Tensor,
+                 cfg: ColorConfig):
+    """Speculative coloring of all P shards (the reference's ``color_spmd``
+    under ``run_sim``).
+
+    ``arrs`` is the device dict (``graph.to_device``); ``order`` the ``(P,
+    n_local_max)`` visit order of local slots, -1 = skip; ``key`` an
+    ``rng`` key.  Returns ``(view, stats)``: the ``(P, n_slots)`` int32
+    view and python-int stats ``n_colors`` (max id), ``n_colors_distinct``,
+    ``n_rounds``, ``n_exchanges``, ``wire_bytes`` (per shard).
+    """
+    if cfg.scheme == AUTO:
+        raise ValueError("scheme='auto' must be resolved by an entry point "
+                         "(resolve_cfg) before the run")
+    view, n_rounds, n_ex, n_bytes = _speculate(
+        arrs, order, key, cfg, make_exchange(arrs, cfg.comm_config))
+    # distinct classes in use — the quality metric (the max id alone can
+    # overstate the color count)
+    n_local_max = arrs["indptr"].shape[1] - 1
+    local = view[:, :n_local_max]
+    valid = (torch.arange(n_local_max, device=view.device)
+             < arrs["n_local"][:, None])
+    in_use = torch.bincount(local[valid].long(), minlength=cfg.max_colors)
+    stats = dict(
+        n_colors=local.max(),
+        n_colors_distinct=(in_use[1:] > 0).sum(),
+        n_rounds=n_rounds,
+        n_exchanges=n_ex,
+        wire_bytes=n_bytes,
+    )
+    return view, stats_to_host(stats)
+
+
+def resolve_cfg(pg: PartitionedGraph, cfg):
+    """Concretize ``scheme="auto"`` against this partition's comm plan
+    (any frozen config with a ``scheme`` field)."""
+    if cfg.scheme == AUTO:
+        cfg = dataclasses.replace(cfg, scheme=resolve_scheme(AUTO, pg))
+    return cfg
+
+
+def color_graph_sim(pg: PartitionedGraph, order, cfg: ColorConfig, key=None,
+                    *, device=None):
+    """Distributed coloring of ``pg``, all P shards on one device.
+
+    ``order`` — ``(P, n_local_max)`` int32 visit order (``compute_order``);
+    ``key`` — ``rng`` key (default ``rng.key(cfg.seed)``); ``device`` —
+    default CUDA, ``"cpu"`` runs the plain kernels on the CPU.  Returns
+    ``(view, stats)`` as ``color_shards``.
+    """
+    device = resolve_device(device)
+    cfg = resolve_cfg(pg, cfg)
+    arrs = to_device(pg, device, sparse=cfg.scheme == SPARSE)
+    if key is None:
+        key = rng.key(cfg.seed)
+    return color_shards(arrs, torch.as_tensor(order, device=device), key, cfg)
