@@ -8,10 +8,16 @@ before the final line):
 1. card and build — the ``nvidia-smi`` name/power-limit query, then the
    hand-written CUDA kernels built with ``nvcc`` from ``src/repro_torch``;
 2. kernels against their plain PyTorch versions on the card — random
-   tiles with out-of-range colors, the saturation rows, and the main-path
-   shapes (speculative tiles 64x128 rows, recolor chunks 64x256 rows,
-   conflict chunks 64x512 rows, MAXD=678, max_colors=1024); bitwise equal,
-   with each kernel's time, the plain version's time and the bytes bound;
+   tiles with out-of-range colors, a batched (B, V, D) tile, the
+   saturation rows, and the main-path shapes (distance 1: speculative
+   tiles 64x128 rows, recolor chunks 64x256 rows, conflict chunks 64x512
+   rows, MAXD=678; distance 2: speculative tiles 16x16 rows, recolor
+   chunks 16x256 rows, conflict chunks 16x512 rows, MAXD=26 + MAXD2=98,
+   the rows whose taken colors are split between the one-hop and the
+   two-hop tile; max_colors=1024); bitwise equal, with each kernel's
+   device time per launch (torch.profiler), the plain version's device
+   time per call, the bytes bound, and the wrapper's call time (CUDA
+   events around the Python call, host-bound on small tiles);
 3. the main path at full size — ``rmat_good(20, 8, seed=1)`` on P=64
    shards, the "quality" preset (Random-X X=10, Internal-First, ND
    recoloring) with K=8 iterations, through ``pipeline_sim`` on the GPU; the
@@ -22,7 +28,16 @@ before the final line):
    with ``backend="torch"``, under the sparse and all-gather exchanges:
    views, color stats and histories bitwise equal (the wire bytes differ
    between the schemes by design; the padding of unused ghost slots, which
-   no vertex reads, differs between the schemes too).
+   no vertex reads, differs between the schemes too);
+5. the distance-2 path at full size — ``grid3d(64, 64, 64)`` (the 27-point
+   stencil, HPCG's operator pattern) partitioned with the two-hop halo on
+   P=16 shards, the "quality" preset with K=8 and ``distance=2``,
+   ``tile=16`` on both stages, through ``pipeline_sim`` on the GPU; the
+   coloring must be valid at distance 2 and both D2 kernels must have
+   launched (counted in this run); then a profiled repeat;
+6. distance-2 cross-check — ``grid3d(32, 32, 32)`` at P=16, K=4: kernels
+   vs plain under both exchanges, then partial D2 of the even global ids,
+   kernels vs plain; bitwise equal, unmarked vertices left uncolored.
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
 result line.
@@ -47,6 +62,14 @@ CROSS_SCALE, CROSS_P, CROSS_K = 18, 16, 4
 MAXD, MAX_COLORS = 678, 1024
 TILE_ROWS = {"speculative tile": 64 * 128, "recolor chunk": 64 * 256}
 CONFLICT_ROWS = 64 * 512
+# the distance-2 path: grid3d's 27-point stencil on the two-hop halo
+D2_GRID, D2_P, D2_K, D2_TILE = (64, 64, 64), 16, 8, 16
+D2_CROSS_GRID, D2_CROSS_K = (32, 32, 32), 4
+D2_MAXD, D2_MAXD2 = 26, 98
+D2_TILE_ROWS = {"speculative tile": D2_P * D2_TILE,
+                "recolor chunk": D2_P * 256}
+D2_CONFLICT_ROWS = D2_P * 512
+SELECTIONS = (("first_fit", 0), ("staggered", 0), ("random_x", 10))
 
 
 def phase(name: str, t0: float, detail: str = "") -> None:
@@ -60,7 +83,9 @@ def check(ok: bool, what: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events)."""
+    """Mean time per call of ``fn()`` between CUDA events around ``reps``
+    calls.  When the calls are host-bound (a small tile behind a Python
+    wrapper) this is the host's enqueue time, not the kernel's."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -71,6 +96,56 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str | None = None) -> float:
+    """Mean device time per call of ``fn()`` over ``reps`` calls, summed
+    from torch.profiler's device-side events: those of the kernel named
+    ``kernel`` only, or every device event when ``kernel`` is None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and (kernel is None or kernel + "_kernel" in e.key))
+    return total_us / reps / 1e3
+
+
+def time_pair(name: str, kernel_fn, plain_fn, reps: int, plain_reps: int):
+    """The kernel's and the plain version's device time per call
+    (profiler), and the wrapper's call time (CUDA events), in ms."""
+    return dict(ms=device_ms(kernel_fn, reps, name),
+                plain_ms=device_ms(plain_fn, plain_reps),
+                call_ms=cuda_ms(kernel_fn, reps))
+
+
+def timing_line(what: str, t: dict, b: float, by: str) -> str:
+    return (f"{what}: kernel {t['ms']:.4f} ms device ({t['call_ms']:.4f} ms "
+            f"per wrapper call), plain {t['plain_ms']:.4f} ms device, bound "
+            f"{b:.4f} ms ({by})")
+
+
+def live_rows(my_color, active, tiles) -> tuple[int, int]:
+    """Rows that can lose (active and colored), and the entries of those
+    rows whose neighbour color equals the row's: only there is a
+    neighbour's priority needed."""
+    live = (active != 0) & (my_color > 0)
+    n_match = sum(int(((t == my_color[:, None]) & live[:, None]).sum())
+                  for t in tiles)
+    return int(live.sum()), n_match
+
+
+def conflict_bytes(n_live: int, n_match: int, width: int, rows: int) -> int:
+    """Bytes a conflict test must move: the neighbour colors and the own
+    priority of the live rows, a neighbour's priority only where the
+    colors match, and my_color, active and the output of every row."""
+    return n_live * (width * 4 + 4) + n_match * 4 + rows * 12
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -96,10 +171,9 @@ def main_path_tile(gen, rows: int, dev):
 
 
 def phase_kernels(ops, dev) -> dict:
-    """Phase 2: every kernel against its plain version; returns the kernels
-    line's measured fields."""
+    """Phase 2, distance 1: both kernels against their plain versions;
+    returns the kernels line's measured fields."""
     gen = np.random.default_rng(0)
-    selections = ((ops.FIRST_FIT, 0), (ops.STAGGERED, 0), (ops.RANDOM_X, 10))
 
     def select(tile, act, rand, off, sel, x, backend, mc=MAX_COLORS):
         return ops.select_colors(tile, act, rand, max_colors=mc,
@@ -115,7 +189,7 @@ def phase_kernels(ops, dev) -> dict:
                                 .astype(np.int32)).to(dev)
         off = torch.from_numpy(gen.integers(0, 128, shape[:-1])
                                .astype(np.int32)).to(dev)
-        for sel, x in selections + ((ops.RANDOM_X, 7),):
+        for sel, x in SELECTIONS + ((ops.RANDOM_X, 7),):
             got = select(tile, act, rand, off, sel, x, "cuda", 128)
             want = select(tile, act, rand, off, sel, x, "torch", 128)
             check(torch.equal(got, want), f"select {sel} x={x} on {shape}")
@@ -135,7 +209,7 @@ def phase_kernels(ops, dev) -> dict:
     ])).to(dev)
     ones = torch.ones(3, dtype=torch.bool, device=dev)
     forty = torch.full((3,), 40, dtype=torch.int32, device=dev)
-    for sel, x in selections:
+    for sel, x in SELECTIONS:
         got = select(rows, ones, None, forty, sel, x, "cuda", mc)
         check(got.tolist() == [mc - 1, 5, mc - 2],
               f"saturation rows {sel}: {got.tolist()}")
@@ -145,26 +219,24 @@ def phase_kernels(ops, dev) -> dict:
     for where, n_rows in TILE_ROWS.items():
         tile, act, rand, off = main_path_tile(gen, n_rows, dev)
         n_act = int(act.sum())
-        for sel, x in selections:
+        for sel, x in SELECTIONS:
             got = select(tile, act, rand, off, sel, x, "cuda")
             want = select(tile, act, rand, off, sel, x, "torch")
             err = int((got - want).abs().max())
             check(err == 0, f"select {sel} at {where} shape ({n_rows}, {MAXD})")
-            ms = cuda_ms(lambda: select(tile, act, rand, off, sel, x, "cuda"),
-                         50)
-            plain = cuda_ms(
-                lambda: select(tile, act, rand, off, sel, x, "torch"), 3)
+            tm = time_pair(
+                "color_select",
+                lambda: select(tile, act, rand, off, sel, x, "cuda"),
+                lambda: select(tile, act, rand, off, sel, x, "torch"), 50, 3)
             n_bytes = n_act * (MAXD * 4 + 4) + n_rows * 8
             b, by = bound_ms(n_bytes, n_act * MAXD * 4)
-            lines.append(f"color_select {sel:9s} {where} ({n_rows}x{MAXD}): "
-                         f"kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                         f"bound {b:.4f} ms ({by})")
+            lines.append(timing_line(
+                f"color_select {sel:9s} {where} ({n_rows}x{MAXD})", tm, b, by))
             # the kernels line reports the speculative tiles' Random-X call,
             # the main path's color_select (the recolor chunks' First Fit is
             # on the lines above)
             if sel == ops.RANDOM_X and n_rows == TILE_ROWS["speculative tile"]:
-                out["color_select"] = dict(ms=ms, plain_ms=plain, bound=b,
-                                           by=by, err=err)
+                out["color_select"] = dict(tm, bound=b, by=by, err=err)
 
     tile, act, _, _ = main_path_tile(gen, CONFLICT_ROWS, dev)
     prio = torch.from_numpy(gen.integers(0, 2**20, tile.shape)
@@ -178,15 +250,129 @@ def phase_kernels(ops, dev) -> dict:
     got, want = conf("cuda"), conf("torch")
     err = int((got.int() - want.int()).abs().max())
     check(err == 0, f"conflict at ({CONFLICT_ROWS}, {MAXD})")
-    n_live = int((act & (myc > 0)).sum())
-    ms = cuda_ms(lambda: conf("cuda"), 50)
-    plain = cuda_ms(lambda: conf("torch"), 3)
-    b, by = bound_ms(n_live * (MAXD * 8 + 4) + CONFLICT_ROWS * 12,
-                     n_live * MAXD * 3)
-    lines.append(f"conflict  conflict chunk ({CONFLICT_ROWS}x{MAXD}): kernel "
-                 f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by}), "
-                 f"{int(got.sum())} losers")
-    out["conflict"] = dict(ms=ms, plain_ms=plain, bound=b, by=by, err=err)
+    n_live, n_match = live_rows(myc, act, (tile,))
+    tm = time_pair("conflict", lambda: conf("cuda"), lambda: conf("torch"),
+                   50, 3)
+    b, by = bound_ms(conflict_bytes(n_live, n_match, MAXD, CONFLICT_ROWS),
+                     n_live * MAXD * 2 + n_match)
+    lines.append(timing_line(
+        f"conflict  conflict chunk ({CONFLICT_ROWS}x{MAXD})", tm, b, by)
+        + f", {int(got.sum())} losers")
+    out["conflict"] = dict(tm, bound=b, by=by, err=err)
+    for line in lines:
+        print("  " + line)
+    return out
+
+
+def d2_tiles(gen, rows: int, dev, lead=()):
+    """One-hop (rows, 26) and two-hop (rows, 98) tiles shaped like the
+    27-point stencil's: full rows inside the grid, shorter ones on its
+    faces, colors in the D2 coloring's range with a few out of range,
+    ~90% active rows.  Returns the tiles and the per-row operands."""
+    shape = lead + (rows,)
+
+    def tile(width):
+        full = gen.random(shape) < 0.9
+        deg = np.where(full, width, gen.integers(width // 3, width, shape))
+        colors = gen.integers(1, 160, shape + (width,))
+        colors[gen.random(shape + (width,)) < 0.01] = MAX_COLORS + 5
+        cols = np.arange(width)
+        return np.where(cols < deg[..., None], colors, 0).astype(np.int32)
+
+    to = lambda a: torch.from_numpy(a).to(dev)
+    return dict(
+        nbr=to(tile(D2_MAXD)), nbr2=to(tile(D2_MAXD2)),
+        active=to(gen.random(shape) < 0.9),
+        rand=to(gen.integers(-2**31, 2**31, shape, dtype=np.int64)
+                .astype(np.int32)),
+        offset=to(gen.integers(0, MAX_COLORS, shape).astype(np.int32)),
+        prio=to(gen.integers(0, 2**18, shape + (D2_MAXD,)).astype(np.int32)),
+        prio2=to(gen.integers(0, 2**18, shape + (D2_MAXD2,)).astype(np.int32)),
+        my_color=to(gen.integers(0, 160, shape).astype(np.int32)),
+        my_prio=to(gen.integers(0, 2**18, shape).astype(np.int32)))
+
+
+def phase_kernels_d2(ops, dev) -> dict:
+    """Phase 2, distance 2: both D2 kernels against their plain versions;
+    returns the kernels line's measured fields."""
+    gen = np.random.default_rng(1)
+
+    def select(t, sel, x, backend, mc=MAX_COLORS):
+        return ops.select_colors_d2(t["nbr"], t["nbr2"], t["active"],
+                                    t["rand"], max_colors=mc, selection=sel,
+                                    x=x, offset=t["offset"], backend=backend)
+
+    def conflicts(t, backend):
+        return ops.detect_conflicts_d2(
+            t["my_color"], t["my_prio"], t["nbr"], t["prio"], t["nbr2"],
+            t["prio2"], t["active"], backend=backend)
+
+    # random tiles with out-of-range colors, and a batched (B, V, D) tile
+    for rows, lead in ((300, ()), (257, (3,))):
+        t = d2_tiles(gen, rows, dev, lead)
+        t["nbr"] = torch.from_numpy(gen.integers(
+            -2, 128 + 8, tuple(t["nbr"].shape)).astype(np.int32)).to(dev)
+        t["nbr2"] = torch.from_numpy(gen.integers(
+            -2, 128 + 8, tuple(t["nbr2"].shape)).astype(np.int32)).to(dev)
+        t["my_color"] = t["my_color"] % 128
+        for sel, x in SELECTIONS + (("random_x", 7),):
+            check(torch.equal(select(t, sel, x, "cuda", 128),
+                              select(t, sel, x, "torch", 128)),
+                  f"select_d2 {sel} x={x} on {lead + (rows,)}")
+        check(torch.equal(conflicts(t, "cuda"), conflicts(t, "torch")),
+              f"conflict_d2 on {lead + (rows,)}")
+
+    # the saturation rows, their taken colors split between the tiles
+    mc = 64
+    full = np.arange(1, mc - 1, dtype=np.int32)
+    rows = np.stack([full, np.where(full == 5, 0, full),
+                     np.where(full == mc - 2, 0, full)])
+    half = rows.shape[1] // 2
+    sat = dict(nbr=torch.from_numpy(rows[:, :half].copy()).to(dev),
+               nbr2=torch.from_numpy(rows[:, half:].copy()).to(dev),
+               active=torch.ones(3, dtype=torch.bool, device=dev), rand=None,
+               offset=torch.full((3,), 40, dtype=torch.int32, device=dev))
+    for sel, x in SELECTIONS:
+        got = select(sat, sel, x, "cuda", mc)
+        check(got.tolist() == [mc - 1, 5, mc - 2],
+              f"d2 saturation rows {sel}: {got.tolist()}")
+
+    out, lines = {}, []
+    width = D2_MAXD + D2_MAXD2
+    for where, n_rows in D2_TILE_ROWS.items():
+        t = d2_tiles(gen, n_rows, dev)
+        n_act = int(t["active"].sum())
+        for sel, x in SELECTIONS:
+            got, want = select(t, sel, x, "cuda"), select(t, sel, x, "torch")
+            err = int((got - want).abs().max())
+            check(err == 0, f"select_d2 {sel} at {where} ({n_rows} rows)")
+            tm = time_pair("color_select_d2",
+                           lambda: select(t, sel, x, "cuda"),
+                           lambda: select(t, sel, x, "torch"), 200, 10)
+            b, by = bound_ms(n_act * (width * 4 + 4) + n_rows * 8,
+                             n_act * width * 4)
+            lines.append(timing_line(
+                f"color_select_d2 {sel:9s} {where} ({n_rows}x{D2_MAXD}+"
+                f"{D2_MAXD2})", tm, b, by))
+            # as at distance 1, the kernels line reports the speculative
+            # tiles' Random-X call (the recolor chunks' are on the lines)
+            if sel == "random_x" and where == "speculative tile":
+                out["color_select_d2"] = dict(tm, bound=b, by=by, err=err)
+
+    t = d2_tiles(gen, D2_CONFLICT_ROWS, dev)
+    got, want = conflicts(t, "cuda"), conflicts(t, "torch")
+    err = int((got.int() - want.int()).abs().max())
+    check(err == 0, f"conflict_d2 at {D2_CONFLICT_ROWS} rows")
+    n_live, n_match = live_rows(t["my_color"], t["active"],
+                                (t["nbr"], t["nbr2"]))
+    tm = time_pair("conflict_d2", lambda: conflicts(t, "cuda"),
+                   lambda: conflicts(t, "torch"), 200, 10)
+    b, by = bound_ms(conflict_bytes(n_live, n_match, width, D2_CONFLICT_ROWS),
+                     n_live * width * 2 + n_match)
+    lines.append(timing_line(
+        f"conflict_d2 conflict chunk ({D2_CONFLICT_ROWS}x{D2_MAXD}+"
+        f"{D2_MAXD2})", tm, b, by) + f", {int(got.sum())} losers")
+    out["conflict_d2"] = dict(tm, bound=b, by=by, err=err)
     for line in lines:
         print("  " + line)
     return out
@@ -196,7 +382,42 @@ def stage_seconds(res) -> str:
     return ", ".join(f"{k} {v:.3f} s" for k, v in res["seconds"].items())
 
 
-def phase_main_path(core, ops, dev) -> None:
+def drive_path(core, ops, dev, g, pg, order, cfg, kernels) -> dict:
+    """One full-size pipeline run with every launch count set to 0 just
+    before it and read just after; checks the coloring at the config's
+    distance, the iteration count and that each of ``kernels`` launched.
+    Returns the launch counts; then profiles a repeat."""
+    distance = cfg.color.distance
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in ops.KERNELS:
+        k.launches = 0
+    view, res = core.pipeline_sim(pg, order, cfg, device=dev)
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = core.check_coloring(g, core.colors_from_views(pg, view),
+                             distance=distance)
+    c = res["color"]
+    print(f"  initial: n_colors_distinct {c['n_colors_distinct']}, "
+          f"n_rounds {c['n_rounds']}, n_exchanges {c['n_exchanges']}, "
+          f"wire_bytes {c['wire_bytes']}")
+    for h in res["history"]:
+        print(f"  iteration {h['iteration']}: n_colors_distinct "
+              f"{h['n_colors_distinct']}, n_exchanges {h['n_exchanges']}, "
+              f"wire_bytes {h['wire_bytes']}")
+    d2 = (f", d2 conflicting pairs {st['n_d2_conflicting_pairs']}"
+          if distance == 2 else "")
+    print(f"  stages: {stage_seconds(res)}; peak device memory "
+          f"{peak / 2**30:.3f} GiB; launches {launches}; valid {st['valid']}, "
+          f"colors {st['n_colors']}{d2}")
+    check(st["valid"], f"distance-{distance} coloring invalid: {st}")
+    check(res["n_iters_run"] == cfg.n_iters, "the path ran fewer iterations")
+    for name in kernels:
+        check(launches[name] > 0, f"kernel {name} never launched on its path")
+    profile_path(core, pg, order, cfg, dev, res, kernels)
+    return launches
+
+
+def phase_main_path(core, ops, dev) -> dict:
     """Phase 3: the paper's headline experiment at full size."""
     from repro_torch.core import presets
     t = time.perf_counter()
@@ -211,37 +432,48 @@ def phase_main_path(core, ops, dev) -> None:
           f"P={MAIN_P}, n_local_max={pg.n_local_max}, maxd={pg.maxd}, "
           f"max_ghost={pg.max_ghost}; generate {t_gen:.3f} s, partition+order "
           f"{t_part:.3f} s; scheme {scheme}", flush=True)
-    torch.cuda.reset_peak_memory_stats(dev)
-    for k in ops.KERNELS:
-        k.launches = 0
-    view, res = core.pipeline_sim(pg, order, cfg, device=dev)
-    launches = {k.name: k.launches for k in ops.KERNELS}
-    peak = torch.cuda.max_memory_allocated(dev)
-    st = core.check_coloring(g, core.colors_from_views(pg, view))
-    c = res["color"]
-    print(f"  initial: n_colors_distinct {c['n_colors_distinct']}, "
-          f"n_rounds {c['n_rounds']}, n_exchanges {c['n_exchanges']}, "
-          f"wire_bytes {c['wire_bytes']}")
-    for h in res["history"]:
-        print(f"  iteration {h['iteration']}: n_colors_distinct "
-              f"{h['n_colors_distinct']}, n_exchanges {h['n_exchanges']}, "
-              f"wire_bytes {h['wire_bytes']}")
-    print(f"  stages: {stage_seconds(res)}; peak device memory "
-          f"{peak / 2**30:.3f} GiB; launches {launches}; valid {st['valid']}, "
-          f"colors {st['n_colors']}")
-    check(st["valid"], f"main-path coloring invalid: {st}")
-    check(res["n_iters_run"] == MAIN_K, "main path ran fewer iterations")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
-    profile_main_path(core, pg, order, cfg, dev, res)
-    return launches
+    return drive_path(core, ops, dev, g, pg, order, cfg,
+                      ("color_select", "conflict"))
 
 
-def profile_main_path(core, pg, order, cfg, dev, res) -> None:
-    """Where the time goes: the main path once more under torch.profiler
-    (its launches are not counted).  Device time is summed over the
-    device-side events; the idle share compares the device time of the
-    color and recolor stages with their wall time in the unprofiled run."""
+def d2_config(presets, n_iters: int):
+    """The "quality" preset at distance 2 with the reference's D2 tile."""
+    cfg = presets.pipeline_config(presets.quality(x=10), n_iters=n_iters)
+    return dataclasses.replace(
+        cfg, color=dataclasses.replace(cfg.color, distance=2, tile=D2_TILE),
+        recolor=dataclasses.replace(cfg.recolor, distance=2))
+
+
+def phase_d2_path(core, ops, dev) -> dict:
+    """Phase 5: distance-2 coloring of the 27-point stencil at full size."""
+    from repro_torch.core import presets
+    t = time.perf_counter()
+    g = core.rmat.grid3d(*D2_GRID)
+    t_gen = time.perf_counter() - t
+    pg = core.partition_graph(g, D2_P, halo=2)
+    order = core.compute_order(pg, core.ordering.INTERNAL_FIRST)
+    t_part = time.perf_counter() - t - t_gen
+    cfg = d2_config(presets, D2_K)
+    scheme = core.resolve_pipeline_cfg(pg, cfg).recolor.scheme
+    n_bytes = sum(a.nbytes for a in pg.arrays(sparse=scheme == core.SPARSE)
+                  .values())
+    print(f"  graph grid3d{D2_GRID}: n={g.n}, m={g.m}, P={D2_P}, halo=2, "
+          f"n_local_max={pg.n_local_max}, maxd={pg.maxd}, maxd2={pg.maxd2}, "
+          f"max_ghost={pg.max_ghost}, {n_bytes / 1e6:.1f} MB of partition "
+          f"arrays; generate {t_gen:.3f} s, partition+order {t_part:.3f} s; "
+          f"scheme {scheme}", flush=True)
+    check((pg.maxd, pg.maxd2) == (D2_MAXD, D2_MAXD2),
+          f"grid3d ELL widths {(pg.maxd, pg.maxd2)}, want "
+          f"{(D2_MAXD, D2_MAXD2)}")
+    return drive_path(core, ops, dev, g, pg, order, cfg,
+                      ("color_select_d2", "conflict_d2"))
+
+
+def profile_path(core, pg, order, cfg, dev, res, kernels) -> None:
+    """Where the time goes: the path once more under torch.profiler (its
+    launches are not counted).  Device time is summed over the device-side
+    events; the idle share compares the device time of the color and
+    recolor stages with their wall time in the unprofiled run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -254,13 +486,14 @@ def profile_main_path(core, pg, order, cfg, dev, res) -> None:
               if "Memcpy" in e.key) / 1e6
     ours = {k: sum(e.self_device_time_total for e in events
                    if k + "_kernel" in e.key) / 1e6
-            for k in ("color_select", "conflict")}
+            for k in kernels}
     loop_wall = res["seconds"]["color"] + res["seconds"]["recolor"]
+    mine = ", ".join(f"{k} {v:.4f} s" for k, v in ours.items())
     print(f"  profiled repeat: {stage_seconds(res_p)}; device busy "
-          f"{busy:.4f} s, of it host->device copies {h2d:.4f} s, "
-          f"color_select {ours['color_select']:.4f} s, conflict "
-          f"{ours['conflict']:.4f} s; color+recolor device time "
-          f"{busy - h2d:.4f} s over {loop_wall:.4f} s wall unprofiled "
+          f"{busy:.4f} s, of it host->device copies {h2d:.4f} s, {mine} "
+          f"({sum(ours.values()) / max(busy - h2d, 1e-12):.3f} of the loop's "
+          f"device time); color+recolor device time {busy - h2d:.4f} s over "
+          f"{loop_wall:.4f} s wall unprofiled "
           f"(device idle {1 - (busy - h2d) / loop_wall:.3f})")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
@@ -268,35 +501,36 @@ def profile_main_path(core, pg, order, cfg, dev, res) -> None:
               f"{e.key[:90]}")
 
 
-def phase_cross_check(core, dev) -> None:
-    """Phase 4: kernels vs plain versions, sparse vs all-gather."""
-    from repro_torch.core import presets
-    g = core.rmat.rmat_good(CROSS_SCALE, 8, seed=2)
-    pg = core.partition_graph(g, CROSS_P)
-    order = core.compute_order(pg, core.ordering.INTERNAL_FIRST)
-    base = presets.pipeline_config(presets.quality(x=10), n_iters=CROSS_K)
+def cross_runs(core, dev, pg, order, base, schemes, marked=None) -> dict:
+    """``pipeline_sim`` of ``base`` with the kernels and with
+    ``backend="torch"`` under each of ``schemes``; checks kernels = plain
+    (views, color stats, histories) and returns the runs."""
     runs = {}
-    for scheme in (core.SPARSE, core.ALLGATHER):
+    for scheme in schemes:
         for backend in ("auto", "torch"):
             cfg = dataclasses.replace(
                 base, color=dataclasses.replace(base.color, scheme=scheme,
                                                 backend=backend),
                 recolor=dataclasses.replace(base.recolor, scheme=scheme,
                                             backend=backend))
-            view, res = core.pipeline_sim(pg, order, cfg, device=dev)
+            view, res = core.pipeline_sim(pg, order, cfg, marked=marked,
+                                          device=dev)
             runs[scheme, backend] = (view, res)
             print(f"  {scheme:9s} {'kernels' if backend == 'auto' else 'plain':7s}"
                   f": {stage_seconds(res)}; colors "
                   f"{res['history'][-1]['n_colors_distinct']}", flush=True)
-    st = core.check_coloring(g, core.colors_from_views(pg, runs[core.SPARSE,
-                                                                "auto"][0]))
-    check(st["valid"], "cross-check coloring invalid")
-    no_bytes = lambda d: {k: v for k, v in d.items() if k != "wire_bytes"}
-    for scheme in (core.SPARSE, core.ALLGATHER):
+    for scheme in schemes:
         (v1, r1), (v2, r2) = runs[scheme, "auto"], runs[scheme, "torch"]
         check(torch.equal(v1, v2), f"{scheme}: kernel and plain views differ")
         check(r1["color"] == r2["color"] and r1["history"] == r2["history"],
               f"{scheme}: kernel and plain stats differ")
+    return runs
+
+
+def check_schemes_agree(core, pg, runs) -> None:
+    """Sparse = all-gather on local slots and real ghosts, and in every
+    stat but the wire bytes."""
+    no_bytes = lambda d: {k: v for k, v in d.items() if k != "wire_bytes"}
     (vs, rs), (va, ra) = runs[core.SPARSE, "auto"], runs[core.ALLGATHER, "auto"]
     live = torch.zeros_like(vs, dtype=torch.bool)
     live[:, :pg.n_local_max] = True
@@ -307,6 +541,54 @@ def phase_cross_check(core, dev) -> None:
           and [no_bytes(h) for h in rs["history"]]
           == [no_bytes(h) for h in ra["history"]],
           "sparse and all-gather stats differ")
+
+
+def phase_cross_check(core, dev) -> None:
+    """Phase 4: kernels vs plain versions, sparse vs all-gather."""
+    from repro_torch.core import presets
+    g = core.rmat.rmat_good(CROSS_SCALE, 8, seed=2)
+    pg = core.partition_graph(g, CROSS_P)
+    order = core.compute_order(pg, core.ordering.INTERNAL_FIRST)
+    base = presets.pipeline_config(presets.quality(x=10), n_iters=CROSS_K)
+    schemes = (core.SPARSE, core.ALLGATHER)
+    runs = cross_runs(core, dev, pg, order, base, schemes)
+    st = core.check_coloring(g, core.colors_from_views(pg, runs[core.SPARSE,
+                                                                "auto"][0]))
+    check(st["valid"], "cross-check coloring invalid")
+    check_schemes_agree(core, pg, runs)
+
+
+def phase_d2_cross_check(core, dev) -> None:
+    """Phase 6: distance 2 and partial distance 2, kernels vs plain
+    versions, sparse vs all-gather."""
+    from repro_torch.core import presets
+    g = core.rmat.grid3d(*D2_CROSS_GRID)
+    pg = core.partition_graph(g, D2_P, halo=2)
+    order = core.compute_order(pg, core.ordering.INTERNAL_FIRST)
+    base = d2_config(presets, D2_CROSS_K)
+    schemes = (core.SPARSE, core.ALLGATHER)
+    runs = cross_runs(core, dev, pg, order, base, schemes)
+    st = core.check_coloring(g, core.colors_from_views(
+        pg, runs[core.SPARSE, "auto"][0]), distance=2)
+    check(st["valid"], f"D2 cross-check coloring invalid: {st}")
+    check_schemes_agree(core, pg, runs)
+    # partial D2 of the even global ids (bipartite column coloring)
+    marked_g = np.arange(g.n) % 2 == 0
+    marked = np.zeros((pg.P, pg.n_local_max), bool)
+    for p in range(pg.P):
+        nl, lo = int(pg.n_local[p]), int(pg.offs[p])
+        marked[p, :nl] = marked_g[lo:lo + nl]
+    base_p = dataclasses.replace(
+        base, color=dataclasses.replace(base.color, partial=True))
+    runs = cross_runs(core, dev, pg, order, base_p, (core.SPARSE,),
+                      marked=marked)
+    colors = core.colors_from_views(pg, runs[core.SPARSE, "auto"][0])
+    st = core.check_coloring(g, colors, distance=2, marked=marked_g)
+    print(f"  partial D2: {int(marked_g.sum())} marked vertices, "
+          f"{st['n_colors']} colors, valid {st['valid']}")
+    check(st["valid"], f"partial D2 coloring invalid: {st}")
+    check(bool((colors[~marked_g] == 0).all()),
+          "partial D2 colored an unmarked vertex")
 
 
 def main() -> int:
@@ -335,6 +617,7 @@ def main() -> int:
 
     t = time.perf_counter()
     measured = phase_kernels(ops, dev)
+    measured.update(phase_kernels_d2(ops, dev))
     phase("2 kernels vs plain (bitwise)", t)
 
     t = time.perf_counter()
@@ -346,14 +629,24 @@ def main() -> int:
     phase(f"4 cross-check rmat_good({CROSS_SCALE}) P={CROSS_P} K={CROSS_K} "
           "kernels/plain x sparse/allgather", t)
 
+    t = time.perf_counter()
+    launches_d2 = phase_d2_path(core, ops, dev)
+    phase(f"5 distance-2 path grid3d{D2_GRID} halo=2 P={D2_P} K={D2_K}", t)
+    for name in ("color_select_d2", "conflict_d2"):
+        launches[name] = launches_d2[name]
+
+    t = time.perf_counter()
+    phase_d2_cross_check(core, dev)
+    phase(f"6 distance-2 cross-check grid3d{D2_CROSS_GRID} P={D2_P} "
+          f"K={D2_CROSS_K} kernels/plain x sparse/allgather, partial", t)
+
     kernels = []
-    for name, src, line in (
-            ("color_select", "src/repro_torch/kernels/csrc/color_select.cu",
-             "src/repro/kernels/firstfit.py:172"),
-            ("conflict", "src/repro_torch/kernels/csrc/conflict.cu",
-             "src/repro/kernels/firstfit.py:240")):
+    for name, line in (("color_select", 172), ("conflict", 240),
+                       ("color_select_d2", 205), ("conflict_d2", 258)):
         m = measured[name]
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=line,
+        src = f"src/repro_torch/kernels/csrc/{build.SOURCES[name]}"
+        kernels.append(dict(name=name, route="cuda", source=src,
+                            replaces=f"src/repro/kernels/firstfit.py:{line}",
                             launches=launches[name], max_abs_err=m["err"],
                             ms=m["ms"], plain_ms=m["plain_ms"],
                             bound_ms=m["bound"], bound_by=m["by"],

@@ -11,11 +11,13 @@ All P shards run on one device as ``(P, …)`` tensors.  Public API:
   check_coloring, colors_from_views              — validation
   presets.speed / presets.quality                — the paper's parameter sets
   select_colors, detect_conflicts                — the kernel entry points
+  select_colors_d2, detect_conflicts_d2          — their distance-2 forms
 
 Entry points take ``device=`` (default CUDA; ``"cpu"`` runs the plain
 kernels) and import no jax.
 """
-from repro_torch.kernels.ops import detect_conflicts, select_colors
+from repro_torch.kernels.ops import (detect_conflicts, detect_conflicts_d2,
+                                     select_colors, select_colors_d2)
 
 from . import ordering, presets, rmat
 from .comm import (ALLGATHER, AUTO, SCHEME_CHOICES, SCHEMES, SPARSE,
@@ -38,9 +40,10 @@ __all__ = [
     "RAND", "RV", "RecolorConfig", "SCHEMES", "SCHEME_CHOICES", "SPARSE",
     "arrays_from_numpy", "build_comm_plan", "check_coloring",
     "color_graph_sim", "color_shards", "color_then_recolor",
-    "colors_from_views", "compute_order", "detect_conflicts", "id_policy",
+    "colors_from_views", "compute_order", "detect_conflicts",
+    "detect_conflicts_d2", "id_policy",
     "ordering", "partition_graph", "pipeline_sim", "presets", "recolor_loop",
     "recolor_shards", "recolor_sim", "resolve_cfg", "resolve_pipeline_cfg",
     "resolve_scheme", "rmat", "schedule_for_iteration", "select_colors",
-    "to_device", "view_from_numpy",
+    "select_colors_d2", "to_device", "view_from_numpy",
 ]

@@ -1,8 +1,9 @@
 """Host-side graph substrate: global CSR + distributed partitioning.
 
-A numpy copy of the reference's ``repro.core.graph`` (halo 1), kept here so
-the port imports no jax, plus the host→device step (``to_device``,
-``arrays_from_numpy``, ``view_from_numpy``).
+A numpy copy of the reference's ``repro.core.graph`` (halo 1 and the
+two-hop halo of distance-2 coloring), kept here so the port imports no
+jax, plus the host→device step (``to_device``, ``arrays_from_numpy``,
+``view_from_numpy``).
 
 The distributed layout mirrors the paper (§2.2): each processor owns a
 contiguous block of vertices; for every cross-partition edge both
@@ -26,6 +27,11 @@ the broadcast scheme ghost g of processor p is owned by ``ghost_owner[g]``
 and lives at position ``ghost_slot[g]`` of that owner's payload; under the
 sparse scheme (``CommPlan``) each processor ships per-destination send lists
 over a static ring-shift round schedule.
+
+``partition_graph(..., halo=2)`` widens everything to the two-hop halo:
+ghosts cover every remote vertex within two hops, ``nbr2`` holds the
+strict two-hop ELL, and ``boundary``/``is_internal`` mean "read by some
+other shard".  The comm plan is halo-agnostic.
 """
 from __future__ import annotations
 
@@ -65,23 +71,24 @@ class IdPolicy:
 
     Global ids (``gvid``, ``prio``, CSR ``indices``) are int32 while
     ``n_global < 2**31`` and int64 past it; the flattened ELL index
-    ``v * maxd + k`` is int32 while ``n_local_max * maxd`` stays under
-    2**31.  Per-shard slot ids stay int32 regardless.
+    ``v * maxd + k`` is int32 while ``n_local_max * max(maxd, maxd2)``
+    stays under 2**31.  Per-shard slot ids stay int32 regardless.
     """
 
     n_global: int
-    ell: int                 # n_local_max * max(maxd, 1)
+    ell: int                 # n_local_max * max(maxd, maxd2, 1)
     id_dtype: object         # numpy dtype for global vertex ids
     ell_dtype: object        # numpy dtype for flattened ELL indices
 
 
-def id_policy(n_global: int, n_local_max: int, maxd: int) -> IdPolicy:
+def id_policy(n_global: int, n_local_max: int, maxd: int,
+              maxd2: int = 0) -> IdPolicy:
     """Decide the id widths for a (partitioned) graph's device layout.
 
     Crossing either int32 bound promotes the affected dtype to int64;
     int64 itself overflowing is an error.
     """
-    ell = n_local_max * max(maxd, 1)
+    ell = n_local_max * max(maxd, maxd2, 1)
     if n_global >= INT64_LIMIT or ell >= INT64_LIMIT:
         raise ValueError(
             f"graph exceeds the int64 id range: n_global={n_global}, "
@@ -107,6 +114,65 @@ def _unique_pairs(a: np.ndarray, b: np.ndarray) -> tuple[np.ndarray, np.ndarray]
     keep[:1] = True
     keep[1:] = (a[1:] != a[:-1]) | (b[1:] != b[:-1])
     return a[keep], b[keep]
+
+
+def _pair_diff(a2: np.ndarray, b2: np.ndarray, a1: np.ndarray,
+               b1: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Set-difference of *deduped* pair lists: (a2, b2) minus (a1, b1).
+
+    One lexsort over the concatenation with a membership tag: a pair of the
+    second list survives unless the (unique) copy from the first list sorts
+    immediately before it.  Output stays sorted by (a, b).
+    """
+    a = np.concatenate([a1, a2])
+    b = np.concatenate([b1, b2])
+    tag = np.concatenate([np.zeros(a1.shape[0], bool),
+                          np.ones(a2.shape[0], bool)])
+    order = np.lexsort((tag, b, a))
+    a, b, tag = a[order], b[order], tag[order]
+    dup = np.zeros(a.shape[0], bool)
+    dup[1:] = (a[1:] == a[:-1]) & (b[1:] == b[:-1])
+    keep = tag & ~dup
+    return a[keep], b[keep]
+
+
+def _two_hop_pairs(g: Graph, lo: int, row: np.ndarray, nbrs: np.ndarray,
+                   chunk_paths: int = 1 << 22
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Unique (local row, global id) pairs at graph distance exactly 2.
+
+    Expands every length-2 path v -> w -> u from the block's vertices v (the
+    middle vertex w may be local or remote), then drops u == v and the pairs
+    already adjacent — the direct neighbourhood lives in ``nbr`` and the D2
+    kernels OR both bitsets, so keeping strict two-hop rows only is what
+    bounds the ELL width.  The expansion is chunked (a hub of degree d
+    contributes d² raw paths) with an incremental dedup, so peak host memory
+    tracks the deduped two-hop set plus ``chunk_paths``, not the raw path
+    count.  The row order is part of ``nbr2``.
+    """
+    deg = (g.indptr[nbrs + 1] - g.indptr[nbrs]).astype(np.int64)
+    cum = np.cumsum(deg)
+    row2 = np.empty(0, np.int64)
+    nb2 = np.empty(0, np.int64)
+    start = 0
+    while start < nbrs.shape[0]:
+        base = cum[start - 1] if start else 0
+        end = max(start + 1, int(np.searchsorted(cum, base + chunk_paths,
+                                                 side="right")))
+        end = min(end, nbrs.shape[0])
+        w, d = nbrs[start:end], deg[start:end]
+        starts = g.indptr[w].astype(np.int64)
+        offs2 = np.cumsum(d) - d
+        pos = np.arange(int(d.sum()), dtype=np.int64) - np.repeat(offs2, d)
+        u = g.indices[np.repeat(starts, d) + pos].astype(np.int64)
+        v = np.repeat(row[start:end].astype(np.int64), d)
+        keep = u != v + lo
+        row2, nb2 = _unique_pairs(np.concatenate([row2, v[keep]]),
+                                  np.concatenate([nb2, u[keep]]))
+        start = end
+    row2, nb2 = _pair_diff(row2, nb2, row.astype(np.int64),
+                           nbrs.astype(np.int64))
+    return row2.astype(np.int32), nb2.astype(np.int32)
 
 
 def _ceil_pow2(x: int) -> int:
@@ -182,6 +248,10 @@ class PartitionedGraph:
     prio: np.ndarray           # (P, n_slots) random tie-break priority, pad=-1
     is_internal: np.ndarray    # (P, n_local_max) bool
     degree: np.ndarray         # (P, n_local_max) int32 local-graph-visible degree
+    halo: int = 1              # ghost depth: 1 (D1) or 2 (two-hop halo, D2)
+    maxd2: int = 0             # max strict-two-hop row width (halo=2 only)
+    nbr2: np.ndarray | None = None  # (P, n_local_max, maxd2) two-hop ELL
+                                    # slot ids, pad=sentinel (halo=2 only)
     quantize_plan: bool = True  # pow2-rung round widths in ``comm_plan``
 
     @property
@@ -213,6 +283,8 @@ class PartitionedGraph:
             is_internal=self.is_internal,
             degree=self.degree,
         )
+        if self.nbr2 is not None:
+            out["nbr2"] = self.nbr2
         if sparse:
             out.update(self.comm_plan.arrays())
         return out
@@ -230,12 +302,18 @@ def partition_graph(g: Graph, P: int, *, seed: int = 0,
                     permute: bool = False, halo: int = 1) -> PartitionedGraph:
     """Block-partition `g` onto P processors and build the device layout.
 
-    ``permute=True`` applies a random vertex permutation first.  Only the
-    one-hop halo is ported; ``halo=2`` (distance-2 coloring) raises.
+    ``permute=True`` applies a random vertex permutation first.
+
+    ``halo=2`` builds the two-hop halo for distance-2 coloring: the ghost
+    tables extend to every remote vertex within two hops, ``nbr2`` carries
+    the strict two-hop neighbourhood in ELL form, and
+    ``boundary``/``is_internal`` widen to "this color is read by some other
+    shard".  Depth-2 ghosts are ordinary ghost-table entries (sorted by
+    global id, hence owner-contiguous), so both exchange schemes carry
+    them unchanged.
     """
-    if halo != 1:
-        raise NotImplementedError(
-            "halo=2 (distance-2 coloring) is not ported yet")
+    if halo not in (1, 2):
+        raise ValueError(f"halo must be 1 or 2, got {halo}")
     rng = np.random.default_rng(seed)
     id_dt = id_policy(g.n, 1, 1).id_dtype
     if permute:
@@ -259,10 +337,11 @@ def partition_graph(g: Graph, P: int, *, seed: int = 0,
     n_local = (offs[1:] - offs[:-1]).astype(np.int32)
     n_local_max = int(n_local.max())
 
-    # pass 1: per-shard edge slices and halo sets (the remote vertices whose
-    # colors this shard reads)
+    # pass 1: per-shard edge slices, halo sets (the remote vertices whose
+    # colors this shard reads) and, at halo=2, the strict two-hop pair lists
     ghosts_of: list[np.ndarray] = []
     edge_of: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+    hop2: list[tuple[np.ndarray, np.ndarray, np.ndarray] | None] = []
     for p in range(P):
         lo, hi = int(offs[p]), int(offs[p + 1])
         nl = hi - lo
@@ -271,9 +350,18 @@ def partition_graph(g: Graph, P: int, *, seed: int = 0,
                         np.diff(g.indptr[lo : hi + 1]).astype(np.int32))
         remote = (nbrs < lo) | (nbrs >= hi)
         edge_of.append((nbrs, row, remote))
-        ghosts_of.append(np.unique(nbrs[remote]))
+        if halo == 1:
+            ghosts_of.append(np.unique(nbrs[remote]))
+            hop2.append(None)
+        else:
+            row2, nb2 = _two_hop_pairs(g, lo, row, nbrs)
+            rem2 = (nb2 < lo) | (nb2 >= hi)
+            ghosts_of.append(np.unique(np.concatenate(
+                [nbrs[remote], nb2[rem2]])))
+            hop2.append((row2, nb2, rem2))
 
-    # boundary = local vertices some other shard reads
+    # boundary = local vertices some other shard reads (at halo=2 this
+    # widens to the two-hop fringe)
     read_remote = np.zeros(g.n, dtype=bool)
     for gh in ghosts_of:
         read_remote[gh] = True
@@ -355,6 +443,32 @@ def partition_graph(g: Graph, P: int, *, seed: int = 0,
     ghost_owner = _pad2(rows_gowner, max_ghost, 0)
     ghost_slot = _pad2(gslot_rows, max_ghost, 0)
 
+    # strict two-hop ELL (halo=2): nbr2[p, v, k] = k-th distance-2 slot of v.
+    # Rows come sorted by (v, global id) from _two_hop_pairs, so each
+    # vertex's entries are one contiguous run.
+    maxd2, nbr2 = 0, None
+    if halo == 2:
+        slot2_rows = []
+        for p in range(P):
+            lo = int(offs[p])
+            row2, nb2, rem2 = hop2[p]
+            slot2 = np.where(rem2, 0, nb2 - lo).astype(np.int32)
+            if rem2.any():
+                slot2[rem2] = (n_local_max + np.searchsorted(
+                    ghosts_of[p], nb2[rem2])).astype(np.int32)
+            slot2_rows.append((row2, slot2))
+            cnt = np.bincount(row2, minlength=1)
+            maxd2 = max(maxd2, int(cnt.max(initial=0)))
+        maxd2 = max(1, maxd2)
+        id_policy(g.n, n_local_max, maxd, maxd2)
+        nbr2 = np.full((P, n_local_max, maxd2), sentinel, dtype=np.int32)
+        for p in range(P):
+            row2, slot2 = slot2_rows[p]
+            cnt = np.bincount(row2, minlength=n_local_max).astype(np.int64)
+            starts2 = np.concatenate([[0], np.cumsum(cnt)])[:-1]
+            col = np.arange(len(row2), dtype=np.int64) - starts2[row2]
+            nbr2[p, row2, col] = slot2
+
     return PartitionedGraph(
         P=P, n_global=g.n, n_local_max=n_local_max, max_ghost=max_ghost,
         max_boundary=max_boundary, m_local_max=m_local_max, maxd=maxd,
@@ -362,6 +476,7 @@ def partition_graph(g: Graph, P: int, *, seed: int = 0,
         indptr=indptr, indices=indices, nbr=nbr, edge_src=edge_src,
         boundary=boundary, ghost_owner=ghost_owner, ghost_slot=ghost_slot,
         gvid=gvid, prio=prio, is_internal=is_internal, degree=degree,
+        halo=halo, maxd2=maxd2, nbr2=nbr2,
     )
 
 

@@ -25,7 +25,8 @@ from .recolor import (ALL_PERMS, INT32_MAX, ND, PERM_IDS, RecolorConfig,
                       class_sizes, permutation_rank,
                       recolor_schedule, recolor_steps,
                       schedule_for_iteration)
-from .speculative import ColorConfig, color_shards, resolve_cfg, resolve_device
+from .speculative import (ColorConfig, apply_partial, color_shards,
+                          resolve_cfg, resolve_device)
 
 # Column layout of the per-iteration history (the reference's order).
 # ``ran`` marks rows the adaptive stop reached.
@@ -40,7 +41,8 @@ class PipelineConfig:
 
     ``n_iters`` (K) caps the recoloring iterations; ``patience`` (in
     iterations, 0 = off) stops once the global distinct-color count has
-    not improved for that many iterations.
+    not improved for that many iterations.  One device layout serves both
+    stages, so ``color`` and ``recolor`` must agree on ``distance``.
     """
 
     color: ColorConfig | None = None
@@ -57,6 +59,10 @@ class PipelineConfig:
             raise ValueError("n_iters and patience must be >= 0")
         if self.base_perm not in ALL_PERMS:
             raise ValueError(f"bad perm {self.base_perm!r}")
+        if (self.color is not None
+                and self.color.distance != self.recolor.distance):
+            raise ValueError("one device layout serves both stages: color "
+                             "and recolor must agree on distance")
 
     @property
     def kind_ids(self) -> tuple:
@@ -158,12 +164,13 @@ def resolve_pipeline_cfg(pg: PartitionedGraph,
 
 
 def pipeline_sim(pg: PartitionedGraph, order, cfg: PipelineConfig, *,
-                 color_key=None, recolor_key=None, device=None):
+                 marked=None, color_key=None, recolor_key=None, device=None):
     """Run the color→recolor pipeline of ``pg`` on one device.
 
-    ``order`` as ``color_graph_sim``; ``color_key``/``recolor_key`` default
-    to ``rng.key(cfg.color.seed)``/``rng.key(cfg.seed)``; ``device``
-    defaults to CUDA (``"cpu"`` runs the plain kernels on the CPU).
+    ``order``/``marked`` as ``color_graph_sim``; ``color_key`` /
+    ``recolor_key`` default to ``rng.key(cfg.color.seed)`` /
+    ``rng.key(cfg.seed)``; ``device`` defaults to CUDA (``"cpu"`` runs the
+    plain kernels on the CPU).
     Returns ``(view, result)``: the final ``(P, n_slots)`` view and
     ``result`` with the initial-coloring stats (``"color"``), one history
     dict per executed iteration (``"history"``), ``"n_iters_run"`` and
@@ -174,6 +181,7 @@ def pipeline_sim(pg: PartitionedGraph, order, cfg: PipelineConfig, *,
         raise ValueError("pipeline_sim needs cfg.color")
     device = resolve_device(device)
     cfg = resolve_pipeline_cfg(pg, cfg)
+    order = apply_partial(order, cfg.color, marked)
     ck = rng.key(cfg.color.seed) if color_key is None else color_key
     rk = rng.key(cfg.seed) if recolor_key is None else recolor_key
     # every stage ends in a device->host read, so host clocks at the stage

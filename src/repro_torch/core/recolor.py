@@ -17,6 +17,14 @@ The schedule (the class count, chunks per class and exchange events) is
 computed on the device and read to the host once per iteration; the chunk
 loop then runs with host-known bounds and exchange decisions.  Only the
 RV, NI and ND class permutations are ported (RAND raises).
+
+Distance 2 (``RecolorConfig(distance=2)`` on a ``halo=2`` partition): a
+class of a valid D2 coloring is a distance-2 independent set, so the step
+stays conflict-free; selection ORs the two-hop colors
+(``ops.select_colors_d2``) and the piggyback schedule gains the two-hop ELL
+rows as a second dependency source (``_cross_deps_ell``).  Partial seed
+colorings need no flag: unmarked vertices are class 0, which the step loop
+skips.
 """
 from __future__ import annotations
 
@@ -32,7 +40,8 @@ from .comm import (AUTO, DEFAULT_SCHEME, SCHEME_CHOICES, SPARSE, AxisComm,
                    CommConfig, make_exchange, sparse_rounds, stats_to_host,
                    take_rows)
 from .graph import PartitionedGraph, to_device
-from .speculative import resolve_cfg, resolve_device, validate_color_bounds
+from .speculative import (require_halo, resolve_cfg, resolve_device,
+                          validate_color_bounds)
 
 RV = "rv"
 NI = "ni"
@@ -49,7 +58,8 @@ class RecolorConfig:
 
     ``max_colors`` bounds the *seed* coloring's ids (32-aligned);
     ``chunk`` is vertices selected per ELL tile (clamped to the shard's
-    row count).  ``distance=2`` raises (not ported yet).
+    row count).  ``distance=2`` needs a ``halo=2`` partition and a valid
+    distance-2 seed coloring.
     """
 
     max_colors: int = 1024         # bound on colors of the SEED coloring
@@ -67,9 +77,8 @@ class RecolorConfig:
             raise ValueError(f"bad scheme {self.scheme!r}")
         if self.chunk <= 0:
             raise ValueError("chunk must be > 0")
-        if self.distance != 1:
-            raise NotImplementedError(
-                "distance-2 recoloring is not ported yet")
+        if self.distance not in (1, 2):
+            raise ValueError(f"bad distance {self.distance}, want 1 or 2")
 
     @property
     def comm_config(self) -> CommConfig:
@@ -138,8 +147,34 @@ def _cross_deps(step_of, arrs, n_local_max: int):
     return dep, s_v, (dst - n_local_max).clamp(0, n_ghost_cols - 1)
 
 
+def _cross_deps_ell(step_of, nbr2, n_local_max: int):
+    """Cross deps over the flattened two-hop ELL rows (distance-2 readers).
+
+    A D2 reader also consumes its two-hop ghosts' colors, so those pairs
+    constrain the piggyback schedule exactly like the CSR cross edges;
+    padded entries point at the sentinel (step 0) and never form one.
+    """
+    P = step_of.shape[0]
+    dst = nbr2.reshape(P, -1)
+    s_v = step_of[:, :n_local_max].repeat_interleave(nbr2.shape[2], dim=1)
+    s_u = take_rows(step_of, dst)
+    n_ghost_cols = step_of.shape[1] - 1 - n_local_max
+    is_ghost = (dst >= n_local_max) & (dst < step_of.shape[1] - 1)
+    dep = is_ghost & (s_u > 0) & (s_v > s_u)
+    return dep, s_v, (dst - n_local_max).clamp(0, n_ghost_cols - 1)
+
+
+def _dep_sources(step_of, arrs, n_local_max: int, distance: int):
+    """All (dep, s_v, ghost index) contributions the piggyback schedule
+    sees: the CSR cross edges, and at distance 2 the two-hop ELL rows."""
+    deps = [_cross_deps(step_of, arrs, n_local_max)]
+    if distance == 2:
+        deps.append(_cross_deps_ell(step_of, arrs["nbr2"], n_local_max))
+    return deps
+
+
 def _needed_exchanges(step_of, arrs, n_local_max: int, n_classes,
-                      max_colors: int, piggyback: bool):
+                      max_colors: int, piggyback: bool, distance: int = 1):
     """The piggybacking schedule: needed[t] = exchange event after step t.
     Entry ``max_colors`` is the end-of-iteration exchange (always on)."""
     dev = step_of.device
@@ -147,8 +182,9 @@ def _needed_exchanges(step_of, arrs, n_local_max: int, n_classes,
         # OR over all shards' dependencies; non-dependencies write to a
         # spare last entry (no mask indexing: it would sync the device)
         needed = torch.zeros(max_colors + 2, dtype=torch.bool, device=dev)
-        dep, s_v, _ = _cross_deps(step_of, arrs, n_local_max)
-        needed[torch.where(dep, s_v - 1, max_colors + 1)] = True
+        for dep, s_v, _ in _dep_sources(step_of, arrs, n_local_max,
+                                        distance):
+            needed[torch.where(dep, s_v - 1, max_colors + 1)] = True
         needed = needed[:max_colors + 1]
         needed[0] = False
     else:
@@ -159,7 +195,7 @@ def _needed_exchanges(step_of, arrs, n_local_max: int, n_classes,
 
 def _needed_exchange_rounds(step_of, arrs, n_local_max: int, n_classes,
                             max_colors: int, piggyback: bool,
-                            n_rounds: int):
+                            n_rounds: int, distance: int = 1):
     """Sparse piggybacking: needed[t, r] = ring-shift round r after step t
     (each dependency marks only its writer's round).  Row ``max_colors``
     runs every round."""
@@ -168,12 +204,13 @@ def _needed_exchange_rounds(step_of, arrs, n_local_max: int, n_classes,
     if piggyback:
         needed = torch.zeros((max_colors + 2, max(n_rounds, 1)),
                              dtype=torch.bool, device=dev)
-        dep, s_v, gi = _cross_deps(step_of, arrs, n_local_max)
         p = torch.arange(P, device=dev)[:, None]
-        shift = (p - take_rows(arrs["ghost_owner"], gi).long()) % P
-        rnd = take_rows(arrs["shift_to_round"], shift)
-        needed[torch.where(dep, s_v - 1, max_colors + 1),
-               torch.where(dep, rnd, 0).long()] = True
+        for dep, s_v, gi in _dep_sources(step_of, arrs, n_local_max,
+                                         distance):
+            shift = (p - take_rows(arrs["ghost_owner"], gi).long()) % P
+            rnd = take_rows(arrs["shift_to_round"], shift)
+            needed[torch.where(dep, s_v - 1, max_colors + 1),
+                   torch.where(dep, rnd, 0).long()] = True
         needed = needed[:max_colors + 1, :n_rounds]
         needed[0] = False
     else:
@@ -202,6 +239,7 @@ def recolor_schedule(arrs, view, rank, n_classes, cfg: RecolorConfig,
                      n_rounds: int) -> _Schedule:
     """Step map, piggyback events and per-class chunk schedule of one
     iteration; ends with its one device->host read."""
+    require_halo(arrs, cfg.distance)
     P, n_slots = view.shape
     n_local_max = arrs["indptr"].shape[1] - 1
     mc = cfg.max_colors
@@ -212,13 +250,13 @@ def recolor_schedule(arrs, view, rank, n_classes, cfg: RecolorConfig,
     if cfg.scheme == SPARSE:
         needed_rounds = _needed_exchange_rounds(
             step_of, arrs, n_local_max, n_classes, mc, cfg.piggyback,
-            n_rounds)
+            n_rounds, cfg.distance)
         needed = needed_rounds.any(dim=1)
         needed[mc] = True
     else:
         needed_rounds = None
         needed = _needed_exchanges(step_of, arrs, n_local_max, n_classes, mc,
-                                   cfg.piggyback)
+                                   cfg.piggyback, cfg.distance)
 
     valid_local = (torch.arange(n_local_max, device=dev)
                    < arrs["n_local"][:, None])
@@ -278,9 +316,15 @@ def recolor_steps(arrs, sched: _Schedule, exchange, cfg: RecolorConfig):
         rows = sched.sorted_pad.gather(1, pos[:, None] + lane)
         rows = torch.where(active, rows, 0)
         nbr_colors = take_rows(new_view, take_rows(nbr, rows))
-        colors = ops.select_colors(nbr_colors, active, max_colors=mc,
-                                   selection=ops.FIRST_FIT,
-                                   backend=cfg.backend)
+        if cfg.distance == 2:
+            colors = ops.select_colors_d2(
+                nbr_colors, take_rows(new_view, take_rows(arrs["nbr2"], rows)),
+                active, max_colors=mc, selection=ops.FIRST_FIT,
+                backend=cfg.backend)
+        else:
+            colors = ops.select_colors(nbr_colors, active, max_colors=mc,
+                                       selection=ops.FIRST_FIT,
+                                       backend=cfg.backend)
         idx = torch.where(active, rows, n_slots - 1)   # park writes on the
         val = torch.where(active, colors, 0)           # sentinel (stays 0)
         new_view.scatter_(1, idx, val)

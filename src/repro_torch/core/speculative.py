@@ -17,11 +17,20 @@ The reference's ``lax`` loops become Python loops.  Their trip counts and
 exchange decisions are shard-uniform, so each round reads the device once:
 the frontier size, the per-chunk boundary flags, and the previous round's
 conflict count and final-exchange flag travel together.
+
+Distance 2 (``ColorConfig(distance=2)`` on a ``halo=2`` partition): the
+selection ORs the one-hop and the strict two-hop colors
+(``ops.select_colors_d2``) and the repair scans both ELL tiles
+(``ops.detect_conflicts_d2``); the round structure is unchanged.
+``partial=True`` with ``marked=`` colors only a marked subset (bipartite
+partial D2 coloring): unmarked vertices leave the visit order, stay at
+color 0 and are invisible to every bitset.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch import rng
@@ -62,9 +71,10 @@ class ColorConfig:
     ``superstep`` and ``tile`` are vertex counts per chunk (clamped to the
     shard's row count); ``max_colors`` is the 32-aligned color-id bound;
     ``exchange_every`` counts supersteps between boundary exchanges;
-    ``max_rounds`` bounds the speculate/repair rounds.  Only the
-    tile-parallel, distance-1 path is ported: ``parallel_chunk=False``,
-    ``least_used``, ``distance=2`` and ``partial`` raise.
+    ``max_rounds`` bounds the speculate/repair rounds; ``distance`` is 1
+    (proper coloring) or 2 (needs a ``halo=2`` partition); ``partial``
+    colors only the ``marked=`` subset.  Only the tile-parallel path is
+    ported: ``parallel_chunk=False`` and ``least_used`` raise.
     """
 
     max_colors: int = 1024
@@ -95,9 +105,8 @@ class ColorConfig:
                 "not ported yet")
         if self.selection not in ops.SELECTIONS:
             raise ValueError(f"unknown selection {self.selection!r}")
-        if self.distance != 1 or self.partial:
-            raise NotImplementedError(
-                "distance-2 and partial coloring are not ported yet")
+        if self.distance not in (1, 2):
+            raise ValueError(f"bad distance {self.distance}, want 1 or 2")
 
     @property
     def comm_config(self) -> CommConfig:
@@ -125,10 +134,15 @@ def _parallel_chunk(view, order_pad, rand, start: int, arrs, offset,
         v_safe = chunk.clamp(min=0)
         active = (chunk >= 0) & (take_rows(view, v_safe) == 0)
         nbr_colors = take_rows(view, take_rows(arrs["nbr"], v_safe))
-        colors = ops.select_colors(
-            nbr_colors, active, take_rows(rand, v_safe),
-            max_colors=cfg.max_colors, selection=cfg.selection,
-            x=cfg.random_x, offset=offset, backend=cfg.backend)
+        kw = dict(max_colors=cfg.max_colors, selection=cfg.selection,
+                  x=cfg.random_x, offset=offset, backend=cfg.backend)
+        if cfg.distance == 2:
+            colors = ops.select_colors_d2(
+                nbr_colors, take_rows(view, take_rows(arrs["nbr2"], v_safe)),
+                active, take_rows(rand, v_safe), **kw)
+        else:
+            colors = ops.select_colors(nbr_colors, active,
+                                       take_rows(rand, v_safe), **kw)
         colors = colors.clamp(max=cfg.max_colors - 1)
         idx = torch.where(active, v_safe, n_slots - 1)   # park writes on the
         val = torch.where(active, colors, 0)             # sentinel (stays 0)
@@ -137,14 +151,16 @@ def _parallel_chunk(view, order_pad, rand, start: int, arrs, offset,
 
 
 def _detect_conflicts_frontier(view, arrs, order_pad, n_steps: int, n_need,
-                               superstep: int, backend: str = "auto"):
+                               superstep: int, backend: str = "auto",
+                               distance: int = 1):
     """Uncolor the lower-priority endpoint of every same-color frontier edge.
 
     Chunked over the round's visit order: only the ``n_need`` vertices
     colored this round are rescanned.  Every chunk reads the same
-    pre-detection ``view`` and writes uncolorings into a copy.  Returns
-    (new_view, n_conflicts, any_boundary_conflict) — the last two as
-    device scalars.
+    pre-detection ``view`` and writes uncolorings into a copy.
+    ``distance=2`` also scans the two-hop ELL rows (both endpoints of a
+    distance-2 conflict list each other in ``nbr2``).  Returns (new_view,
+    n_conflicts, any_boundary_conflict) — the last two as device scalars.
     """
     nbr, prio, is_internal = arrs["nbr"], arrs["prio"], arrs["is_internal"]
     n_slots = view.shape[1]
@@ -157,10 +173,17 @@ def _detect_conflicts_frontier(view, arrs, order_pad, n_steps: int, n_need,
         active = (rows >= 0) & (si * superstep + offs < n_need[:, None])
         r_safe = rows.clamp(min=0)
         nbr_rows = take_rows(nbr, r_safe)
-        conf = ops.detect_conflicts(
-            take_rows(view, r_safe), take_rows(prio, r_safe),
-            take_rows(view, nbr_rows), take_rows(prio, nbr_rows), active,
-            backend=backend)
+        tiles = [take_rows(view, nbr_rows), take_rows(prio, nbr_rows)]
+        if distance == 2:
+            nbr2_rows = take_rows(arrs["nbr2"], r_safe)
+            conf = ops.detect_conflicts_d2(
+                take_rows(view, r_safe), take_rows(prio, r_safe), *tiles,
+                take_rows(view, nbr2_rows), take_rows(prio, nbr2_rows),
+                active, backend=backend)
+        else:
+            conf = ops.detect_conflicts(
+                take_rows(view, r_safe), take_rows(prio, r_safe), *tiles,
+                active, backend=backend)
         idx = torch.where(conf, r_safe, n_slots - 1)   # sentinel stays 0
         new_view.scatter_(1, idx.long(), 0)
         n_conf = n_conf + conf.sum()
@@ -234,7 +257,8 @@ def _speculate(arrs: dict, order: torch.Tensor, key: torch.Tensor,
                 view, b = exchange(view)
                 n_ex, n_bytes, pending = n_ex + 1, n_bytes + b, False
         view, n_conf, do_final = _detect_conflicts_frontier(
-            view, arrs, order_pad, n_steps, n_need, S, backend=cfg.backend)
+            view, arrs, order_pad, n_steps, n_need, S, backend=cfg.backend,
+            distance=cfg.distance)
         rnd += 1
     return view, n_rounds, n_ex, n_bytes
 
@@ -253,6 +277,7 @@ def color_shards(arrs: dict, order: torch.Tensor, key: torch.Tensor,
     if cfg.scheme == AUTO:
         raise ValueError("scheme='auto' must be resolved by an entry point "
                          "(resolve_cfg) before the run")
+    require_halo(arrs, cfg.distance)
     view, n_rounds, n_ex, n_bytes = _speculate(
         arrs, order, key, cfg, make_exchange(arrs, cfg.comm_config))
     # distinct classes in use — the quality metric (the max id alone can
@@ -272,6 +297,37 @@ def color_shards(arrs: dict, order: torch.Tensor, key: torch.Tensor,
     return view, stats_to_host(stats)
 
 
+def require_halo(arrs: dict, distance: int) -> None:
+    """Distance 2 reads the two-hop ELL: raise unless ``arrs`` has it."""
+    if distance == 2 and "nbr2" not in arrs:
+        raise ValueError("distance=2 needs the two-hop halo: partition with "
+                         "partition_graph(g, P, halo=2)")
+
+
+def apply_partial(order, cfg: ColorConfig, marked):
+    """Mask the visit order down to the marked subset (``cfg.partial``).
+
+    ``marked`` is a host-side ``(P, n_local_max)`` bool mask of local
+    slots; unmarked vertices become ``-1`` entries (skipped everywhere),
+    stay at color 0 and — color 0 being invisible to the forbidden
+    bitsets — act exactly like the uncolored through-vertices of
+    partial/bipartite D2 coloring.  Runs on the host, before the order
+    moves to the device.
+    """
+    if not cfg.partial:
+        if marked is not None:
+            raise ValueError("marked= requires partial=True on the config")
+        return order
+    if marked is None:
+        raise ValueError("partial=True needs a marked= (P, n_local_max) mask")
+    if isinstance(order, torch.Tensor):
+        order = order.cpu()
+    order = np.asarray(order)
+    marked = np.asarray(marked, dtype=bool)
+    keep = np.take_along_axis(marked, np.maximum(order, 0), axis=1)
+    return np.where((order >= 0) & keep, order, -1)
+
+
 def resolve_cfg(pg: PartitionedGraph, cfg):
     """Concretize ``scheme="auto"`` against this partition's comm plan
     (any frozen config with a ``scheme`` field)."""
@@ -281,16 +337,18 @@ def resolve_cfg(pg: PartitionedGraph, cfg):
 
 
 def color_graph_sim(pg: PartitionedGraph, order, cfg: ColorConfig, key=None,
-                    *, device=None):
+                    *, marked=None, device=None):
     """Distributed coloring of ``pg``, all P shards on one device.
 
     ``order`` — ``(P, n_local_max)`` int32 visit order (``compute_order``);
-    ``key`` — ``rng`` key (default ``rng.key(cfg.seed)``); ``device`` —
-    default CUDA, ``"cpu"`` runs the plain kernels on the CPU.  Returns
-    ``(view, stats)`` as ``color_shards``.
+    ``key`` — ``rng`` key (default ``rng.key(cfg.seed)``); ``marked`` —
+    ``(P, n_local_max)`` bool host mask, only with ``cfg.partial``;
+    ``device`` — default CUDA, ``"cpu"`` runs the plain kernels on the CPU.
+    Returns ``(view, stats)`` as ``color_shards``.
     """
     device = resolve_device(device)
     cfg = resolve_cfg(pg, cfg)
+    order = apply_partial(order, cfg, marked)
     arrs = to_device(pg, device, sparse=cfg.scheme == SPARSE)
     if key is None:
         key = rng.key(cfg.seed)

@@ -4,8 +4,10 @@ Each source in ``csrc/`` compiles on its own into a shared library with a
 plain C interface (loaded with ``ctypes``), for ``sm_90a`` (Hopper).  A
 library is named after a hash of its source and the flags, under
 ``build/repro_torch_kernels/`` at the repository root, so an edited source
-rebuilds and an unchanged one is reused.  ``build()`` starts one ``nvcc``
-per missing library, all at once, and waits for all of them.
+rebuilds and an unchanged one is reused; the hash covers every header in
+``csrc/`` too (``select_common.cuh`` is shared by the two select
+kernels).  ``build()`` starts one ``nvcc`` per missing library, all at
+once, and waits for all of them.
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = {"color_select": "color_select.cu", "conflict": "conflict.cu"}
+SOURCES = {"color_select": "color_select.cu", "conflict": "conflict.cu",
+           "color_select_d2": "color_select_d2.cu",
+           "conflict_d2": "conflict_d2.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -39,9 +43,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where kernel ``name``'s library lives: named after a hash of its
+    source, of every ``csrc/*.cuh`` header (by name and content) and of
+    the compiler flags."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=tuple(SOURCES)) -> dict[str, str]:

@@ -1,9 +1,11 @@
-"""Entry points of the two color kernels, with a backend switch.
+"""Entry points of the color kernels, with a backend switch.
 
 ``select_colors`` (bitset color selection) and ``detect_conflicts`` (the
 speculative repair's loser test) take a padded neighbour tile — the gather
 of an ELL row block — and are the only way the coloring code reaches a
-kernel.  ``backend``:
+kernel.  ``select_colors_d2`` / ``detect_conflicts_d2`` are their
+distance-2 forms: they also take the strict two-hop tile (the gather of
+``nbr2`` rows) and treat its colors like the one-hop ones.  ``backend``:
 
   "cuda"  — the hand-written Hopper kernels in ``csrc/`` (built by
             ``build.py`` at first use); CUDA tensors only, and a launch
@@ -17,7 +19,8 @@ and bit 0 always counts as taken; neighbour colors ``<= 0`` or ``>=
 max_colors`` are ignored; ``max_colors - 1`` is the saturation sentinel;
 inactive rows return 0 / False; leading batch dims are flattened onto the
 row axis (one launch for a ``(P, V, D)`` tile).  Tiles and colors are
-int32; Random-X draws are passed as the int32 bit pattern of uint32 words.
+int32; Random-X draws are passed as the int32 bit pattern of uint32 words;
+priorities are int32 on the CUDA path.
 """
 from __future__ import annotations
 
@@ -75,11 +78,19 @@ COLOR_SELECT = Kernel(
     "color_select", "repro_color_select",
     [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, _P])
+COLOR_SELECT_D2 = Kernel(
+    "color_select_d2", "repro_color_select_d2",
+    [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P])
 CONFLICT = Kernel(
     "conflict", "repro_conflict",
     [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
      _P])
-KERNELS = (COLOR_SELECT, CONFLICT)
+CONFLICT_D2 = Kernel(
+    "conflict_d2", "repro_conflict_d2",
+    [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, _P])
+KERNELS = (COLOR_SELECT, CONFLICT, COLOR_SELECT_D2, CONFLICT_D2)
 
 
 def resolve_backend(backend: str, t: torch.Tensor) -> str:
@@ -135,17 +146,40 @@ def select_colors(nbr_colors: torch.Tensor, active, rand_u32=None, *,
     scalar or (…, V) int32 (staggered only).  Returns (…, V) int32, 0
     where inactive.
     """
+    return _select((nbr_colors,), active, rand_u32, max_colors=max_colors,
+                   selection=selection, x=x, offset=offset, backend=backend)
+
+
+def select_colors_d2(nbr_colors: torch.Tensor, nbr2_colors: torch.Tensor,
+                     active, rand_u32=None, *, max_colors: int,
+                     selection: str = FIRST_FIT, x: int = 10, offset=None,
+                     backend: str = "auto") -> torch.Tensor:
+    """Distance-2 color selection over two padded neighbour tiles.
+
+    ``select_colors``' contract plus ``nbr2_colors`` (…, V, MAXD2) int32,
+    the strict two-hop neighbour colors: the chosen color differs from
+    every color within graph distance 2.
+    """
+    return _select((nbr_colors, nbr2_colors), active, rand_u32,
+                   max_colors=max_colors, selection=selection, x=x,
+                   offset=offset, backend=backend)
+
+
+def _select(tiles: tuple, active, rand_u32, *, max_colors: int,
+            selection: str, x: int, offset, backend: str) -> torch.Tensor:
+    """``select_colors`` over one tile (distance 1) or two (distance 2)."""
     if selection not in SELECTIONS:
         raise ValueError(
             f"unknown selection {selection!r}, want one of {SELECTIONS}")
     if max_colors % 32 or max_colors <= 0:
         raise ValueError(f"max_colors={max_colors} must be a positive "
                          "multiple of 32")
-    backend = resolve_backend(backend, nbr_colors)
-    *lead, v, _ = nbr_colors.shape
+    backend = resolve_backend(backend, tiles[0])
+    *lead, v, _ = tiles[0].shape
     lead = tuple(lead)
-    dev = nbr_colors.device
-    tile = _tile(nbr_colors)
+    _same_rows(tiles, lead + (v,))
+    dev = tiles[0].device
+    flat = tuple(_tile(t) for t in tiles)
     act = _rows(active, lead, v, dev)
     rand = _rows(0 if rand_u32 is None else rand_u32, lead, v, dev)
     off = _rows(0 if offset is None else offset, lead, v, dev)
@@ -154,15 +188,23 @@ def select_colors(nbr_colors: torch.Tensor, active, rand_u32=None, *,
     if x_eff < 0:
         raise ValueError(f"random_x needs x >= 0, got {x}")
     if backend == "torch":
-        out = ref.select_colors(tile, act, rand, off, max_colors=max_colors,
-                                x=x_eff, staggered=staggered)
+        plain = ref.select_colors if len(flat) == 1 else ref.select_colors_d2
+        out = plain(*flat, act, rand, off, max_colors=max_colors, x=x_eff,
+                    staggered=staggered)
     else:
-        out = _select_cuda(tile, act, rand, off, max_colors, x_eff, staggered)
+        out = _select_cuda(flat, act, rand, off, max_colors, x_eff, staggered)
     return out.reshape(lead + (v,))
 
 
-def _select_cuda(tile, act, rand, off, max_colors, x, staggered):
-    _check_cuda(tile, act, rand, off)
+def _same_rows(tiles: tuple, rows: tuple) -> None:
+    for t in tiles[1:]:
+        if tuple(t.shape[:-1]) != rows:
+            raise ValueError(f"tiles {tuple(tiles[0].shape)} and "
+                             f"{tuple(t.shape)} differ in their rows")
+
+
+def _select_cuda(tiles, act, rand, off, max_colors, x, staggered):
+    _check_cuda(*tiles, act, rand, off)
     n_words = max_colors // 32
     smem = _SELECT_WARPS * (n_words + x) * 4
     if smem > _MAX_SMEM:
@@ -171,13 +213,16 @@ def _select_cuda(tile, act, rand, off, max_colors, x, staggered):
             f"memory per block; the CUDA select kernel takes at most "
             f"{_MAX_SMEM} (max_colors/32 + x <= "
             f"{_MAX_SMEM // (4 * _SELECT_WARPS)})")
-    rows, maxd = tile.shape
-    out = torch.empty(rows, dtype=torch.int32, device=tile.device)
+    rows = tiles[0].shape[0]
+    dev = tiles[0].device
+    out = torch.empty(rows, dtype=torch.int32, device=dev)
     if rows:
-        COLOR_SELECT.launch(
-            tile.data_ptr(), act.data_ptr(), rand.data_ptr(), off.data_ptr(),
-            out.data_ptr(), rows, maxd, n_words, x, int(staggered),
-            tile.device.index, _stream(tile))
+        kernel = COLOR_SELECT if len(tiles) == 1 else COLOR_SELECT_D2
+        kernel.launch(
+            *(t.data_ptr() for t in tiles), act.data_ptr(), rand.data_ptr(),
+            off.data_ptr(), out.data_ptr(), rows,
+            *(t.shape[1] for t in tiles), n_words, x, int(staggered),
+            dev.index, _stream(tiles[0]))
     return out
 
 
@@ -188,38 +233,63 @@ def detect_conflicts(my_color, my_prio, nbr_colors: torch.Tensor,
     neighbour holds the same nonzero color with a strictly higher priority.
     Operands (…, V) and (…, V, MAXD); returns (…, V) bool.
     """
-    backend = resolve_backend(backend, nbr_colors)
-    *lead, v, _ = nbr_colors.shape
+    return _conflicts(my_color, my_prio, ((nbr_colors, nbr_prio),), active,
+                      backend)
+
+
+def detect_conflicts_d2(my_color, my_prio, nbr_colors: torch.Tensor,
+                        nbr_prio: torch.Tensor, nbr2_colors: torch.Tensor,
+                        nbr2_prio: torch.Tensor, active, *,
+                        backend: str = "auto") -> torch.Tensor:
+    """Distance-2 conflict detection: a row loses iff it is active and a
+    neighbour within graph distance 2 (one-hop tile or strict two-hop tile
+    ``(…, V, MAXD2)``) holds the same nonzero color with a strictly higher
+    priority.  Returns (…, V) bool.
+    """
+    return _conflicts(my_color, my_prio, ((nbr_colors, nbr_prio),
+                                          (nbr2_colors, nbr2_prio)),
+                      active, backend)
+
+
+def _conflicts(my_color, my_prio, pairs: tuple, active,
+               backend: str) -> torch.Tensor:
+    """``detect_conflicts`` over one (colors, priorities) tile pair
+    (distance 1) or two (distance 2)."""
+    backend = resolve_backend(backend, pairs[0][0])
+    *lead, v, _ = pairs[0][0].shape
     lead = tuple(lead)
-    dev = nbr_colors.device
+    shape = lead + (v,)
+    _same_rows(tuple(t for pair in pairs for t in pair), shape)
+    dev = pairs[0][0].device
     if backend == "torch":
-        shape = lead + (v,)
-        out = ref.detect_conflicts(
-            torch.broadcast_to(torch.as_tensor(my_color, device=dev),
-                               shape).reshape(-1),
-            torch.broadcast_to(torch.as_tensor(my_prio, device=dev),
-                               shape).reshape(-1),
-            nbr_colors.reshape(-1, nbr_colors.shape[-1]),
-            nbr_prio.reshape(-1, nbr_prio.shape[-1]),
-            torch.broadcast_to(torch.as_tensor(active, device=dev),
-                               shape).reshape(-1))
+        row = lambda a: torch.broadcast_to(torch.as_tensor(a, device=dev),
+                                           shape).reshape(-1)
+        mat = lambda t: t.reshape(-1, t.shape[-1])
+        plain = ref.detect_conflicts if len(pairs) == 1 else (
+            ref.detect_conflicts_d2)
+        out = plain(row(my_color), row(my_prio),
+                    *(mat(t) for pair in pairs for t in pair), row(active))
         return out.reshape(shape)
-    if torch.as_tensor(my_prio).dtype != torch.int32 or (
-            nbr_prio.dtype != torch.int32):
-        raise TypeError("the CUDA conflict kernel takes int32 priorities "
+    if torch.as_tensor(my_prio).dtype != torch.int32 or any(
+            p.dtype != torch.int32 for _, p in pairs):
+        raise TypeError("the CUDA conflict kernels take int32 priorities "
                         "(int64 ids, past 2**31 vertices, are not supported)")
     myc = _rows(my_color, lead, v, dev)
     myp = _rows(my_prio, lead, v, dev)
     act = _rows(active, lead, v, dev)
-    tc, tp = _tile(nbr_colors), _tile(nbr_prio)
-    if tc.shape != tp.shape:
-        raise ValueError(f"color tile {tuple(tc.shape)} and priority tile "
-                         f"{tuple(tp.shape)} differ")
-    _check_cuda(tc, tp, myc, myp, act)
-    rows, maxd = tc.shape
+    flat = [(_tile(c), _tile(p)) for c, p in pairs]
+    for tc, tp in flat:
+        if tc.shape != tp.shape:
+            raise ValueError(f"color tile {tuple(tc.shape)} and priority "
+                             f"tile {tuple(tp.shape)} differ")
+    _check_cuda(*(t for pair in flat for t in pair), myc, myp, act)
+    rows = flat[0][0].shape[0]
     out = torch.empty(rows, dtype=torch.int32, device=dev)
     if rows:
-        CONFLICT.launch(myc.data_ptr(), myp.data_ptr(), tc.data_ptr(),
-                        tp.data_ptr(), act.data_ptr(), out.data_ptr(), rows,
-                        maxd, dev.index, _stream(tc))
-    return out.reshape(lead + (v,)).bool()
+        kernel = CONFLICT if len(flat) == 1 else CONFLICT_D2
+        kernel.launch(myc.data_ptr(), myp.data_ptr(),
+                      *(t.data_ptr() for pair in flat for t in pair),
+                      act.data_ptr(), out.data_ptr(), rows,
+                      *(tc.shape[1] for tc, _ in flat), dev.index,
+                      _stream(flat[0][0]))
+    return out.reshape(shape).bool()

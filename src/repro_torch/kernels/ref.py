@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the two color kernels.
+"""Plain PyTorch versions of the color kernels (distance 1 and 2).
 
 They are the CPU path of ``kernels.ops`` and the oracle the CUDA kernels
 are held against on the card.  Semantics (the reference's
@@ -18,7 +18,8 @@ are held against on the card.  Semantics (the reference's
 
 Both work on a whole ``(V, MAXD)`` tile through a ``(V, max_colors)``
 occupancy mask — not the kernels' bitset walk — so they check the
-kernels' arithmetic rather than repeat it.
+kernels' arithmetic rather than repeat it.  The distance-2 versions run
+the same mask over the one-hop and the strict two-hop tile side by side.
 """
 from __future__ import annotations
 
@@ -67,3 +68,20 @@ def detect_conflicts(my_color, my_prio, nbr_colors, nbr_prio,
     same = (nbr_colors == my_color[:, None]) & (my_color[:, None] > 0)
     lose = (same & (nbr_prio > my_prio[:, None])).any(dim=1)
     return lose & (active != 0)
+
+
+def select_colors_d2(nbr_colors, nbr2_colors, active, rand_u32, offset, *,
+                     max_colors: int, x: int, staggered: bool) -> torch.Tensor:
+    """(V, MAXD) one-hop and (V, MAXD2) two-hop tiles -> (V,) int32 colors:
+    one occupancy mask over both tiles."""
+    return select_colors(torch.cat([nbr_colors, nbr2_colors], dim=1), active,
+                         rand_u32, offset, max_colors=max_colors, x=x,
+                         staggered=staggered)
+
+
+def detect_conflicts_d2(my_color, my_prio, nbr_colors, nbr_prio, nbr2_colors,
+                        nbr2_prio, active) -> torch.Tensor:
+    """Distance 2: a row loses against any one-hop or two-hop neighbour."""
+    return detect_conflicts(my_color, my_prio,
+                            torch.cat([nbr_colors, nbr2_colors], dim=1),
+                            torch.cat([nbr_prio, nbr2_prio], dim=1), active)

@@ -151,12 +151,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(parts, monkeypatch,
 @pytest.mark.parametrize("make", [
     lambda: T.ColorConfig(parallel_chunk=False),
     lambda: T.ColorConfig(selection="least_used"),
-    lambda: T.ColorConfig(distance=2),
-    lambda: T.ColorConfig(partial=True),
-    lambda: T.RecolorConfig(distance=2),
     lambda: permutation_rank(torch.ones(64, dtype=torch.int64), T.RAND),
-], ids=["sequential", "least_used", "distance2", "partial", "recolor_d2",
-        "rand_perm"])
+], ids=["sequential", "least_used", "rand_perm"])
 def test_unported_paths_raise(make):
     with pytest.raises(NotImplementedError):
         make()

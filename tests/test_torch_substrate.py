@@ -86,11 +86,6 @@ def test_device_state_carries_the_reference_partition(graphs):
                        torch.from_numpy(view))
 
 
-def test_halo2_is_not_ported(graphs):
-    with pytest.raises(NotImplementedError, match="halo=2"):
-        graph.partition_graph(graphs[1], 2, halo=2)
-
-
 def _imported_modules(path: Path) -> set[str]:
     names = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
