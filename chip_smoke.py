@@ -21,9 +21,18 @@ before the final line):
 3. the main path at full size — ``rmat_good(20, 8, seed=1)`` on P=64
    shards, the "quality" preset (Random-X X=10, Internal-First, ND
    recoloring) with K=8 iterations, through ``pipeline_sim`` on the GPU; the
-   coloring must be valid and both kernels must have launched (counted in
-   this run); then the same run again under ``torch.profiler`` for the
-   device-time breakdown;
+   coloring must be valid, the run kernel ``select_run`` and ``conflict``
+   must have launched and the tile-form select kernels must not (all six
+   counted in this run); then (phase 3b) the run kernel against its
+   plain version on this path's own arrays — the middle superstep of
+   round 0 (64 shards x 4 Random-X tiles of 128 rows) and the largest
+   class of an ND iteration from the final coloring (256-row chunks) —
+   bitwise, with its device
+   time per launch, the device time of the plain version and of the
+   unfused sequence it replaced (ELL gathers + the tile kernel + the
+   scatters, per tile), and the bytes bound of this run's active rows;
+   then the same path again under ``torch.profiler`` for the device-time
+   breakdown;
 4. cross-check — ``rmat_good(18, 8, seed=2)`` at P=16 with the kernels and
    with ``backend="torch"``, under the sparse and all-gather exchanges:
    views, color stats and histories bitwise equal (the wire bytes differ
@@ -33,8 +42,11 @@ before the final line):
    stencil, HPCG's operator pattern) partitioned with the two-hop halo on
    P=16 shards, the "quality" preset with K=8 and ``distance=2``,
    ``tile=16`` on both stages, through ``pipeline_sim`` on the GPU; the
-   coloring must be valid at distance 2 and both D2 kernels must have
-   launched (counted in this run); then a profiled repeat;
+   coloring must be valid at distance 2, ``select_run_d2`` and
+   ``conflict_d2`` must have launched and the tile-form select kernels
+   must not (counted in this run); then (phase 5b) ``select_run_d2``
+   against its plain version as in phase 3b (16 shards x 32 tiles of 16
+   rows; the largest class in 256-row chunks); then a profiled repeat;
 6. distance-2 cross-check — ``grid3d(32, 32, 32)`` at P=16, K=4: kernels
    vs plain under both exchanges, then partial D2 of the even global ids,
    kernels vs plain; bitwise equal, unmarked vertices left uncolored.
@@ -98,22 +110,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel: str | None = None) -> float:
+def device_ms(fn, reps: int, kernel: str | None = None,
+              skip: str | None = None) -> float:
     """Mean device time per call of ``fn()`` over ``reps`` calls, summed
     from torch.profiler's device-side events: those of the kernel named
-    ``kernel`` only, or every device event when ``kernel`` is None."""
+    ``kernel`` only, or every device event when ``kernel`` is None (but
+    those whose name holds ``skip``).  Every call launches device work, so
+    a trace with none of it is a lost trace: it is taken again (up to
+    three times in all), and the script fails if all three lose it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and (kernel is None or kernel + "_kernel" in e.key))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and (kernel is None or kernel + "_kernel" in e.key)
+                       and (skip is None or skip not in e.key))
+        if total_us > 0:
+            break
+    check(total_us > 0, f"three profiler traces of {kernel or 'a call'} "
+          "lost their device events")
     return total_us / reps / 1e3
 
 
@@ -378,6 +400,188 @@ def phase_kernels_d2(ops, dev) -> dict:
     return out
 
 
+def run_bound(before, after, nbrs, visited: int, sentinel: int,
+              speculative: bool, random_x: bool) -> tuple[float, str, int]:
+    """Bytes bound of one run from its actual active rows (the local rows
+    it colored: each went from 0 to a color): 4 B per visited order entry
+    (and per visited row's own color, speculative); each active row's ELL
+    ids up to its first sentinel (4 B per id, and the 32-B sector that
+    holds the terminating sentinel of a row shorter than its width); 4 B
+    per gathered neighbour color; 4 B written per active row (and 4 B of
+    Random-X draw).  The tile-to-tile dependence is not in it."""
+    n_local_max = nbrs[0].shape[1]
+    act = after[:, :n_local_max] != before[:, :n_local_max]
+    n_act = int(act.sum())
+    n_ids = n_ends = 0
+    for n in nbrs:
+        real = n[act] != sentinel
+        n_ids += int(real.sum())
+        n_ends += int((~real.all(dim=1)).sum())
+    n_bytes = (4 * (visited * (2 if speculative else 1) + 2 * n_ids
+                    + n_act * (2 if random_x else 1)) + 32 * n_ends)
+    b, by = bound_ms(n_bytes, n_ids * 4)
+    return b, by, n_act
+
+
+def unfused_select_run(tile_fn, view, order_pad, nbrs, rand, *, first_step,
+                       n_steps, superstep, tile, **select_kw):
+    """The speculative loop the run kernel replaced, on the card: per tile
+    the ELL gathers, the tile kernel ``tile_fn`` and the scatter (the loop
+    of ``ref.select_run`` with the CUDA tile kernel in place of the plain
+    selection)."""
+    from repro_torch.kernels.ref import take_rows
+    n_slots = view.shape[1]
+    last = order_pad.shape[1] - tile
+    for si in range(first_step, first_step + n_steps):
+        for ti in range(-(-superstep // tile)):
+            s0 = min(si * superstep + ti * tile, last)
+            chunk = order_pad[:, s0:s0 + tile]
+            v_safe = chunk.clamp(min=0)
+            active = (chunk >= 0) & (take_rows(view, v_safe) == 0)
+            tiles = [take_rows(view, take_rows(n, v_safe)) for n in nbrs]
+            draws = None if rand is None else take_rows(rand, v_safe)
+            colors = tile_fn(*tiles, active, draws,
+                             backend="cuda", **select_kw)
+            colors = colors.clamp(max=select_kw["max_colors"] - 1)
+            idx = torch.where(active, v_safe, n_slots - 1)
+            val = torch.where(active, colors, 0)
+            view.scatter_(1, idx.long(), val.to(view.dtype))
+    return view
+
+
+def unfused_recolor_run(tile_fn, view, nbrs, sorted_pad, start, sizes,
+                        class_chunks, *, first_class, last_class, chunk,
+                        max_colors):
+    """The recolor loop the run kernel replaced, on the card: per chunk
+    the ELL gathers, the First Fit tile kernel and the scatter (the loop of
+    ``ref.recolor_run``)."""
+    from repro_torch.kernels.ref import take_rows
+    n_slots = view.shape[1]
+    n_local_max = nbrs[0].shape[1]
+    lane = torch.arange(chunk, device=view.device)
+    counts = class_chunks[first_class:last_class + 1].tolist()
+    for t, n_chunks in enumerate(counts, start=first_class):
+        for j in range(n_chunks):
+            pos = (start[:, t] + j * chunk).clamp(max=n_local_max)
+            active = lane < (sizes[:, t] - j * chunk)[:, None]
+            rows = sorted_pad.gather(1, pos[:, None] + lane)
+            rows = torch.where(active, rows, 0)
+            tiles = [take_rows(view, take_rows(n, rows)) for n in nbrs]
+            colors = tile_fn(*tiles, active, max_colors=max_colors,
+                             backend="cuda")
+            idx = torch.where(active, rows, n_slots - 1)
+            val = torch.where(active, colors, 0)
+            view.scatter_(1, idx.long(), val.to(view.dtype))
+    return view
+
+
+def phase_runs(core, ops, dev, pg, order, cfg, view_final) -> dict:
+    """The run kernel of this path against its plain version on the
+    path's own arrays: a speculative run (the middle superstep of round 0,
+    the earlier ones colored first by the kernel) and a recolor run (the
+    largest class of an ND iteration seeded with ``view_final``, the
+    earlier classes colored first).  Bitwise; prints the kernel's device
+    time per launch, the plain version's and the unfused sequence's
+    (gathers + tile kernel + scatters), and the bound; returns the
+    speculative run's numbers for the kernels line."""
+    from repro_torch import rng
+    from repro_torch.core import recolor as rc
+    cfg = core.resolve_pipeline_cfg(pg, cfg)
+    ccfg, rcfg = cfg.color, cfg.recolor
+    d2 = ccfg.distance == 2
+    name = "select_run_d2" if d2 else "select_run"
+    arrs = core.to_device(pg, dev, sparse=False)
+    nbrs = (arrs["nbr"], arrs["nbr2"]) if d2 else (arrs["nbr"],)
+    P, n_slots = arrs["prio"].shape
+    n_local_max, mc = pg.n_local_max, ccfg.max_colors
+    sentinel = n_slots - 1
+    tile_fn = ops.select_colors_d2 if d2 else ops.select_colors
+    lines = []
+
+    def timed(what, run, unfused, before, **bound_kw):
+        got, want = run("cuda"), run("torch")
+        err = int((got - want).abs().max())
+        check(err == 0, f"{name} {what}: kernel and plain views differ")
+        check(torch.equal(unfused(), want),
+              f"{name} {what}: unfused sequence differs")
+        b, by, n_act = run_bound(before, want, nbrs, sentinel=sentinel,
+                                 **bound_kw)
+        t = dict(ms=device_ms(lambda: run("cuda"), 20, name),
+                 plain_ms=device_ms(lambda: run("torch"), 3, skip="Memcpy"),
+                 unfused_ms=device_ms(unfused, 5, skip="Memcpy"),
+                 bound=b, by=by, err=err)
+        lines.append(
+            f"{name} {what}: kernel {t['ms']:.4f} ms device per launch, "
+            f"unfused {t['unfused_ms']:.4f} ms device, plain "
+            f"{t['plain_ms']:.4f} ms device, bound {b:.4f} ms ({by}; the "
+            f"tile-to-tile dependence is not in it), {n_act} active rows")
+        return t
+
+    # speculative: the middle superstep of round 0
+    S = min(ccfg.superstep, n_local_max)
+    tile = min(ccfg.tile, S)
+    order_t = torch.as_tensor(order, device=dev)
+    order_pad = torch.cat([order_t, torch.full((P, S), -1, dtype=order_t.dtype,
+                                               device=dev)], dim=1)
+    key = rng.fold_in(rng.fold_in(rng.key(ccfg.seed), 0),
+                      torch.arange(P, device=dev))
+    rand = rng.as_int32_bits(rng.bits(key, n_local_max))
+    spec = dict(superstep=S, tile=tile, max_colors=mc,
+                selection=ccfg.selection, x=ccfg.random_x)
+    run_fn = ops.select_run_d2 if d2 else ops.select_run
+    mid = -(-n_local_max // S) // 2
+    view0 = torch.zeros((P, n_slots), dtype=torch.int32, device=dev)
+    run_fn(view0, order_pad, *nbrs, rand, None, first_step=0, n_steps=mid,
+           backend="cuda", **spec)
+
+    random_x = ccfg.selection == ops.RANDOM_X
+    spec_tile = dict(max_colors=mc, selection=ccfg.selection, x=ccfg.random_x)
+    out = timed(
+        f"speculative superstep ({P} shards x {-(-S // tile)} "
+        f"{ccfg.selection} tiles of {tile} rows)",
+        lambda backend: run_fn(view0.clone(), order_pad, *nbrs, rand, None,
+                               first_step=mid, n_steps=1, backend=backend,
+                               **spec),
+        lambda: unfused_select_run(tile_fn, view0.clone(), order_pad, nbrs,
+                                   rand, first_step=mid, n_steps=1,
+                                   superstep=S, tile=tile, **spec_tile),
+        view0, visited=P * -(-S // tile) * tile, speculative=True,
+        random_x=random_x)
+
+    # recolor: the largest class (the last under ND) of an iteration
+    rcfg = dataclasses.replace(rcfg, scheme=core.ALLGATHER)
+    sizes, _ = rc.class_sizes(view_final, arrs["n_local"], n_local_max, mc)
+    sched = rc.recolor_schedule(arrs, view_final,
+                                rc.permutation_rank(sizes, rc.ND),
+                                (sizes > 0).sum(), rcfg, 0)
+    t_last = sched.n_classes
+    chunk = min(rcfg.chunk, n_local_max)
+    recolor_fn = ops.recolor_run_d2 if d2 else ops.recolor_run
+    sched_args = (sched.sorted_pad, sched.start_local, sched.local_sizes,
+                  sched.class_chunks)
+    view0 = torch.zeros((P, n_slots), dtype=torch.int32, device=dev)
+    recolor_fn(view0, *nbrs, *sched_args, first_class=1,
+               last_class=t_last - 1, chunk=chunk, max_colors=mc,
+               backend="cuda")
+
+    n_chunks = int(sched.class_chunks[t_last])
+    timed(f"recolor class ({P} shards x {n_chunks} first_fit chunks of "
+          f"{chunk} rows)",
+          lambda backend: recolor_fn(view0.clone(), *nbrs, *sched_args,
+                                     first_class=t_last, last_class=t_last,
+                                     chunk=chunk, max_colors=mc,
+                                     backend=backend),
+          lambda: unfused_recolor_run(tile_fn, view0.clone(), nbrs,
+                                      *sched_args, first_class=t_last,
+                                      last_class=t_last, chunk=chunk,
+                                      max_colors=mc),
+          view0, visited=P * n_chunks * chunk, speculative=False,
+          random_x=False)
+    for line in lines:
+        print("  " + line)
+    return {name: out}
+
+
 def stage_seconds(res) -> str:
     return ", ".join(f"{k} {v:.3f} s" for k, v in res["seconds"].items())
 
@@ -385,14 +589,17 @@ def stage_seconds(res) -> str:
 def drive_path(core, ops, dev, g, pg, order, cfg, kernels) -> dict:
     """One full-size pipeline run with every launch count set to 0 just
     before it and read just after; checks the coloring at the config's
-    distance, the iteration count and that each of ``kernels`` launched.
-    Returns the launch counts; then profiles a repeat."""
+    distance, the iteration count, that each of ``kernels`` launched and
+    that the tile-form select kernels did not.  Then the run kernel against
+    its plain version on this path (``phase_runs``) and a profiled repeat.
+    Returns the launch counts and ``phase_runs``' numbers."""
     distance = cfg.color.distance
     torch.cuda.reset_peak_memory_stats(dev)
     for k in ops.KERNELS:
         k.launches = 0
     view, res = core.pipeline_sim(pg, order, cfg, device=dev)
     launches = {k.name: k.launches for k in ops.KERNELS}
+    torch.cuda.synchronize(dev)
     peak = torch.cuda.max_memory_allocated(dev)
     st = core.check_coloring(g, core.colors_from_views(pg, view),
                              distance=distance)
@@ -413,8 +620,15 @@ def drive_path(core, ops, dev, g, pg, order, cfg, kernels) -> dict:
     check(res["n_iters_run"] == cfg.n_iters, "the path ran fewer iterations")
     for name in kernels:
         check(launches[name] > 0, f"kernel {name} never launched on its path")
+    for name in ("color_select", "color_select_d2"):
+        check(launches[name] == 0,
+              f"the tile kernel {name} launched on the path")
+    t = time.perf_counter()
+    measured = phase_runs(core, ops, dev, pg, order, cfg, view)
+    phase(f"{'5b' if distance == 2 else '3b'} run kernel vs plain "
+          "(bitwise) on this path's arrays", t)
     profile_path(core, pg, order, cfg, dev, res, kernels)
-    return launches
+    return launches, measured
 
 
 def phase_main_path(core, ops, dev) -> dict:
@@ -433,7 +647,7 @@ def phase_main_path(core, ops, dev) -> dict:
           f"max_ghost={pg.max_ghost}; generate {t_gen:.3f} s, partition+order "
           f"{t_part:.3f} s; scheme {scheme}", flush=True)
     return drive_path(core, ops, dev, g, pg, order, cfg,
-                      ("color_select", "conflict"))
+                      ("select_run", "conflict"))
 
 
 def d2_config(presets, n_iters: int):
@@ -466,7 +680,7 @@ def phase_d2_path(core, ops, dev) -> dict:
           f"grid3d ELL widths {(pg.maxd, pg.maxd2)}, want "
           f"{(D2_MAXD, D2_MAXD2)}")
     return drive_path(core, ops, dev, g, pg, order, cfg,
-                      ("color_select_d2", "conflict_d2"))
+                      ("select_run_d2", "conflict_d2"))
 
 
 def profile_path(core, pg, order, cfg, dev, res, kernels) -> None:
@@ -611,7 +825,8 @@ def main() -> int:
     logs = build.build()
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "smem" in line.lower():
+            if any(w in line.lower() for w in ("registers", "smem",
+                                                "spill")):
                 print(f"  nvcc {name}: {line.strip()}")
     phase("1 card and build", t)
 
@@ -621,7 +836,8 @@ def main() -> int:
     phase("2 kernels vs plain (bitwise)", t)
 
     t = time.perf_counter()
-    launches = phase_main_path(core, ops, dev)
+    launches, runs = phase_main_path(core, ops, dev)
+    measured.update(runs)
     phase(f"3 main path rmat_good({MAIN_SCALE}) P={MAIN_P} K={MAIN_K}", t)
 
     t = time.perf_counter()
@@ -630,9 +846,12 @@ def main() -> int:
           "kernels/plain x sparse/allgather", t)
 
     t = time.perf_counter()
-    launches_d2 = phase_d2_path(core, ops, dev)
+    launches_d2, runs = phase_d2_path(core, ops, dev)
+    measured.update(runs)
     phase(f"5 distance-2 path grid3d{D2_GRID} halo=2 P={D2_P} K={D2_K}", t)
-    for name in ("color_select_d2", "conflict_d2"):
+    print(f"  launches on the distance-1 path {launches}; on the distance-2 "
+          f"path {launches_d2}")
+    for name in ("color_select_d2", "conflict_d2", "select_run_d2"):
         launches[name] = launches_d2[name]
 
     t = time.perf_counter()
@@ -641,8 +860,11 @@ def main() -> int:
           f"K={D2_CROSS_K} kernels/plain x sparse/allgather, partial", t)
 
     kernels = []
+    # launches: each kernel on its own path (the tile-form select kernels
+    # serve ops.select_colors[_d2] and are expected at 0 there)
     for name, line in (("color_select", 172), ("conflict", 240),
-                       ("color_select_d2", 205), ("conflict_d2", 258)):
+                       ("color_select_d2", 205), ("conflict_d2", 258),
+                       ("select_run", 172), ("select_run_d2", 205)):
         m = measured[name]
         src = f"src/repro_torch/kernels/csrc/{build.SOURCES[name]}"
         kernels.append(dict(name=name, route="cuda", source=src,

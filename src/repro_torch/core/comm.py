@@ -25,6 +25,8 @@ import os
 
 import torch
 
+from repro_torch.kernels.ref import take_rows
+
 ALLGATHER = "allgather"
 SPARSE = "sparse"
 SCHEMES = (ALLGATHER, SPARSE)          # the two concrete exchange programs
@@ -71,18 +73,6 @@ class AxisComm:
 
     def index(self, device) -> torch.Tensor:
         return torch.arange(self.P, device=device)
-
-
-def take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Per-shard gather ``out[p, ...] = t[p, idx[p, ...]]``.
-
-    ``t`` is ``(P, N, …)``, ``idx`` ``(P, …)`` of any integer dtype; the
-    flat index is computed in int64.
-    """
-    P, N = t.shape[:2]
-    base = torch.arange(P, device=t.device, dtype=torch.int64) * N
-    base = base.view((P,) + (1,) * (idx.dim() - 1))
-    return t.reshape((P * N,) + t.shape[2:])[base + idx]
 
 
 def allgather_bytes_per_exchange(P_size: int, max_boundary: int,

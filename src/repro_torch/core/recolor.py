@@ -4,9 +4,10 @@ The reference's ``repro.core.recolor`` over ``(P, …)`` tensors.  Given a
 valid coloring with K classes, one iteration recolors in K steps: step t
 first-fit-colors the whole class ranked t — an independent set, so the step
 is data-parallel and conflict-free.  Vertices are sorted by step once and
-each class is consumed as fixed-size chunks (an ELL gather + a bitset
-first fit through ``kernels.ops.select_colors``); per-class chunk counts
-are maxed over shards, so every shard runs the same schedule.
+each class is consumed as fixed-size chunks; per-class chunk counts are
+maxed over shards, so every shard runs the same schedule.  Every class up
+to the next exchange event is one call of ``kernels.ops.recolor_run``,
+which colors its chunks in order (one kernel launch on the card).
 
 Piggybacking (§3.1): a ghost color written at step s is only read at a
 later step t, so the boundary exchange after s is deferred to t-1 and
@@ -21,14 +22,13 @@ RV, NI and ND class permutations are ported (RAND raises).
 Distance 2 (``RecolorConfig(distance=2)`` on a ``halo=2`` partition): a
 class of a valid D2 coloring is a distance-2 independent set, so the step
 stays conflict-free; selection ORs the two-hop colors
-(``ops.select_colors_d2``) and the piggyback schedule gains the two-hop ELL
+(``ops.recolor_run_d2``) and the piggyback schedule gains the two-hop ELL
 rows as a second dependency source (``_cross_deps_ell``).  Partial seed
 colorings need no flag: unmarked vertices are class 0, which the step loop
 skips.
 """
 from __future__ import annotations
 
-import bisect
 import dataclasses
 
 import torch
@@ -223,16 +223,16 @@ def _needed_exchange_rounds(step_of, arrs, n_local_max: int, n_classes,
 
 @dataclasses.dataclass
 class _Schedule:
-    """One iteration's chunk schedule, host side, plus its device parts."""
+    """One iteration's chunk schedule: the host part (class count and
+    exchange events) and the device part (int32) the chunk runs read."""
 
     n_classes: int
-    cum: list            # cum[t] = chunks through class t
-    chunks: list         # chunks of class t
     needed: list         # exchange event after step t (entry mc = end)
     needed_rounds: list | None   # sparse: rounds of each event
     sorted_pad: torch.Tensor     # (P, n_local_max + chunk) step-sorted rows
     start_local: torch.Tensor    # (P, mc + 1) first sorted position of t
     local_sizes: torch.Tensor    # (P, mc + 1) rows of class t per shard
+    class_chunks: torch.Tensor   # (mc + 1,) chunks of class t (all shards)
 
 
 def recolor_schedule(arrs, view, rank, n_classes, cfg: RecolorConfig,
@@ -273,22 +273,22 @@ def recolor_schedule(arrs, view, rank, n_classes, cfg: RecolorConfig,
     t = torch.arange(mc + 1, device=dev)
     per_class = torch.where((t >= 1) & (t <= n_classes),
                             (-(-max_sizes // chunk)).clamp(min=1), 0)
-    cum = per_class.cumsum(dim=0)
 
-    parts = [n_classes.reshape(1).long(), cum, per_class, needed.long()]
+    parts = [n_classes.reshape(1).long(), needed.long()]
     if needed_rounds is not None:
         parts.append(needed_rounds.reshape(-1).long())
     host = torch.cat(parts).tolist()                   # the one read
     k = mc + 1
     rounds = None
     if needed_rounds is not None:
-        flat = host[1 + 3 * k:]
+        flat = host[1 + k:]
         rounds = [flat[i * n_rounds:(i + 1) * n_rounds] for i in range(k)]
-    return _Schedule(n_classes=host[0], cum=host[1:1 + k],
-                     chunks=host[1 + k:1 + 2 * k],
-                     needed=host[1 + 2 * k:1 + 3 * k], needed_rounds=rounds,
-                     sorted_pad=sorted_pad, start_local=start_local,
-                     local_sizes=local_sizes)
+    i32 = lambda a: a.to(torch.int32)
+    return _Schedule(n_classes=host[0], needed=host[1:1 + k],
+                     needed_rounds=rounds, sorted_pad=i32(sorted_pad),
+                     start_local=i32(start_local),
+                     local_sizes=i32(local_sizes),
+                     class_chunks=i32(per_class))
 
 
 def recolor_steps(arrs, sched: _Schedule, exchange, cfg: RecolorConfig):
@@ -301,40 +301,33 @@ def recolor_steps(arrs, sched: _Schedule, exchange, cfg: RecolorConfig):
     P, n_slots = arrs["prio"].shape
     n_local_max = arrs["indptr"].shape[1] - 1
     mc = cfg.max_colors
-    chunk = min(cfg.chunk, n_local_max)
     dev = sched.sorted_pad.device
-    nbr = arrs["nbr"]
-    lane = torch.arange(chunk, device=dev)
+    kw = dict(chunk=min(cfg.chunk, n_local_max), max_colors=mc,
+              backend=cfg.backend)
     new_view = torch.zeros((P, n_slots), dtype=torch.int32, device=dev)
     n_ex = n_bytes = 0
     n_classes = sched.n_classes
-    for ci in range(sched.cum[mc]):
-        t = bisect.bisect_right(sched.cum, ci)
-        j = ci - (sched.cum[t] - sched.chunks[t])      # chunk # within class
-        pos = (sched.start_local[:, t] + j * chunk).clamp(max=n_local_max)
-        active = lane < (sched.local_sizes[:, t] - j * chunk)[:, None]
-        rows = sched.sorted_pad.gather(1, pos[:, None] + lane)
-        rows = torch.where(active, rows, 0)
-        nbr_colors = take_rows(new_view, take_rows(nbr, rows))
-        if cfg.distance == 2:
-            colors = ops.select_colors_d2(
-                nbr_colors, take_rows(new_view, take_rows(arrs["nbr2"], rows)),
-                active, max_colors=mc, selection=ops.FIRST_FIT,
-                backend=cfg.backend)
-        else:
-            colors = ops.select_colors(nbr_colors, active, max_colors=mc,
-                                       selection=ops.FIRST_FIT,
-                                       backend=cfg.backend)
-        idx = torch.where(active, rows, n_slots - 1)   # park writes on the
-        val = torch.where(active, colors, 0)           # sentinel (stays 0)
-        new_view.scatter_(1, idx, val)
+    sched_args = (sched.sorted_pad, sched.start_local, sched.local_sizes,
+                  sched.class_chunks)
+    first = 1
+    for t in range(1, n_classes + 1):
         is_end = t == n_classes
-        if ci + 1 == sched.cum[t] and (sched.needed[min(t, mc)] or is_end):
-            mask = None
-            if sched.needed_rounds is not None and not is_end:
-                mask = sched.needed_rounds[min(t, mc)]
-            new_view, b = exchange(new_view, mask)
-            n_ex, n_bytes = n_ex + 1, n_bytes + b
+        if not (sched.needed[t] or is_end):
+            continue
+        # classes first … t in one run: no exchange falls between them
+        if cfg.distance == 2:
+            new_view = ops.recolor_run_d2(
+                new_view, arrs["nbr"], arrs["nbr2"], *sched_args,
+                first_class=first, last_class=t, **kw)
+        else:
+            new_view = ops.recolor_run(new_view, arrs["nbr"], *sched_args,
+                                       first_class=first, last_class=t, **kw)
+        first = t + 1
+        mask = None
+        if sched.needed_rounds is not None and not is_end:
+            mask = sched.needed_rounds[t]
+        new_view, b = exchange(new_view, mask)
+        n_ex, n_bytes = n_ex + 1, n_bytes + b
 
     valid_local = (torch.arange(n_local_max, device=dev)
                    < arrs["n_local"][:, None])

@@ -6,8 +6,7 @@ The reference's ``repro.core.speculative`` on its tile-parallel path, over
   while conflicts remain:
     compact uncolored vertices to the front of the visit order
     for each superstep chunk of `superstep` vertices:
-        color it as tile-parallel sub-tiles against the (stale) view:
-        one ELL gather + ``kernels.ops.select_colors`` per tile
+        color it as tile-parallel sub-tiles against the (stale) view
         exchange boundary colors (every `exchange_every` supersteps),
         skipped when no shard colored a boundary vertex since the last one
     detect conflicts over the round's frontier (``ops.detect_conflicts``);
@@ -16,11 +15,13 @@ The reference's ``repro.core.speculative`` on its tile-parallel path, over
 The reference's ``lax`` loops become Python loops.  Their trip counts and
 exchange decisions are shard-uniform, so each round reads the device once:
 the frontier size, the per-chunk boundary flags, and the previous round's
-conflict count and final-exchange flag travel together.
+conflict count and final-exchange flag travel together.  Every superstep
+up to the next boundary exchange is one call of ``ops.select_run``, which
+colors its tiles in order (one kernel launch on the card).
 
 Distance 2 (``ColorConfig(distance=2)`` on a ``halo=2`` partition): the
 selection ORs the one-hop and the strict two-hop colors
-(``ops.select_colors_d2``) and the repair scans both ELL tiles
+(``ops.select_run_d2``) and the repair scans both ELL tiles
 (``ops.detect_conflicts_d2``); the round structure is unchanged.
 ``partial=True`` with ``marked=`` colors only a marked subset (bipartite
 partial D2 coloring): unmarked vertices leave the visit order, stay at
@@ -117,37 +118,24 @@ class ColorConfig:
         return (p_idx * self.stagger_estimate) % self.max_colors
 
 
-def _parallel_chunk(view, order_pad, rand, start: int, arrs, offset,
-                    cfg: ColorConfig, superstep: int):
-    """Color one superstep as tile-parallel sub-tiles against the stale view.
+def _color_supersteps(view, order_pad, rand, arrs, offset,
+                      cfg: ColorConfig, superstep: int, first: int,
+                      count: int):
+    """Color supersteps ``first … first + count - 1`` against the view,
+    with no exchange between them, in one ``ops.select_run[_d2]`` call.
 
-    Each sub-tile of ``cfg.tile`` vertices per shard colors at once; the
-    view updates between sub-tiles.  Same-tile neighbours may conflict —
-    the round loop repairs them.  Updates ``view`` in place.
+    Each superstep colors as tile-parallel sub-tiles of ``cfg.tile``
+    vertices per shard; the view updates between sub-tiles.  Same-tile
+    neighbours may conflict — the round loop repairs them.  Updates
+    ``view`` in place.
     """
-    n_slots = view.shape[1]
-    tile = min(cfg.tile, superstep)
-    last = order_pad.shape[1] - tile      # lax.dynamic_slice clamps here
-    for ti in range(-(-superstep // tile)):
-        s0 = min(start + ti * tile, last)
-        chunk = order_pad[:, s0:s0 + tile]                 # (P, tile)
-        v_safe = chunk.clamp(min=0)
-        active = (chunk >= 0) & (take_rows(view, v_safe) == 0)
-        nbr_colors = take_rows(view, take_rows(arrs["nbr"], v_safe))
-        kw = dict(max_colors=cfg.max_colors, selection=cfg.selection,
-                  x=cfg.random_x, offset=offset, backend=cfg.backend)
-        if cfg.distance == 2:
-            colors = ops.select_colors_d2(
-                nbr_colors, take_rows(view, take_rows(arrs["nbr2"], v_safe)),
-                active, take_rows(rand, v_safe), **kw)
-        else:
-            colors = ops.select_colors(nbr_colors, active,
-                                       take_rows(rand, v_safe), **kw)
-        colors = colors.clamp(max=cfg.max_colors - 1)
-        idx = torch.where(active, v_safe, n_slots - 1)   # park writes on the
-        val = torch.where(active, colors, 0)             # sentinel (stays 0)
-        view.scatter_(1, idx.long(), val.to(view.dtype))
-    return view
+    kw = dict(first_step=first, n_steps=count, superstep=superstep,
+              tile=min(cfg.tile, superstep), max_colors=cfg.max_colors,
+              selection=cfg.selection, x=cfg.random_x, backend=cfg.backend)
+    if cfg.distance == 2:
+        return ops.select_run_d2(view, order_pad, arrs["nbr"], arrs["nbr2"],
+                                 rand, offset, **kw)
+    return ops.select_run(view, order_pad, arrs["nbr"], rand, offset, **kw)
 
 
 def _detect_conflicts_frontier(view, arrs, order_pad, n_steps: int, n_need,
@@ -247,12 +235,14 @@ def _speculate(arrs: dict, order: torch.Tensor, key: torch.Tensor,
         n_steps = -(-n_need_max // S)
         rkeys = rng.fold_in(rng.fold_in(key, rnd), shard_ids)
         rand = rng.as_int32_bits(rng.bits(rkeys, n_local_max))
-        pending = False
+        pending, first = False, 0
         for si in range(n_steps):
-            view = _parallel_chunk(view, order_pad, rand, si * S, arrs,
-                                   offset, cfg, S)
             pending = pending or bool(chunk_bnd_h[si])
             due = (si + 1) % cfg.exchange_every == 0 or si == n_steps - 1
+            if (due and pending) or si == n_steps - 1:
+                view = _color_supersteps(view, order_pad, rand, arrs, offset,
+                                         cfg, S, first, si + 1 - first)
+                first = si + 1
             if due and pending:
                 view, b = exchange(view)
                 n_ex, n_bytes, pending = n_ex + 1, n_bytes + b, False

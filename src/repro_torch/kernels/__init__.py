@@ -1,3 +1,4 @@
 """Color-selection and conflict kernels: hand-written CUDA for Hopper
 (``csrc/``) and their plain PyTorch versions (``ref.py``), behind
-``ops.select_colors`` / ``ops.detect_conflicts``."""
+``ops.select_colors`` / ``ops.detect_conflicts`` and the fused run form
+of the selection, ``ops.select_run`` / ``ops.recolor_run``."""

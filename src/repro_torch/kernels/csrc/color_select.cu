@@ -14,8 +14,11 @@
 // row; the 32 lanes read the row's MAXD colors coalesced (128 contiguous
 // bytes per step) and OR bits into the warp's W-word bitset in shared
 // memory; find-first-zero is one __ballot_sync/__ffs per 32 words.  No
-// TILE_V padding: the kernel masks the ragged edge itself.  The gather
-// that builds the tile (view[nbr[rows]]) stays outside this kernel.
+// TILE_V padding: the kernel masks the ragged edge itself.  This tile
+// form takes a tile gathered beforehand (view[nbr[rows]]); it serves
+// ops.select_colors.  The coloring loops go through its fused run form,
+// select_run.cu, which gathers from the view itself and colors a whole
+// run of tiles in order in one launch.
 #include <cuda_runtime.h>
 
 #include "select_common.cuh"
@@ -40,8 +43,7 @@ __global__ void color_select_kernel(const int* __restrict__ nbr,
     if (lane == 0) out[row] = 0;
     return;
   }
-  unsigned* words = smem + warp * (n_words + x);
-  int* cands = reinterpret_cast<int*>(words + n_words);
+  unsigned* words = smem + warp * n_words;
 
   clear_bitset(words, n_words, lane);
   __syncwarp();
@@ -49,7 +51,7 @@ __global__ void color_select_kernel(const int* __restrict__ nbr,
   __syncwarp();
 
   const int color = select_from_bitset(
-      words, cands, n_words, x, staggered, staggered ? offset[row] : 0,
+      words, n_words, x, staggered, staggered ? offset[row] : 0,
       x ? static_cast<unsigned>(rand_bits[row]) : 0u, lane);
   if (lane == 0) out[row] = color;
 }
@@ -65,8 +67,9 @@ extern "C" int repro_color_select(const void* nbr, const void* active,
                                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  size_t smem = 0;
-  err = set_select_smem(color_select_kernel, n_words, x, &smem);
+  const size_t smem =
+      static_cast<size_t>(kWarpsPerBlock) * n_words * sizeof(unsigned);
+  err = set_dynamic_smem(color_select_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
   color_select_kernel<<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32,

@@ -15,8 +15,11 @@
 // read, so it is bound by device-memory bytes (3.35 TB/s).  Design: the
 // distance-1 kernel's, one warp per row, with both rows ORed into the same
 // shared-memory bitset before the one selection tail; no second bitset
-// and no second pass.  The gathers that build the tiles (view[nbr[rows]],
-// view[nbr2[rows]]) stay outside this kernel.
+// and no second pass.  This tile form takes tiles gathered beforehand
+// (view[nbr[rows]], view[nbr2[rows]]); it serves ops.select_colors_d2.
+// The coloring loops go through its fused run form, select_run_d2.cu,
+// which gathers from the view itself and colors a whole run of tiles in
+// order in one launch.
 #include <cuda_runtime.h>
 
 #include "select_common.cuh"
@@ -42,8 +45,7 @@ __global__ void color_select_d2_kernel(const int* __restrict__ nbr,
     if (lane == 0) out[row] = 0;
     return;
   }
-  unsigned* words = smem + warp * (n_words + x);
-  int* cands = reinterpret_cast<int*>(words + n_words);
+  unsigned* words = smem + warp * n_words;
 
   clear_bitset(words, n_words, lane);
   __syncwarp();
@@ -52,7 +54,7 @@ __global__ void color_select_d2_kernel(const int* __restrict__ nbr,
   __syncwarp();
 
   const int color = select_from_bitset(
-      words, cands, n_words, x, staggered, staggered ? offset[row] : 0,
+      words, n_words, x, staggered, staggered ? offset[row] : 0,
       x ? static_cast<unsigned>(rand_bits[row]) : 0u, lane);
   if (lane == 0) out[row] = color;
 }
@@ -70,8 +72,9 @@ extern "C" int repro_color_select_d2(const void* nbr, const void* nbr2,
                                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  size_t smem = 0;
-  err = set_select_smem(color_select_d2_kernel, n_words, x, &smem);
+  const size_t smem =
+      static_cast<size_t>(kWarpsPerBlock) * n_words * sizeof(unsigned);
+  err = set_dynamic_smem(color_select_d2_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
   color_select_d2_kernel<<<static_cast<unsigned>(blocks),

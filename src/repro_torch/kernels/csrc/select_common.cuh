@@ -1,14 +1,15 @@
 // Device code shared by the color-select kernels (color_select.cu,
-// color_select_d2.cu): one warp per row builds the row's forbidden-color
-// bitset in shared memory and picks a color from it.
+// color_select_d2.cu and their run forms select_run.cu, select_run_d2.cu):
+// one warp per row builds the row's forbidden-color bitset in shared
+// memory and picks a color from it.
 //
 // Contract (kernels/ops.py, kernels/ref.py): a row's W-word bitset holds
 // the colors of its neighbours (bit 0 always set; colors <= 0 or >= 32W
 // ignored); bit 32W-1 is reserved, so 32W-1 means "no color free".  First
 // Fit takes the lowest zero bit; Staggered the lowest zero bit at or above
-// the row's offset, falling back to First Fit; Random-X runs X rounds of
-// find-first-zero + set-bit into cands[], then picks
-// cands[rand % max(1, #cands below 32W-1)] in uint32.
+// the row's offset, falling back to First Fit; Random-X takes the
+// (rand % n_free)-th smallest free color in uint32, n_free = max(1,
+// min(X, #free colors below 32W-1)), and 32W-1 when none is free.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,6 +18,16 @@ namespace repro_select {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// The free bits of word w of the bitset (the reserved top bit counted as
+// taken; 0 past the end).
+__device__ __forceinline__ unsigned free_word(const unsigned* words,
+                                              int n_words, int w) {
+  if (w >= n_words) return 0u;
+  unsigned taken = words[w];
+  if (w == n_words - 1) taken |= 0x80000000u;
+  return ~taken;
+}
 
 // Lowest zero bit of the bitset below the reserved top bit, with every bit
 // below `off` also counted as taken (off <= 0 masks nothing).  Returns
@@ -27,16 +38,11 @@ __device__ __forceinline__ int find_first_zero(const unsigned* words,
   const int off_word = off >> 5;  // arithmetic shift: negative off -> < 0
   for (int base = 0; base < n_words; base += 32) {
     const int w = base + lane;
-    unsigned free_bits = 0u;
-    if (w < n_words) {
-      unsigned taken = words[w];
-      if (w == n_words - 1) taken |= 0x80000000u;
-      if (w < off_word) {
-        taken = kFullMask;
-      } else if (w == off_word) {
-        taken |= (1u << (off & 31)) - 1u;
-      }
-      free_bits = ~taken;
+    unsigned free_bits = free_word(words, n_words, w);
+    if (w < off_word) {
+      free_bits = 0u;
+    } else if (w == off_word) {
+      free_bits &= ~((1u << (off & 31)) - 1u);
     }
     const unsigned has = __ballot_sync(kFullMask, free_bits != 0u);
     if (has) {
@@ -46,6 +52,47 @@ __device__ __forceinline__ int find_first_zero(const unsigned* words,
     }
   }
   return n_words * 32 - 1;
+}
+
+// Random-X: the (rand % n_free)-th smallest free color.  The warp counts
+// the free bits (lane l holds word base+l), then finds the rank-th one by
+// a prefix sum over the lanes; everything stays in registers, with no
+// candidate list in shared memory and no __syncwarp per candidate.  All
+// lanes; warp-uniform result.
+__device__ __forceinline__ int random_x_pick(const unsigned* words,
+                                             int n_words, int x,
+                                             unsigned rand, int lane) {
+  unsigned n_free = 0u;
+  for (int base = 0; base < n_words && n_free < static_cast<unsigned>(x);
+       base += 32) {
+    n_free += __reduce_add_sync(
+        kFullMask, static_cast<unsigned>(
+                       __popc(free_word(words, n_words, base + lane))));
+  }
+  if (n_free == 0u) return n_words * 32 - 1;
+  if (n_free > static_cast<unsigned>(x)) n_free = x;
+  unsigned rank = rand % n_free;  // 0-based among the free colors
+  for (int base = 0; base < n_words; base += 32) {
+    const unsigned bits = free_word(words, n_words, base + lane);
+    const unsigned count = __popc(bits);
+    unsigned incl = count;  // inclusive prefix sum of the lanes' counts
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned y = __shfl_up_sync(kFullMask, incl, d);
+      if (lane >= d) incl += y;
+    }
+    const unsigned total = __shfl_sync(kFullMask, incl, 31);
+    if (rank < total) {
+      const int src = __ffs(__ballot_sync(kFullMask, incl > rank)) - 1;
+      unsigned word = __shfl_sync(kFullMask, bits, src);
+      for (unsigned k = rank - __shfl_sync(kFullMask, incl - count, src);
+           k; --k) {
+        word &= word - 1u;  // drop the lowest free bit
+      }
+      return (base + src) * 32 + (__ffs(word) - 1);
+    }
+    rank -= total;
+  }
+  return n_words * 32 - 1;  // not reached: rank < n_free <= #free
 }
 
 // Empty bitset (bit 0 set).  All lanes; the caller syncs the warp.
@@ -67,12 +114,11 @@ __device__ __forceinline__ void or_row(unsigned* words, const int* r,
 
 // The row's color from its built bitset (First Fit, Staggered from `off`,
 // or Random-X with `x` candidates and the uint32 draw `rand`).  All lanes;
-// warp-uniform result.  Random-X marks its candidates in `words`.
-__device__ __forceinline__ int select_from_bitset(unsigned* words,
-                                                  int* cands, int n_words,
-                                                  int x, int staggered,
-                                                  int off, unsigned rand,
-                                                  int lane) {
+// warp-uniform result.  Reads the bitset only.
+__device__ __forceinline__ int select_from_bitset(const unsigned* words,
+                                                  int n_words, int x,
+                                                  int staggered, int off,
+                                                  unsigned rand, int lane) {
   const int mc = n_words * 32;
   if (staggered) {
     const int color = find_first_zero(words, n_words, off, lane);
@@ -80,31 +126,17 @@ __device__ __forceinline__ int select_from_bitset(unsigned* words,
                            : color;
   }
   if (x == 0) return find_first_zero(words, n_words, 0, lane);
-  for (int k = 0; k < x; ++k) {
-    const int c = find_first_zero(words, n_words, 0, lane);
-    if (lane == 0) {
-      cands[k] = c;
-      words[c >> 5] |= 1u << (c & 31);
-    }
-    __syncwarp();
-  }
-  unsigned n_free = 0u;
-  for (int k = 0; k < x; ++k) n_free += (cands[k] < mc - 1) ? 1u : 0u;
-  if (n_free == 0u) n_free = 1u;
-  return cands[rand % n_free];
+  return random_x_pick(words, n_words, x, rand, lane);
 }
 
-// Dynamic shared memory of one block: W bitset words + X candidates per
-// warp.  Raises the kernel's limit past the default 48 KB when needed.
+// Raises the kernel's dynamic shared-memory limit past the default 48 KB
+// when `smem` bytes need it.
 template <typename Kernel>
-cudaError_t set_select_smem(Kernel kernel, int n_words, int x,
-                            size_t* smem) {
-  *smem = static_cast<size_t>(kWarpsPerBlock) * (n_words + x) *
-          sizeof(unsigned);
-  if (*smem <= 48 * 1024) return cudaSuccess;
+cudaError_t set_dynamic_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*smem));
+                              static_cast<int>(smem));
 }
 
 }  // namespace repro_select

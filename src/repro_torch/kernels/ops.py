@@ -2,10 +2,17 @@
 
 ``select_colors`` (bitset color selection) and ``detect_conflicts`` (the
 speculative repair's loser test) take a padded neighbour tile — the gather
-of an ELL row block — and are the only way the coloring code reaches a
-kernel.  ``select_colors_d2`` / ``detect_conflicts_d2`` are their
-distance-2 forms: they also take the strict two-hop tile (the gather of
-``nbr2`` rows) and treat its colors like the one-hop ones.  ``backend``:
+of an ELL row block.  ``select_colors_d2`` / ``detect_conflicts_d2`` are
+their distance-2 forms: they also take the strict two-hop tile (the gather
+of ``nbr2`` rows) and treat its colors like the one-hop ones.
+
+``select_run`` / ``recolor_run`` (and their ``_d2`` forms) are the fused
+run form of the selection, which the coloring loops go through: one call
+colors a whole run of speculative tiles or recolor chunks, on every shard,
+in their sequential order, straight from the view (updated in place) and
+the ELL arrays; each tile reads the view as it stood before the tile.
+The tile-form ``select_colors[_d2]`` is the counterpart of the
+reference's ``select_colors``.  ``backend``:
 
   "cuda"  — the hand-written Hopper kernels in ``csrc/`` (built by
             ``build.py`` at first use); CUDA tensors only, and a launch
@@ -39,10 +46,12 @@ SELECTIONS = (FIRST_FIT, STAGGERED, RANDOM_X)
 
 BACKENDS = ("auto", "torch", "cuda")
 
-# shared memory a block may use on Hopper (227 KB); the select kernel keeps
-# W bitset words + X Random-X candidates per warp, 8 warps per block
+# shared memory a block may use on Hopper (227 KB); the select kernels
+# keep W bitset words per warp: 8 warps per block in the tile form, up to
+# 32 (one block per shard) in the run form
 _MAX_SMEM = 227 * 1024
 _SELECT_WARPS = 8
+_RUN_WARPS = 32
 
 _P = ctypes.c_void_p
 
@@ -90,7 +99,12 @@ CONFLICT_D2 = Kernel(
     "conflict_d2", "repro_conflict_d2",
     [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, _P])
-KERNELS = (COLOR_SELECT, CONFLICT, COLOR_SELECT_D2, CONFLICT_D2)
+_RUN_ARGS = [_P] * 10 + [ctypes.c_int, ctypes.c_longlong] + (
+    [ctypes.c_int] * 14) + [_P]
+SELECT_RUN = Kernel("select_run", "repro_select_run", _RUN_ARGS)
+SELECT_RUN_D2 = Kernel("select_run_d2", "repro_select_run_d2", _RUN_ARGS)
+KERNELS = (COLOR_SELECT, CONFLICT, COLOR_SELECT_D2, CONFLICT_D2, SELECT_RUN,
+           SELECT_RUN_D2)
 
 
 def resolve_backend(backend: str, t: torch.Tensor) -> str:
@@ -203,16 +217,20 @@ def _same_rows(tiles: tuple, rows: tuple) -> None:
                              f"{tuple(t.shape)} differ in their rows")
 
 
+def _check_smem(max_colors: int, warps: int) -> int:
+    """Bitset words per row; raises when ``warps`` bitsets do not fit."""
+    n_words = max_colors // 32
+    if warps * n_words * 4 > _MAX_SMEM:
+        raise ValueError(
+            f"max_colors={max_colors} needs {warps * n_words * 4} bytes of "
+            f"shared memory per block; the CUDA select kernels take at most "
+            f"{_MAX_SMEM} (max_colors <= {_MAX_SMEM * 8 // warps})")
+    return n_words
+
+
 def _select_cuda(tiles, act, rand, off, max_colors, x, staggered):
     _check_cuda(*tiles, act, rand, off)
-    n_words = max_colors // 32
-    smem = _SELECT_WARPS * (n_words + x) * 4
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"max_colors={max_colors} with x={x} needs {smem} bytes of shared "
-            f"memory per block; the CUDA select kernel takes at most "
-            f"{_MAX_SMEM} (max_colors/32 + x <= "
-            f"{_MAX_SMEM // (4 * _SELECT_WARPS)})")
+    n_words = _check_smem(max_colors, _SELECT_WARPS)
     rows = tiles[0].shape[0]
     dev = tiles[0].device
     out = torch.empty(rows, dtype=torch.int32, device=dev)
@@ -224,6 +242,190 @@ def _select_cuda(tiles, act, rand, off, max_colors, x, staggered):
             *(t.shape[1] for t in tiles), n_words, x, int(staggered),
             dev.index, _stream(tiles[0]))
     return out
+
+
+def select_run(view: torch.Tensor, order_pad: torch.Tensor,
+               nbr: torch.Tensor, rand=None, offset=None, *, first_step: int,
+               n_steps: int, superstep: int, tile: int, max_colors: int,
+               selection: str = FIRST_FIT, x: int = 10,
+               backend: str = "auto") -> torch.Tensor:
+    """Speculative supersteps ``first_step … first_step + n_steps - 1`` in
+    one call: each superstep as ``ceil(superstep / tile)`` tiles of
+    ``tile`` rows, in order, on every shard (``ref.select_run``).
+
+    ``view`` ``(P, n_slots)`` int32, updated in place and returned (its
+    sentinel slot ``n_slots - 1`` holds 0); ``order_pad`` ``(P, L)`` visit
+    order of local slots, -1 = skip; ``nbr`` ``(P, n_local_max, MAXD)``,
+    each row its slot ids first and then sentinel padding (as
+    ``core.to_device`` lays it out: the kernel reads a row wider than one
+    round of its loads, 256 ids, only up to its first sentinel);
+    ``rand`` ``(P, n_local_max)`` int32 bit patterns (random_x only);
+    ``offset`` ``(P, 1)``/``(P,)`` int32 per-shard start colors (staggered
+    only).
+    """
+    return _select_run(view, order_pad, (nbr,), rand, offset,
+                       first_step=first_step, n_steps=n_steps,
+                       superstep=superstep, tile=tile, max_colors=max_colors,
+                       selection=selection, x=x, backend=backend)
+
+
+def select_run_d2(view: torch.Tensor, order_pad: torch.Tensor,
+                  nbr: torch.Tensor, nbr2: torch.Tensor, rand=None,
+                  offset=None, *, first_step: int, n_steps: int,
+                  superstep: int, tile: int, max_colors: int,
+                  selection: str = FIRST_FIT, x: int = 10,
+                  backend: str = "auto") -> torch.Tensor:
+    """``select_run`` at distance 2: ``nbr2`` ``(P, n_local_max, MAXD2)``
+    is the strict two-hop ELL, whose colors count like the one-hop ones."""
+    return _select_run(view, order_pad, (nbr, nbr2), rand, offset,
+                       first_step=first_step, n_steps=n_steps,
+                       superstep=superstep, tile=tile, max_colors=max_colors,
+                       selection=selection, x=x, backend=backend)
+
+
+def recolor_run(view: torch.Tensor, nbr: torch.Tensor,
+                sorted_pad: torch.Tensor, start: torch.Tensor,
+                sizes: torch.Tensor, class_chunks: torch.Tensor, *,
+                first_class: int, last_class: int, chunk: int,
+                max_colors: int, backend: str = "auto") -> torch.Tensor:
+    """First Fit of recolor classes ``first_class … last_class`` in one
+    call, every chunk of every class in order, on every shard
+    (``ref.recolor_run``).
+
+    ``sorted_pad`` ``(P, n_local_max + chunk)`` step-sorted local rows;
+    ``start``/``sizes`` ``(P, n_cls)`` first sorted position and rows of
+    class t per shard; ``class_chunks`` ``(n_cls,)`` chunks of class t
+    (the same on every shard).  ``view`` as in ``select_run``.
+    """
+    return _recolor_run(view, (nbr,), sorted_pad, start, sizes, class_chunks,
+                        first_class=first_class, last_class=last_class,
+                        chunk=chunk, max_colors=max_colors, backend=backend)
+
+
+def recolor_run_d2(view: torch.Tensor, nbr: torch.Tensor, nbr2: torch.Tensor,
+                   sorted_pad: torch.Tensor, start: torch.Tensor,
+                   sizes: torch.Tensor, class_chunks: torch.Tensor, *,
+                   first_class: int, last_class: int, chunk: int,
+                   max_colors: int, backend: str = "auto") -> torch.Tensor:
+    """``recolor_run`` at distance 2 (``nbr2`` as in ``select_run_d2``)."""
+    return _recolor_run(view, (nbr, nbr2), sorted_pad, start, sizes,
+                        class_chunks, first_class=first_class,
+                        last_class=last_class, chunk=chunk,
+                        max_colors=max_colors, backend=backend)
+
+
+def _select_run(view, order_pad, nbrs, rand, offset, *, first_step, n_steps,
+                superstep, tile, max_colors, selection, x, backend):
+    if selection not in SELECTIONS:
+        raise ValueError(
+            f"unknown selection {selection!r}, want one of {SELECTIONS}")
+    _check_run(view, nbrs, max_colors, tile)
+    if superstep <= 0 or first_step < 0:
+        raise ValueError(f"bad superstep {superstep} / first step "
+                         f"{first_step}")
+    if order_pad.shape[1] < tile:
+        raise ValueError(f"order_pad has {order_pad.shape[1]} columns, "
+                         f"fewer than a tile of {tile}")
+    staggered = selection == STAGGERED
+    x_eff = x if selection == RANDOM_X else 0
+    if x_eff < 0:
+        raise ValueError(f"random_x needs x >= 0, got {x}")
+    if x_eff and rand is None:
+        raise ValueError("random_x needs the per-row draws rand=")
+    P = view.shape[0]
+    off = None
+    if staggered:     # one start color per shard, (P,)
+        off = torch.broadcast_to(torch.as_tensor(
+            0 if offset is None else offset, device=view.device).reshape(-1),
+            (P,))
+    backend = resolve_backend(backend, view)
+    if n_steps <= 0:
+        return view
+    if backend == "torch":
+        return ref.select_run(view, order_pad, nbrs, rand,
+                              None if off is None else off[:, None],
+                              first_step=first_step, n_steps=n_steps,
+                              superstep=superstep, tile=tile,
+                              max_colors=max_colors, x=x_eff,
+                              staggered=staggered)
+    return _launch_run(view, nbrs, _int32(order_pad),
+                       _int32(rand) if x_eff else None,
+                       _int32(off) if staggered else None, None, first_step,
+                       first_step + n_steps - 1, superstep, tile, max_colors,
+                       x_eff, staggered)
+
+
+def _recolor_run(view, nbrs, sorted_pad, start, sizes, class_chunks, *,
+                 first_class, last_class, chunk, max_colors, backend):
+    _check_run(view, nbrs, max_colors, chunk)
+    if sorted_pad.shape[1] != nbrs[0].shape[1] + chunk:
+        raise ValueError(f"sorted_pad {tuple(sorted_pad.shape)} must have "
+                         f"n_local_max + chunk = {nbrs[0].shape[1] + chunk} "
+                         "columns")
+    if first_class < 0 or last_class >= class_chunks.shape[0]:
+        raise ValueError(f"classes [{first_class}, {last_class}] out of "
+                         f"range of {class_chunks.shape[0]}")
+    backend = resolve_backend(backend, view)
+    if last_class < first_class:
+        return view
+    if backend == "torch":
+        return ref.recolor_run(view, nbrs, sorted_pad, start, sizes,
+                               class_chunks, first_class=first_class,
+                               last_class=last_class, chunk=chunk,
+                               max_colors=max_colors)
+    sched = (_int32(start), _int32(sizes), _int32(class_chunks))
+    return _launch_run(view, nbrs, _int32(sorted_pad), None, None, sched,
+                       first_class, last_class, 0, chunk, max_colors, 0,
+                       False)
+
+
+def _check_run(view, nbrs, max_colors: int, tile: int) -> None:
+    if max_colors % 32 or max_colors <= 0:
+        raise ValueError(f"max_colors={max_colors} must be a positive "
+                         "multiple of 32")
+    if tile <= 0:
+        raise ValueError(f"tile/chunk must be > 0, got {tile}")
+    if view.dtype != torch.int32 or view.dim() != 2:
+        raise TypeError(f"the view must be (P, n_slots) int32, got "
+                        f"{view.dtype} {tuple(view.shape)}")
+    for n in nbrs:
+        if n.dtype != torch.int32 or n.dim() != 3:
+            raise TypeError(f"ELL arrays must be (P, n_local_max, D) int32, "
+                            f"got {n.dtype} {tuple(n.shape)}")
+        if n.shape[:2] != nbrs[0].shape[:2] or n.shape[0] != view.shape[0]:
+            raise ValueError(f"ELL {tuple(n.shape)} does not match "
+                             f"{tuple(nbrs[0].shape)} / view "
+                             f"{tuple(view.shape)}")
+
+
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def _launch_run(view, nbrs, rows, rand, off, sched, first, last, superstep,
+                tile, max_colors, x, staggered):
+    """One launch of SELECT_RUN[_D2]: ``sched`` is (start, sizes,
+    class_chunks) in recolor mode and None in speculative mode."""
+    nbrs = tuple(n.contiguous() for n in nbrs)
+    live = [t for t in (view, rows, rand, off, *nbrs, *(sched or ()))
+            if t is not None]
+    _check_cuda(*live)
+    n_words = _check_smem(max_colors, min(tile, _RUN_WARPS))
+    P, n_slots = view.shape
+    scratch = torch.empty((P, tile), dtype=torch.int32, device=view.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    start, sizes, chunks = sched or (None, None, None)
+    kernel = SELECT_RUN if len(nbrs) == 1 else SELECT_RUN_D2
+    kernel.launch(
+        view.data_ptr(), rows.data_ptr(), nbrs[0].data_ptr(),
+        ptr(nbrs[1] if len(nbrs) > 1 else None), ptr(rand), ptr(off),
+        ptr(start), ptr(sizes), ptr(chunks), scratch.data_ptr(), P, n_slots,
+        rows.shape[1], nbrs[0].shape[1], nbrs[0].shape[2],
+        nbrs[1].shape[2] if len(nbrs) > 1 else 0,
+        0 if start is None else start.shape[1], first, last, superstep, tile,
+        int(sched is not None), n_words, x, int(staggered), view.device.index,
+        _stream(view))
+    return view
 
 
 def detect_conflicts(my_color, my_prio, nbr_colors: torch.Tensor,

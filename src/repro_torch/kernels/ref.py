@@ -20,10 +20,27 @@ Both work on a whole ``(V, MAXD)`` tile through a ``(V, max_colors)``
 occupancy mask — not the kernels' bitset walk — so they check the
 kernels' arithmetic rather than repeat it.  The distance-2 versions run
 the same mask over the one-hop and the strict two-hop tile side by side.
+
+``select_run`` and ``recolor_run`` are the plain versions of the run
+kernels: the speculative tile loop and the recolor chunk loop over
+``(P, …)`` tensors, one ELL gather, one tile selection and one scatter
+per tile, in order.
 """
 from __future__ import annotations
 
 import torch
+
+
+def take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-shard gather ``out[p, ...] = t[p, idx[p, ...]]``.
+
+    ``t`` is ``(P, N, …)``, ``idx`` ``(P, …)`` of any integer dtype; the
+    flat index is computed in int64.
+    """
+    P, N = t.shape[:2]
+    base = torch.arange(P, device=t.device, dtype=torch.int64) * N
+    base = base.view((P,) + (1,) * (idx.dim() - 1))
+    return t.reshape((P * N,) + t.shape[2:])[base + idx]
 
 
 def _first(mask: torch.Tensor) -> torch.Tensor:
@@ -85,3 +102,84 @@ def detect_conflicts_d2(my_color, my_prio, nbr_colors, nbr_prio, nbr2_colors,
     return detect_conflicts(my_color, my_prio,
                             torch.cat([nbr_colors, nbr2_colors], dim=1),
                             torch.cat([nbr_prio, nbr2_prio], dim=1), active)
+
+
+def _select_tiles(tiles, active, rand, offset, *, max_colors: int, x: int,
+                  staggered: bool) -> torch.Tensor:
+    """``select_colors`` over ``(P, rows, MAXD)`` tiles (one, or the
+    one-hop and the two-hop tile), ``(P, rows)`` active rows and draws (or
+    None) and a broadcastable offset (or None) -> ``(P, rows)`` int32."""
+    shape = active.shape
+    row = lambda a: torch.broadcast_to(
+        torch.as_tensor(0 if a is None else a, device=active.device),
+        shape).reshape(-1)
+    flat = torch.cat([t.reshape(-1, t.shape[-1]) for t in tiles], dim=1)
+    out = select_colors(flat, row(active), row(rand), row(offset),
+                        max_colors=max_colors, x=x, staggered=staggered)
+    return out.reshape(shape)
+
+
+def select_run(view, order_pad, nbrs: tuple, rand, offset, *,
+               first_step: int, n_steps: int, superstep: int, tile: int,
+               max_colors: int, x: int, staggered: bool):
+    """Speculative supersteps ``first_step … first_step + n_steps - 1``,
+    each as ``ceil(superstep / tile)`` tiles of ``tile`` rows of the visit
+    order ``order_pad`` ``(P, L)``, against ``view`` ``(P, n_slots)``,
+    which is updated in place and returned.
+
+    A tile starts at ``min(si * superstep + ti * tile, L - tile)``; a row
+    is active iff its entry is ``>= 0`` and its view color is 0; the whole
+    tile reads the view before any of its colors is written.  ``nbrs`` is
+    ``(nbr,)`` or ``(nbr, nbr2)``.
+    """
+    n_slots = view.shape[1]
+    last = order_pad.shape[1] - tile      # lax.dynamic_slice clamps here
+    for si in range(first_step, first_step + n_steps):
+        for ti in range(-(-superstep // tile)):
+            s0 = min(si * superstep + ti * tile, last)
+            chunk = order_pad[:, s0:s0 + tile]                 # (P, tile)
+            v_safe = chunk.clamp(min=0)
+            active = (chunk >= 0) & (take_rows(view, v_safe) == 0)
+            tiles = [take_rows(view, take_rows(n, v_safe)) for n in nbrs]
+            colors = _select_tiles(
+                tiles, active,
+                None if rand is None else take_rows(rand, v_safe), offset,
+                max_colors=max_colors, x=x, staggered=staggered)
+            colors = colors.clamp(max=max_colors - 1)
+            idx = torch.where(active, v_safe, n_slots - 1)   # park writes on
+            val = torch.where(active, colors, 0)            # the sentinel
+            view.scatter_(1, idx.long(), val.to(view.dtype))
+    return view
+
+
+def recolor_run(view, nbrs: tuple, sorted_pad, start, sizes, class_chunks,
+                *, first_class: int, last_class: int, chunk: int,
+                max_colors: int):
+    """First Fit of recolor classes ``first_class … last_class`` in
+    order, class t as ``class_chunks[t]`` chunks of ``chunk`` rows of the
+    step-sorted rows ``sorted_pad`` ``(P, n_local_max + chunk)``, against
+    ``view``, which is updated in place and returned.
+
+    Chunk j of class t starts at ``min(start[p, t] + j * chunk,
+    n_local_max)``; its row i is active iff ``j * chunk + i < sizes[p,
+    t]``; the whole chunk reads the view before any of its colors is
+    written.  ``nbrs`` as in ``select_run``.
+    """
+    n_slots = view.shape[1]
+    n_local_max = nbrs[0].shape[1]
+    lane = torch.arange(chunk, device=view.device)
+    counts = class_chunks[first_class:last_class + 1].tolist()
+    for t, n_chunks in enumerate(counts, start=first_class):
+        for j in range(n_chunks):
+            pos = (start[:, t] + j * chunk).clamp(max=n_local_max)
+            active = lane < (sizes[:, t] - j * chunk)[:, None]
+            rows = sorted_pad.gather(1, pos[:, None] + lane)
+            rows = torch.where(active, rows, 0)
+            tiles = [take_rows(view, take_rows(n, rows)) for n in nbrs]
+            colors = _select_tiles(tiles, active, None, None,
+                                   max_colors=max_colors, x=0,
+                                   staggered=False)
+            idx = torch.where(active, rows, n_slots - 1)    # park writes on
+            val = torch.where(active, colors, 0)           # the sentinel
+            view.scatter_(1, idx.long(), val.to(view.dtype))
+    return view

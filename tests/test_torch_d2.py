@@ -10,6 +10,8 @@ run only where a GPU is present (``python -m pytest -m cuda
 tests/test_torch_d2.py`` on the GPU machine, where jax is absent and the
 reference cases skip).
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -152,12 +154,13 @@ def test_d2_entry_points_reject_what_they_cannot_run():
 def test_each_kernel_has_its_own_name_symbol_and_source():
     names = [k.name for k in ops.KERNELS]
     assert names == ["color_select", "conflict", "color_select_d2",
-                     "conflict_d2"]
-    assert len({k.symbol for k in ops.KERNELS}) == 4
+                     "conflict_d2", "select_run", "select_run_d2"]
+    assert len({k.symbol for k in ops.KERNELS}) == 6
     assert set(names) == set(build.SOURCES)
     for k in ops.KERNELS:
         src = (build.CSRC / build.SOURCES[k.name]).read_text()
-        assert f"__global__ void {k.name}_kernel(" in src
+        assert re.search(r"__global__ void (__launch_bounds__\([^)]*\)\s*)?"
+                         rf"{k.name}_kernel\(", src)
         assert f'extern "C" int {k.symbol}(' in src
     # the profiler tells the kernels apart by these names
     for a in names:
