@@ -21,18 +21,23 @@ before the final line):
 3. the main path at full size — ``rmat_good(20, 8, seed=1)`` on P=64
    shards, the "quality" preset (Random-X X=10, Internal-First, ND
    recoloring) with K=8 iterations, through ``pipeline_sim`` on the GPU; the
-   coloring must be valid, the run kernel ``select_run`` and ``conflict``
-   must have launched and the tile-form select kernels must not (all six
-   counted in this run); then (phase 3b) the run kernel against its
-   plain version on this path's own arrays — the middle superstep of
-   round 0 (64 shards x 4 Random-X tiles of 128 rows) and the largest
-   class of an ND iteration from the final coloring (256-row chunks) —
-   bitwise, with its device
-   time per launch, the device time of the plain version and of the
-   unfused sequence it replaced (ELL gathers + the tile kernel + the
-   scatters, per tile), and the bytes bound of this run's active rows;
-   then the same path again under ``torch.profiler`` for the device-time
-   breakdown;
+   coloring must be valid, the run kernel ``select_run`` and the frontier
+   kernel ``conflict_frontier`` must have launched and the tile-form
+   select and conflict kernels must not (all eight counted in this run);
+   then (phase 3b) the run kernel against its plain version on this
+   path's own arrays — the middle superstep of round 0 (64 shards x 4
+   Random-X tiles of 128 rows) and the largest class of an ND iteration
+   from the final coloring (256-row chunks) — and the frontier kernel
+   against its plain version on the arguments of the path's own first
+   repair (round 0's pre-repair view, as its supersteps and boundary
+   exchanges left it, taken from one more run that ends there), bitwise,
+   each with its device time per launch, the device time of the plain
+   version and of the unfused sequence it replaced (ELL gathers + the
+   tile kernel + the scatters, per tile or superstep chunk), and the
+   bytes bound of the work this run's data needs; then the same path
+   ``WARM_RUNS`` times more, warm and unprofiled (their median stage
+   walls), and once under ``torch.profiler`` for the device-time
+   breakdown and the operators that launched it;
 4. cross-check — ``rmat_good(18, 8, seed=2)`` at P=16 with the kernels and
    with ``backend="torch"``, under the sparse and all-gather exchanges:
    views, color stats and histories bitwise equal (the wire bytes differ
@@ -43,10 +48,12 @@ before the final line):
    P=16 shards, the "quality" preset with K=8 and ``distance=2``,
    ``tile=16`` on both stages, through ``pipeline_sim`` on the GPU; the
    coloring must be valid at distance 2, ``select_run_d2`` and
-   ``conflict_d2`` must have launched and the tile-form select kernels
-   must not (counted in this run); then (phase 5b) ``select_run_d2``
-   against its plain version as in phase 3b (16 shards x 32 tiles of 16
-   rows; the largest class in 256-row chunks); then a profiled repeat;
+   ``conflict_frontier_d2`` must have launched and the tile-form select
+   and conflict kernels must not (counted in this run); then (phase 5b)
+   ``select_run_d2`` and ``conflict_frontier_d2`` against their plain
+   versions as in phase 3b (16 shards x 32 tiles of 16 rows; the largest
+   class in 256-row chunks; round 0's repair); then the warm and
+   profiled repeats;
 6. distance-2 cross-check — ``grid3d(32, 32, 32)`` at P=16, K=4: kernels
    vs plain under both exchanges, then partial D2 of the even global ids,
    kernels vs plain; bitwise equal, unmarked vertices left uncolored.
@@ -58,6 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -82,6 +90,7 @@ D2_TILE_ROWS = {"speculative tile": D2_P * D2_TILE,
                 "recolor chunk": D2_P * 256}
 D2_CONFLICT_ROWS = D2_P * 512
 SELECTIONS = (("first_fit", 0), ("staggered", 0), ("random_x", 10))
+WARM_RUNS = 5  # warm repeats of each full-size path, for their median walls
 
 
 def phase(name: str, t0: float, detail: str = "") -> None:
@@ -475,6 +484,160 @@ def unfused_recolor_run(tile_fn, view, nbrs, sorted_pad, start, sizes,
     return view
 
 
+def unfused_conflict_frontier(ops, view, prio, is_internal, order_pad,
+                              nbrs, n_need, *, n_steps, superstep):
+    """The repair loop the frontier kernel replaced, on the card: per
+    superstep chunk the ELL gathers of colors and priorities, the tile
+    kernel ``conflict[_d2]`` and the scatter of the losers (the loop of
+    ``ref.detect_conflicts_frontier`` with the CUDA tile kernel)."""
+    from repro_torch.kernels.ref import take_rows
+    n_slots = view.shape[1]
+    new_view = view.clone()
+    n_conf = torch.zeros((), dtype=torch.int64, device=view.device)
+    bnd = torch.zeros((), dtype=torch.bool, device=view.device)
+    offs = torch.arange(superstep, device=view.device)
+    test = ops.detect_conflicts if len(nbrs) == 1 else ops.detect_conflicts_d2
+    for si in range(n_steps):
+        rows = order_pad[:, si * superstep:(si + 1) * superstep]
+        active = (rows >= 0) & (si * superstep + offs < n_need[:, None])
+        r_safe = rows.clamp(min=0)
+        tiles = []
+        for n in nbrs:
+            nbr_rows = take_rows(n, r_safe)
+            tiles += [take_rows(view, nbr_rows), take_rows(prio, nbr_rows)]
+        conf = test(take_rows(view, r_safe), take_rows(prio, r_safe), *tiles,
+                    active, backend="cuda")
+        idx = torch.where(conf, r_safe, n_slots - 1)
+        new_view.scatter_(1, idx.long(), 0)
+        n_conf = n_conf + conf.sum()
+        bnd = bnd | (conf & ~take_rows(is_internal, r_safe)).any()
+    return new_view, n_conf, bnd
+
+
+def frontier_bound(view, prio, order_pad, nbrs, n_need, *, n_steps,
+                   superstep) -> tuple[float, str, int, int, int]:
+    """Bytes bound of one repair from what this round's view makes it
+    read: per active position its order entry and own color (4 B each);
+    per live row (active and colored) its ids in ELL order (the nbr row,
+    then at distance 2 the nbr2 row), up to its first sentinel or, for a
+    loser, up to and including its first winning conflict, each 4 B of id
+    and 4 B of gathered color; 4 B of gathered priority per id of those
+    that has the row's color, and the row's own priority (4 B) when there
+    is such an id; per loser its is_internal flag (1 B) and its write (4
+    B).  Counted chunk by chunk on the card; returns the bound, what
+    bounds it, and the active, live and losing rows."""
+    from repro_torch.kernels.ref import take_rows
+    sentinel = view.shape[1] - 1
+    offs = torch.arange(superstep, device=view.device)
+    zero = torch.zeros((), dtype=torch.int64, device=view.device)
+    n_act = n_live = n_lose = n_ids = n_match = n_own = zero
+    for si in range(n_steps):
+        rows = order_pad[:, si * superstep:(si + 1) * superstep]
+        r_safe = rows.clamp(min=0)
+        act = (rows >= 0) & (si * superstep + offs < n_need[:, None])
+        myc, myp = take_rows(view, r_safe), take_rows(prio, r_safe)
+        live = act & (myc > 0)
+        ids = torch.cat([take_rows(n, r_safe) for n in nbrs], dim=2)
+        real = (ids != sentinel) & live[..., None]
+        match = real & (take_rows(view, ids) == myc[..., None])
+        win = match & (take_rows(prio, ids) > myp[..., None])
+        # an id is read iff no winning conflict comes before it in the row
+        read = real & (win.cumsum(dim=2) - win.long() == 0)
+        n_act = n_act + act.sum()
+        n_live = n_live + live.sum()
+        n_lose = n_lose + win.any(dim=2).sum()
+        n_ids = n_ids + read.sum()
+        n_match = n_match + (match & read).sum()
+        n_own = n_own + (match & read).any(dim=2).sum()
+    n_act, n_live, n_lose, n_ids, n_match, n_own = (
+        int(x) for x in (n_act, n_live, n_lose, n_ids, n_match, n_own))
+    n_bytes = 8 * (n_act + n_ids) + 4 * (n_match + n_own) + 5 * n_lose
+    b, by = bound_ms(n_bytes, n_ids * 2)
+    return b, by, n_act, n_live, n_lose
+
+
+class _FirstRepair(Exception):
+    """Ends a run at its first repair (``capture_first_repair``)."""
+
+
+def capture_first_repair(core, pg, order, cfg, dev) -> dict:
+    """The arguments of the path's first repair: round 0's pre-repair view,
+    as the round's supersteps and boundary exchanges left it, and the
+    round's visit order, frontier and device arrays.  ``pipeline_sim`` is
+    run once more (its launches are not counted) with
+    ``speculative._detect_conflicts_frontier`` replaced by a stand-in that
+    records its arguments and ends the run."""
+    from repro_torch.core import speculative
+    seen = {}
+
+    def first_repair(view, arrs, order_pad, n_steps, n_need, superstep,
+                     **_):
+        seen.update(view=view, arrs=arrs, order_pad=order_pad,
+                    n_steps=n_steps, n_need=n_need, superstep=superstep)
+        raise _FirstRepair
+
+    real = speculative._detect_conflicts_frontier
+    speculative._detect_conflicts_frontier = first_repair
+    try:
+        core.pipeline_sim(pg, order, cfg, device=dev)
+    except _FirstRepair:
+        pass
+    finally:
+        speculative._detect_conflicts_frontier = real
+    check(bool(seen), "the path made no repair")
+    return seen
+
+
+def phase_frontier(ops, seen: dict, d2: bool) -> dict:
+    """The frontier kernel of this path against its plain version on the
+    path's own round-0 repair (``capture_first_repair``).  Bitwise (view,
+    count, boundary flag), and the unfused sequence too; returns the
+    kernel's device time per launch, the entry point's (its view copy and
+    count buffer included), the plain version's and the unfused
+    sequence's (gathers + tile kernel + scatter per superstep chunk), and
+    the bound."""
+    name = "conflict_frontier_d2" if d2 else "conflict_frontier"
+    arrs, view, order_pad, n_need = (seen[k] for k in (
+        "arrs", "view", "order_pad", "n_need"))
+    nbrs = (arrs["nbr"], arrs["nbr2"]) if d2 else (arrs["nbr"],)
+    P = view.shape[0]
+    fn = ops.detect_conflicts_frontier_d2 if d2 else (
+        ops.detect_conflicts_frontier)
+    args = (view, arrs["prio"], arrs["is_internal"], order_pad, *nbrs, n_need)
+    kw = dict(n_steps=seen["n_steps"], superstep=seen["superstep"])
+    run = lambda backend: fn(*args, backend=backend, **kw)
+    unfused = lambda: unfused_conflict_frontier(
+        ops, view, arrs["prio"], arrs["is_internal"], order_pad, nbrs, n_need,
+        **kw)
+    got, want, old = run("cuda"), run("torch"), unfused()
+    err = int((got[0] - want[0]).abs().max())
+    n_losers = int(want[1])
+    check(err == 0 and int(got[1]) == n_losers
+          and bool(got[2]) == bool(want[2]),
+          f"{name}: kernel and plain repairs differ")
+    check(torch.equal(old[0], want[0]) and int(old[1]) == n_losers
+          and bool(old[2]) == bool(want[2]),
+          f"{name}: unfused repair differs")
+    b, by, n_act, n_live, n_lose = frontier_bound(
+        view, arrs["prio"], order_pad, nbrs, n_need, **kw)
+    check(n_lose == n_losers, f"{name}: the bound counted {n_lose} losers, "
+          f"the repair {n_losers}")
+    t = dict(ms=device_ms(lambda: run("cuda"), 20, name),
+             call_ms=device_ms(lambda: run("cuda"), 20, skip="Memcpy"),
+             plain_ms=device_ms(lambda: run("torch"), 3, skip="Memcpy"),
+             unfused_ms=device_ms(unfused, 3, skip="Memcpy"),
+             bound=b, by=by, err=err)
+    print(f"  {name} round 0 ({P} shards x {kw['n_steps']} superstep chunks "
+          f"of {kw['superstep']} rows, the path's own pre-repair view): "
+          f"kernel {t['ms']:.4f} ms device per launch (entry point "
+          f"{t['call_ms']:.4f} ms, its view copy included), unfused "
+          f"{t['unfused_ms']:.4f} ms device, plain {t['plain_ms']:.4f} ms "
+          f"device, bound {b:.4f} ms ({by}), {n_act} active rows, {n_live} "
+          f"live, {n_losers} losers ({n_losers / max(n_live, 1):.4f} of the "
+          f"live rows), boundary loser {bool(want[2])}")
+    return {name: t}
+
+
 def phase_runs(core, ops, dev, pg, order, cfg, view_final) -> dict:
     """The run kernel of this path against its plain version on the
     path's own arrays: a speculative run (the middle superstep of round 0,
@@ -482,7 +645,7 @@ def phase_runs(core, ops, dev, pg, order, cfg, view_final) -> dict:
     largest class of an ND iteration seeded with ``view_final``, the
     earlier classes colored first).  Bitwise; prints the kernel's device
     time per launch, the plain version's and the unfused sequence's
-    (gathers + tile kernel + scatters), and the bound; returns the
+    (gathers + tile kernel + scatters), and the bound.  Returns the
     speculative run's numbers for the kernels line."""
     from repro_torch import rng
     from repro_torch.core import recolor as rc
@@ -590,8 +753,10 @@ def drive_path(core, ops, dev, g, pg, order, cfg, kernels) -> dict:
     """One full-size pipeline run with every launch count set to 0 just
     before it and read just after; checks the coloring at the config's
     distance, the iteration count, that each of ``kernels`` launched and
-    that the tile-form select kernels did not.  Then the run kernel against
-    its plain version on this path (``phase_runs``) and a profiled repeat.
+    that the tile-form select and conflict kernels did not.  Then the run
+    and frontier kernels against their plain versions on this path
+    (``phase_runs``, ``phase_frontier``) and the warm and profiled
+    repeats (``profile_path``).
     Returns the launch counts and ``phase_runs``' numbers."""
     distance = cfg.color.distance
     torch.cuda.reset_peak_memory_stats(dev)
@@ -620,13 +785,16 @@ def drive_path(core, ops, dev, g, pg, order, cfg, kernels) -> dict:
     check(res["n_iters_run"] == cfg.n_iters, "the path ran fewer iterations")
     for name in kernels:
         check(launches[name] > 0, f"kernel {name} never launched on its path")
-    for name in ("color_select", "color_select_d2"):
+    for name in ("color_select", "color_select_d2", "conflict",
+                 "conflict_d2"):
         check(launches[name] == 0,
               f"the tile kernel {name} launched on the path")
     t = time.perf_counter()
     measured = phase_runs(core, ops, dev, pg, order, cfg, view)
-    phase(f"{'5b' if distance == 2 else '3b'} run kernel vs plain "
-          "(bitwise) on this path's arrays", t)
+    measured.update(phase_frontier(
+        ops, capture_first_repair(core, pg, order, cfg, dev), distance == 2))
+    phase(f"{'5b' if distance == 2 else '3b'} run and frontier kernels vs "
+          "plain (bitwise) on this path's arrays", t)
     profile_path(core, pg, order, cfg, dev, res, kernels)
     return launches, measured
 
@@ -647,7 +815,7 @@ def phase_main_path(core, ops, dev) -> dict:
           f"max_ghost={pg.max_ghost}; generate {t_gen:.3f} s, partition+order "
           f"{t_part:.3f} s; scheme {scheme}", flush=True)
     return drive_path(core, ops, dev, g, pg, order, cfg,
-                      ("select_run", "conflict"))
+                      ("select_run", "conflict_frontier"))
 
 
 def d2_config(presets, n_iters: int):
@@ -680,18 +848,25 @@ def phase_d2_path(core, ops, dev) -> dict:
           f"grid3d ELL widths {(pg.maxd, pg.maxd2)}, want "
           f"{(D2_MAXD, D2_MAXD2)}")
     return drive_path(core, ops, dev, g, pg, order, cfg,
-                      ("select_run_d2", "conflict_d2"))
+                      ("select_run_d2", "conflict_frontier_d2"))
 
 
 def profile_path(core, pg, order, cfg, dev, res, kernels) -> None:
-    """Where the time goes: the path once more under torch.profiler (its
-    launches are not counted).  Device time is summed over the device-side
+    """Where the time goes: the path ``WARM_RUNS`` times more unprofiled
+    (warm: the counted run was the process's first) and once under
+    torch.profiler, their launches not counted.  Prints the warm runs'
+    median stage walls.  Device time is summed over the device-side
     events; the idle share compares the device time of the color and
-    recolor stages with their wall time in the unprofiled run."""
+    recolor stages with their wall time in the counted (cold) run and
+    with the warm median.  The operators that launched the most device
+    time are listed with their input shapes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    warm = [core.pipeline_sim(pg, order, cfg, device=dev)[1]["seconds"]
+            for _ in range(WARM_RUNS)]
+    median = {k: statistics.median(w[k] for w in warm) for k in warm[0]}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         _, res_p = core.pipeline_sim(pg, order, cfg, device=dev)
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
@@ -701,18 +876,36 @@ def profile_path(core, pg, order, cfg, dev, res, kernels) -> None:
     ours = {k: sum(e.self_device_time_total for e in events
                    if k + "_kernel" in e.key) / 1e6
             for k in kernels}
-    loop_wall = res["seconds"]["color"] + res["seconds"]["recolor"]
+    loop = busy - h2d
+    wall = {w: s["color"] + s["recolor"]
+            for w, s in (("cold", res["seconds"]), ("warm", median))}
     mine = ", ".join(f"{k} {v:.4f} s" for k, v in ours.items())
+    runs = "; ".join(", ".join(f"{k} {v:.4f}" for k, v in w.items())
+                     for w in warm)
+    print(f"  warm runs (s): {runs}")
+    print(f"  warm median of {WARM_RUNS}: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in median.items()))
     print(f"  profiled repeat: {stage_seconds(res_p)}; device busy "
           f"{busy:.4f} s, of it host->device copies {h2d:.4f} s, {mine} "
-          f"({sum(ours.values()) / max(busy - h2d, 1e-12):.3f} of the loop's "
-          f"device time); color+recolor device time {busy - h2d:.4f} s over "
-          f"{loop_wall:.4f} s wall unprofiled "
-          f"(device idle {1 - (busy - h2d) / loop_wall:.3f})")
+          f"({sum(ours.values()) / max(loop, 1e-12):.3f} of the loop's "
+          f"device time); color+recolor device time {loop:.4f} s over "
+          f"{wall['cold']:.4f} s wall unprofiled "
+          f"(device idle {1 - loop / wall['cold']:.3f}), over "
+          f"{wall['warm']:.4f} s warm median (device idle "
+          f"{1 - loop / wall['warm']:.3f})")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
         print(f"    {e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
+    by_op = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                    if e.device_type == DeviceType.CPU
+                    and e.self_device_time_total > 0),
+                   key=lambda e: -e.self_device_time_total)[:12]
+    print("  operators by the device time they launched (input shapes; the "
+          "copies of the partition arrays are to_device's):")
+    for e in by_op:
+        print(f"    {e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d}x  "
+              f"{e.key[:40]} {str(e.input_shapes)[:110]}")
 
 
 def cross_runs(core, dev, pg, order, base, schemes, marked=None) -> dict:
@@ -851,7 +1044,8 @@ def main() -> int:
     phase(f"5 distance-2 path grid3d{D2_GRID} halo=2 P={D2_P} K={D2_K}", t)
     print(f"  launches on the distance-1 path {launches}; on the distance-2 "
           f"path {launches_d2}")
-    for name in ("color_select_d2", "conflict_d2", "select_run_d2"):
+    for name in ("color_select_d2", "conflict_d2", "select_run_d2",
+                 "conflict_frontier_d2"):
         launches[name] = launches_d2[name]
 
     t = time.perf_counter()
@@ -860,11 +1054,14 @@ def main() -> int:
           f"K={D2_CROSS_K} kernels/plain x sparse/allgather, partial", t)
 
     kernels = []
-    # launches: each kernel on its own path (the tile-form select kernels
-    # serve ops.select_colors[_d2] and are expected at 0 there)
+    # launches: each kernel on its own path (the tile-form select and
+    # conflict kernels serve ops.select_colors[_d2] and
+    # ops.detect_conflicts[_d2] and are expected at 0 there)
     for name, line in (("color_select", 172), ("conflict", 240),
                        ("color_select_d2", 205), ("conflict_d2", 258),
-                       ("select_run", 172), ("select_run_d2", 205)):
+                       ("select_run", 172), ("select_run_d2", 205),
+                       ("conflict_frontier", 240),
+                       ("conflict_frontier_d2", 258)):
         m = measured[name]
         src = f"src/repro_torch/kernels/csrc/{build.SOURCES[name]}"
         kernels.append(dict(name=name, route="cuda", source=src,

@@ -9,8 +9,9 @@ The reference's ``repro.core.speculative`` on its tile-parallel path, over
         color it as tile-parallel sub-tiles against the (stale) view
         exchange boundary colors (every `exchange_every` supersteps),
         skipped when no shard colored a boundary vertex since the last one
-    detect conflicts over the round's frontier (``ops.detect_conflicts``);
-    the lower-priority endpoint is uncolored and retried next round
+    detect conflicts over the round's frontier
+    (``ops.detect_conflicts_frontier``, one call per round); the
+    lower-priority endpoint is uncolored and retried next round
 
 The reference's ``lax`` loops become Python loops.  Their trip counts and
 exchange decisions are shard-uniform, so each round reads the device once:
@@ -21,8 +22,8 @@ colors its tiles in order (one kernel launch on the card).
 
 Distance 2 (``ColorConfig(distance=2)`` on a ``halo=2`` partition): the
 selection ORs the one-hop and the strict two-hop colors
-(``ops.select_run_d2``) and the repair scans both ELL tiles
-(``ops.detect_conflicts_d2``); the round structure is unchanged.
+(``ops.select_run_d2``) and the repair scans both ELL rows
+(``ops.detect_conflicts_frontier_d2``); the round structure is unchanged.
 ``partial=True`` with ``marked=`` colors only a marked subset (bipartite
 partial D2 coloring): unmarked vertices leave the visit order, stay at
 color 0 and are invisible to every bitset.
@@ -143,40 +144,20 @@ def _detect_conflicts_frontier(view, arrs, order_pad, n_steps: int, n_need,
                                distance: int = 1):
     """Uncolor the lower-priority endpoint of every same-color frontier edge.
 
-    Chunked over the round's visit order: only the ``n_need`` vertices
-    colored this round are rescanned.  Every chunk reads the same
-    pre-detection ``view`` and writes uncolorings into a copy.
-    ``distance=2`` also scans the two-hop ELL rows (both endpoints of a
-    distance-2 conflict list each other in ``nbr2``).  Returns (new_view,
-    n_conflicts, any_boundary_conflict) — the last two as device scalars.
+    Only the ``n_need`` vertices colored this round (the first ``n_steps``
+    superstep chunks of the visit order) are rescanned, all against the
+    pre-detection ``view``, in one ``ops.detect_conflicts_frontier[_d2]``
+    call (one kernel launch on the card).  ``distance=2`` also scans the
+    two-hop ELL rows (both endpoints of a distance-2 conflict list each
+    other in ``nbr2``).  Returns (new_view, n_conflicts,
+    any_boundary_conflict) — the last two as device scalars.
     """
-    nbr, prio, is_internal = arrs["nbr"], arrs["prio"], arrs["is_internal"]
-    n_slots = view.shape[1]
-    new_view = view.clone()
-    n_conf = torch.zeros((), dtype=torch.int64, device=view.device)
-    bnd = torch.zeros((), dtype=torch.bool, device=view.device)
-    offs = torch.arange(superstep, device=view.device)
-    for si in range(n_steps):
-        rows = order_pad[:, si * superstep:(si + 1) * superstep]
-        active = (rows >= 0) & (si * superstep + offs < n_need[:, None])
-        r_safe = rows.clamp(min=0)
-        nbr_rows = take_rows(nbr, r_safe)
-        tiles = [take_rows(view, nbr_rows), take_rows(prio, nbr_rows)]
-        if distance == 2:
-            nbr2_rows = take_rows(arrs["nbr2"], r_safe)
-            conf = ops.detect_conflicts_d2(
-                take_rows(view, r_safe), take_rows(prio, r_safe), *tiles,
-                take_rows(view, nbr2_rows), take_rows(prio, nbr2_rows),
-                active, backend=backend)
-        else:
-            conf = ops.detect_conflicts(
-                take_rows(view, r_safe), take_rows(prio, r_safe), *tiles,
-                active, backend=backend)
-        idx = torch.where(conf, r_safe, n_slots - 1)   # sentinel stays 0
-        new_view.scatter_(1, idx.long(), 0)
-        n_conf = n_conf + conf.sum()
-        bnd = bnd | (conf & ~take_rows(is_internal, r_safe)).any()
-    return new_view, n_conf, bnd
+    kw = dict(n_steps=n_steps, superstep=superstep, backend=backend)
+    common = (view, arrs["prio"], arrs["is_internal"], order_pad)
+    if distance == 2:
+        return ops.detect_conflicts_frontier_d2(
+            *common, arrs["nbr"], arrs["nbr2"], n_need, **kw)
+    return ops.detect_conflicts_frontier(*common, arrs["nbr"], n_need, **kw)
 
 
 def _compact_order(order, view):

@@ -12,7 +12,11 @@ colors a whole run of speculative tiles or recolor chunks, on every shard,
 in their sequential order, straight from the view (updated in place) and
 the ELL arrays; each tile reads the view as it stood before the tile.
 The tile-form ``select_colors[_d2]`` is the counterpart of the
-reference's ``select_colors``.  ``backend``:
+reference's ``select_colors``.  ``detect_conflicts_frontier`` (and its
+``_d2`` form) is the fused frontier form of the loser test, which the
+speculative repair goes through: one call tests a whole round's frontier
+on every shard, straight from the view and the ELL arrays, and returns
+the uncolored copy of the view and the two counts.  ``backend``:
 
   "cuda"  — the hand-written Hopper kernels in ``csrc/`` (built by
             ``build.py`` at first use); CUDA tensors only, and a launch
@@ -103,8 +107,14 @@ _RUN_ARGS = [_P] * 10 + [ctypes.c_int, ctypes.c_longlong] + (
     [ctypes.c_int] * 14) + [_P]
 SELECT_RUN = Kernel("select_run", "repro_select_run", _RUN_ARGS)
 SELECT_RUN_D2 = Kernel("select_run_d2", "repro_select_run_d2", _RUN_ARGS)
+_FRONTIER_ARGS = [_P] * 9 + [ctypes.c_int, ctypes.c_longlong] + (
+    [ctypes.c_int] * 6) + [_P]
+CONFLICT_FRONTIER = Kernel("conflict_frontier", "repro_conflict_frontier",
+                           _FRONTIER_ARGS)
+CONFLICT_FRONTIER_D2 = Kernel(
+    "conflict_frontier_d2", "repro_conflict_frontier_d2", _FRONTIER_ARGS)
 KERNELS = (COLOR_SELECT, CONFLICT, COLOR_SELECT_D2, CONFLICT_D2, SELECT_RUN,
-           SELECT_RUN_D2)
+           SELECT_RUN_D2, CONFLICT_FRONTIER, CONFLICT_FRONTIER_D2)
 
 
 def resolve_backend(backend: str, t: torch.Tensor) -> str:
@@ -385,6 +395,10 @@ def _check_run(view, nbrs, max_colors: int, tile: int) -> None:
                          "multiple of 32")
     if tile <= 0:
         raise ValueError(f"tile/chunk must be > 0, got {tile}")
+    _check_ell(view, nbrs)
+
+
+def _check_ell(view, nbrs) -> None:
     if view.dtype != torch.int32 or view.dim() != 2:
         raise TypeError(f"the view must be (P, n_slots) int32, got "
                         f"{view.dtype} {tuple(view.shape)}")
@@ -495,3 +509,89 @@ def _conflicts(my_color, my_prio, pairs: tuple, active,
                       *(tc.shape[1] for tc, _ in flat), dev.index,
                       _stream(flat[0][0]))
     return out.reshape(shape).bool()
+
+
+def detect_conflicts_frontier(view: torch.Tensor, prio: torch.Tensor,
+                              is_internal: torch.Tensor,
+                              order_pad: torch.Tensor, nbr: torch.Tensor,
+                              n_need: torch.Tensor, *, n_steps: int,
+                              superstep: int, backend: str = "auto"):
+    """The repair of one speculative round in one call: over the first
+    ``n_steps * superstep`` positions of the visit order on every shard,
+    uncolor each active row that loses (``ref.detect_conflicts_frontier``).
+
+    ``view`` ``(P, n_slots)`` int32, only read (its sentinel slot
+    ``n_slots - 1`` holds 0); ``prio`` ``(P, n_slots)`` priorities (int32
+    on the card); ``is_internal`` ``(P, n_local_max)`` bool; ``order_pad``
+    ``(P, L)`` visit order of local slots, -1 = skip; ``nbr`` ``(P,
+    n_local_max, MAXD)``, each row its slot ids first and then sentinel
+    padding (as ``select_run`` reads it); ``n_need`` ``(P,)`` rows to
+    rescan per shard (position i is active iff ``i < n_need[p]`` and its
+    entry is ``>= 0``).  Returns ``(new_view, n_conflicts,
+    any_boundary_conflict)``: a new view with the losers at 0, an int64
+    and a bool device scalar.
+    """
+    return _conflicts_frontier(view, prio, is_internal, order_pad, (nbr,),
+                               n_need, n_steps=n_steps, superstep=superstep,
+                               backend=backend)
+
+
+def detect_conflicts_frontier_d2(view: torch.Tensor, prio: torch.Tensor,
+                                 is_internal: torch.Tensor,
+                                 order_pad: torch.Tensor, nbr: torch.Tensor,
+                                 nbr2: torch.Tensor, n_need: torch.Tensor, *,
+                                 n_steps: int, superstep: int,
+                                 backend: str = "auto"):
+    """``detect_conflicts_frontier`` at distance 2: a row also loses
+    against its strict two-hop ELL row ``nbr2`` ``(P, n_local_max,
+    MAXD2)``."""
+    return _conflicts_frontier(view, prio, is_internal, order_pad,
+                               (nbr, nbr2), n_need, n_steps=n_steps,
+                               superstep=superstep, backend=backend)
+
+
+def _conflicts_frontier(view, prio, is_internal, order_pad, nbrs, n_need, *,
+                        n_steps, superstep, backend):
+    _check_ell(view, nbrs)
+    P, n_slots = view.shape
+    if superstep <= 0 or n_steps < 0:
+        raise ValueError(f"bad superstep {superstep} / n_steps {n_steps}")
+    n_pos = n_steps * superstep
+    if n_pos > order_pad.shape[1]:
+        raise ValueError(f"{n_steps} supersteps of {superstep} pass the "
+                         f"{order_pad.shape[1]} columns of order_pad")
+    if (tuple(prio.shape) != (P, n_slots)
+            or tuple(is_internal.shape) != (P, nbrs[0].shape[1])
+            or tuple(n_need.shape) != (P,)):
+        raise ValueError(f"prio {tuple(prio.shape)} / is_internal "
+                         f"{tuple(is_internal.shape)} / n_need "
+                         f"{tuple(n_need.shape)} do not match view "
+                         f"{tuple(view.shape)} / ELL "
+                         f"{tuple(nbrs[0].shape)}")
+    backend = resolve_backend(backend, view)
+    if backend == "torch":
+        return ref.detect_conflicts_frontier(
+            view, prio, is_internal, order_pad, nbrs, n_need,
+            n_steps=n_steps, superstep=superstep)
+    if prio.dtype != torch.int32:
+        raise TypeError("the CUDA conflict kernels take int32 priorities "
+                        "(int64 ids, past 2**31 vertices, are not supported)")
+    new_view = view.clone()
+    counts = torch.zeros(2, dtype=torch.int64, device=view.device)
+    if P and n_pos:
+        nbrs = tuple(n.contiguous() for n in nbrs)
+        rows = _int32(order_pad)
+        internal = is_internal.to(torch.bool).contiguous()
+        need = n_need.to(torch.int64).contiguous()
+        _check_cuda(view, prio, internal, rows, need, new_view, counts,
+                    *nbrs)
+        kernel = CONFLICT_FRONTIER if len(nbrs) == 1 else CONFLICT_FRONTIER_D2
+        kernel.launch(
+            view.data_ptr(), prio.data_ptr(), internal.data_ptr(),
+            rows.data_ptr(), nbrs[0].data_ptr(),
+            nbrs[1].data_ptr() if len(nbrs) > 1 else None, need.data_ptr(),
+            new_view.data_ptr(), counts.data_ptr(), P, n_slots,
+            rows.shape[1], n_pos, nbrs[0].shape[1], nbrs[0].shape[2],
+            nbrs[1].shape[2] if len(nbrs) > 1 else 0, view.device.index,
+            _stream(view))
+    return new_view, counts[0], counts[1] != 0

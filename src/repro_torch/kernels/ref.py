@@ -24,7 +24,9 @@ the same mask over the one-hop and the strict two-hop tile side by side.
 ``select_run`` and ``recolor_run`` are the plain versions of the run
 kernels: the speculative tile loop and the recolor chunk loop over
 ``(P, …)`` tensors, one ELL gather, one tile selection and one scatter
-per tile, in order.
+per tile, in order.  ``detect_conflicts_frontier`` is the plain version
+of the frontier conflict kernels: the repair's chunk loop, one ELL
+gather, one tile test and one scatter per superstep chunk.
 """
 from __future__ import annotations
 
@@ -183,3 +185,42 @@ def recolor_run(view, nbrs: tuple, sorted_pad, start, sizes, class_chunks,
             val = torch.where(active, colors, 0)           # the sentinel
             view.scatter_(1, idx.long(), val.to(view.dtype))
     return view
+
+
+def detect_conflicts_frontier(view, prio, is_internal, order_pad,
+                              nbrs: tuple, n_need, *, n_steps: int,
+                              superstep: int):
+    """The repair of one speculative round over the first ``n_steps *
+    superstep`` positions of the visit order ``order_pad`` ``(P, L)``,
+    chunk by chunk; returns ``(new_view, n_conflicts,
+    any_boundary_conflict)``, the last two as int64 and bool scalars.
+
+    Position i of shard p is active iff its entry is ``>= 0`` and ``i <
+    n_need[p]``; every chunk reads the same pre-detection ``view`` and
+    writes its uncolorings into a copy.  ``nbrs`` is ``(nbr,)`` or
+    ``(nbr, nbr2)``: a distance-2 row is tested against both tiles.
+    """
+    n_slots = view.shape[1]
+    new_view = view.clone()
+    n_conf = torch.zeros((), dtype=torch.int64, device=view.device)
+    bnd = torch.zeros((), dtype=torch.bool, device=view.device)
+    offs = torch.arange(superstep, device=view.device)
+    test = detect_conflicts if len(nbrs) == 1 else detect_conflicts_d2
+    flat = lambda t: t.reshape(-1, t.shape[-1])
+    for si in range(n_steps):
+        rows = order_pad[:, si * superstep:(si + 1) * superstep]
+        active = (rows >= 0) & (si * superstep + offs < n_need[:, None])
+        r_safe = rows.clamp(min=0)
+        tiles = []
+        for nbr in nbrs:
+            nbr_rows = take_rows(nbr, r_safe)
+            tiles += [flat(take_rows(view, nbr_rows)),
+                      flat(take_rows(prio, nbr_rows))]
+        conf = test(take_rows(view, r_safe).reshape(-1),
+                    take_rows(prio, r_safe).reshape(-1), *tiles,
+                    active.reshape(-1)).reshape(rows.shape)
+        idx = torch.where(conf, r_safe, n_slots - 1)   # sentinel stays 0
+        new_view.scatter_(1, idx.long(), 0)
+        n_conf = n_conf + conf.sum()
+        bnd = bnd | (conf & ~take_rows(is_internal, r_safe)).any()
+    return new_view, n_conf, bnd
