@@ -56,7 +56,23 @@ before the final line):
    profiled repeats;
 6. distance-2 cross-check — ``grid3d(32, 32, 32)`` at P=16, K=4: kernels
    vs plain under both exchanges, then partial D2 of the even global ids,
-   kernels vs plain; bitwise equal, unmarked vertices left uncolored.
+   kernels vs plain; bitwise equal, unmarked vertices left uncolored;
+7. the paper's variant paths, on phase 3's graph, partition and order
+   and phase 6's: (a) ``pipeline_sim`` under ND-RAND%2^i (the quality
+   preset, K=8, RAND at iterations 2, 4 and 8): valid, the color count
+   never rising from one iteration to the next; (b) the sequential
+   superstep coloring through ``color_graph_sim``, First Fit with
+   ``parallel_chunk=False`` and then Least-Used: valid, ``greedy_run``
+   launched and ``select_run`` not (counted per run), with the warm
+   color stage's median wall; (c) ``arc_sim`` with the RAND rank of phase
+   3's coloring: valid; (d) ``greedy_run`` against its plain version on
+   three of each (b) run's own runs of supersteps (``capture_greedy``:
+   round 0's first and middle, round 1's first), view and usage bitwise,
+   and First Fit also against ``select_run`` at ``tile=1``, with device
+   times and the bytes bound on round 0's first; (e) the sequential coloring at distance 2
+   (First Fit and Least-Used) on phase 6's partition: valid at distance
+   2, bitwise equal to the plain coloring, ``greedy_run_d2`` against its
+   plain version as in (d).
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
 result line.
@@ -120,20 +136,27 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, reps: int, kernel: str | None = None,
-              skip: str | None = None) -> float:
+              skip: str | None = None, warm: bool = True,
+              host: bool = True) -> float:
     """Mean device time per call of ``fn()`` over ``reps`` calls, summed
     from torch.profiler's device-side events: those of the kernel named
     ``kernel`` only, or every device event when ``kernel`` is None (but
     those whose name holds ``skip``).  Every call launches device work, so
     a trace with none of it is a lost trace: it is taken again (up to
-    three times in all), and the script fails if all three lose it."""
+    three times in all), and the script fails if all three lose it.
+    ``warm=False`` skips the warm-up call (the caller has made one);
+    ``host=False`` traces the device alone (the same device events; the
+    host's operator events of a call that launches thousands of kernels
+    cost the trace seconds to record and aggregate)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
+    activities = ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if host
+                  else [ProfilerActivity.CUDA])
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -410,14 +433,16 @@ def phase_kernels_d2(ops, dev) -> dict:
 
 
 def run_bound(before, after, nbrs, visited: int, sentinel: int,
-              speculative: bool, random_x: bool) -> tuple[float, str, int]:
+              speculative: bool, random_x: bool,
+              extra_bytes: int = 0) -> tuple[float, str, int]:
     """Bytes bound of one run from its actual active rows (the local rows
     it colored: each went from 0 to a color): 4 B per visited order entry
     (and per visited row's own color, speculative); each active row's ELL
     ids up to its first sentinel (4 B per id, and the 32-B sector that
     holds the terminating sentinel of a row shorter than its width); 4 B
     per gathered neighbour color; 4 B written per active row (and 4 B of
-    Random-X draw).  The tile-to-tile dependence is not in it."""
+    Random-X draw), plus ``extra_bytes``.  The tile-to-tile dependence is
+    not in it."""
     n_local_max = nbrs[0].shape[1]
     act = after[:, :n_local_max] != before[:, :n_local_max]
     n_act = int(act.sum())
@@ -427,7 +452,8 @@ def run_bound(before, after, nbrs, visited: int, sentinel: int,
         n_ids += int(real.sum())
         n_ends += int((~real.all(dim=1)).sum())
     n_bytes = (4 * (visited * (2 if speculative else 1) + 2 * n_ids
-                    + n_act * (2 if random_x else 1)) + 32 * n_ends)
+                    + n_act * (2 if random_x else 1)) + 32 * n_ends
+               + extra_bytes)
     b, by = bound_ms(n_bytes, n_ids * 4)
     return b, by, n_act
 
@@ -757,7 +783,7 @@ def drive_path(core, ops, dev, g, pg, order, cfg, kernels) -> dict:
     and frontier kernels against their plain versions on this path
     (``phase_runs``, ``phase_frontier``) and the warm and profiled
     repeats (``profile_path``).
-    Returns the launch counts and ``phase_runs``' numbers."""
+    Returns the launch counts, ``phase_runs``' numbers and the view."""
     distance = cfg.color.distance
     torch.cuda.reset_peak_memory_stats(dev)
     for k in ops.KERNELS:
@@ -796,11 +822,13 @@ def drive_path(core, ops, dev, g, pg, order, cfg, kernels) -> dict:
     phase(f"{'5b' if distance == 2 else '3b'} run and frontier kernels vs "
           "plain (bitwise) on this path's arrays", t)
     profile_path(core, pg, order, cfg, dev, res, kernels)
-    return launches, measured
+    return launches, measured, view
 
 
-def phase_main_path(core, ops, dev) -> dict:
-    """Phase 3: the paper's headline experiment at full size."""
+def phase_main_path(core, ops, dev):
+    """Phase 3: the paper's headline experiment at full size.  Returns the
+    launch counts, the measured kernels and (graph, partition, order,
+    final view) for phase 7."""
     from repro_torch.core import presets
     t = time.perf_counter()
     g = core.rmat.rmat_good(MAIN_SCALE, 8, seed=1)
@@ -814,8 +842,11 @@ def phase_main_path(core, ops, dev) -> dict:
           f"P={MAIN_P}, n_local_max={pg.n_local_max}, maxd={pg.maxd}, "
           f"max_ghost={pg.max_ghost}; generate {t_gen:.3f} s, partition+order "
           f"{t_part:.3f} s; scheme {scheme}", flush=True)
-    return drive_path(core, ops, dev, g, pg, order, cfg,
-                      ("select_run", "conflict_frontier"))
+    launches, measured, view = drive_path(
+        core, ops, dev, g, pg, order, cfg, ("select_run",
+                                            "conflict_frontier"))
+    # the view waits on the host, out of the later paths' peak memory
+    return launches, measured, (g, pg, order, view.cpu())
 
 
 def d2_config(presets, n_iters: int):
@@ -847,8 +878,10 @@ def phase_d2_path(core, ops, dev) -> dict:
     check((pg.maxd, pg.maxd2) == (D2_MAXD, D2_MAXD2),
           f"grid3d ELL widths {(pg.maxd, pg.maxd2)}, want "
           f"{(D2_MAXD, D2_MAXD2)}")
-    return drive_path(core, ops, dev, g, pg, order, cfg,
-                      ("select_run_d2", "conflict_frontier_d2"))
+    launches, measured, _ = drive_path(
+        core, ops, dev, g, pg, order, cfg, ("select_run_d2",
+                                            "conflict_frontier_d2"))
+    return launches, measured
 
 
 def profile_path(core, pg, order, cfg, dev, res, kernels) -> None:
@@ -965,9 +998,10 @@ def phase_cross_check(core, dev) -> None:
     check_schemes_agree(core, pg, runs)
 
 
-def phase_d2_cross_check(core, dev) -> None:
+def phase_d2_cross_check(core, dev):
     """Phase 6: distance 2 and partial distance 2, kernels vs plain
-    versions, sparse vs all-gather."""
+    versions, sparse vs all-gather.  Returns (graph, partition, order) for
+    phase 7."""
     from repro_torch.core import presets
     g = core.rmat.grid3d(*D2_CROSS_GRID)
     pg = core.partition_graph(g, D2_P, halo=2)
@@ -996,6 +1030,298 @@ def phase_d2_cross_check(core, dev) -> None:
     check(st["valid"], f"partial D2 coloring invalid: {st}")
     check(bool((colors[~marked_g] == 0).all()),
           "partial D2 colored an unmarked vertex")
+    return g, pg, order
+
+
+# -- phase 7: the paper's variant paths ---------------------------------------
+
+class _Captured(Exception):
+    """Ends a run once its chosen sequential runs are captured."""
+
+
+def capture_greedy(core, ops, pg, order, cfg, dev) -> dict:
+    """Three ``ops.greedy_run[_d2]`` calls of ``color_graph_sim(pg, order,
+    cfg)``, by label, each with its arguments and copies of its view and
+    usage as they were before it: round 0's first run of supersteps (an
+    empty view and usage), its middle one (after exchanges: ghost colors
+    in the view, a nonzero usage row) and round 1's first (colored
+    vertices among the positions, to be skipped).  A first pass lists each
+    call's first superstep (every round's runs start at 0); a second
+    captures the three and ends there.  Neither pass's launches count."""
+    name = "greedy_run_d2" if cfg.distance == 2 else "greedy_run"
+    real = getattr(ops, name)
+    steps = []
+
+    def note(*args, **kw):
+        steps.append(kw["first_step"])
+        return real(*args, **kw)
+
+    setattr(ops, name, note)
+    try:
+        core.color_graph_sim(pg, order, cfg, device=dev)
+    finally:
+        setattr(ops, name, real)
+    starts = [i for i, s in enumerate(steps) if s == 0]
+    check(len(starts) >= 2, f"the path made no second round of {name} "
+          f"calls (first supersteps {steps})")
+    picks = {0: "round 0 first", starts[1] // 2: "round 0 middle",
+             starts[1]: "round 1 first"}
+    seen, n_calls = {}, [0]
+
+    def capture(view, usage, order_pad, *args, **kw):
+        i, n_calls[0] = n_calls[0], n_calls[0] + 1
+        if i in picks:
+            seen[picks[i]] = dict(view=view.clone(), usage=usage.clone(),
+                                  order_pad=order_pad, args=args, kw=kw)
+            if len(seen) == len(picks):
+                raise _Captured
+        return real(view, usage, order_pad, *args, **kw)
+
+    setattr(ops, name, capture)
+    try:
+        core.color_graph_sim(pg, order, cfg, device=dev)
+    except _Captured:
+        pass
+    finally:
+        setattr(ops, name, real)
+    check(len(seen) == len(picks), f"captured {sorted(seen)} of {name}'s "
+          f"calls, want {sorted(picks.values())}")
+    return seen
+
+
+def greedy_call(ops, seen: dict, d2: bool, backend: str):
+    """A captured call (``capture_greedy``) again, on copies of its view
+    and usage, through ``backend``; returns (view, usage)."""
+    kw = {k: v for k, v in seen["kw"].items() if k != "backend"}
+    return getattr(ops, "greedy_run_d2" if d2 else "greedy_run")(
+        seen["view"].clone(), seen["usage"].clone(), seen["order_pad"],
+        *seen["args"], backend=backend, **kw)
+
+
+def check_greedy(ops, seen: dict, d2: bool, label: str):
+    """One captured call: the kernel against its plain version, view and
+    usage bitwise; for a tile strategy also ``select_run[_d2]`` at
+    ``tile=1`` on the same arrays.  Returns (a note for the log, the
+    error, the plain view and usage)."""
+    name = "greedy_run_d2" if d2 else "greedy_run"
+    kw, view0, usage0 = seen["kw"], seen["view"], seen["usage"]
+    (gv, gu), (wv, wu) = (greedy_call(ops, seen, d2, "cuda"),
+                          greedy_call(ops, seen, d2, "torch"))
+    err = int((gv - wv).abs().max()) + int((gu - wu).abs().max())
+    check(err == 0, f"{name} {label}: kernel and plain differ")
+    note = ""
+    if kw["selection"] != ops.LEAST_USED:
+        spec = ops.select_run_d2 if d2 else ops.select_run
+        tile1 = spec(view0.clone(), seen["order_pad"], *seen["args"],
+                     tile=1, backend="cuda", **{k: kw[k] for k in (
+                         "first_step", "n_steps", "superstep", "max_colors",
+                         "selection", "x")})
+        check(torch.equal(tile1, wv),
+              f"{name} {label}: differs from select_run at tile=1")
+        note = ", select_run at tile=1 equal"
+    n_local_max = seen["args"][0].shape[1]
+    n_pre = int((view0[:, :n_local_max] > 0).sum())
+    n_ghost = int((view0[:, n_local_max:] > 0).sum())
+    return (f"{label} (first superstep {kw['first_step']}; {n_pre} local "
+            f"and {n_ghost} ghost slots colored before it, usage total "
+            f"{int(usage0.sum())}): {int((wv != view0).sum())} colored "
+            f"vertices, bitwise{note}"), err, wv, wu
+
+
+def phase_greedy(ops, calls: dict, d2: bool, label: str) -> dict:
+    """The sequential kernel on the path's own runs (``capture_greedy``):
+    each captured call held against its plain version (``check_greedy``);
+    round 0's first run timed against its plain version and its bytes
+    bound.  Returns the kernel's device time per launch, the plain
+    version's, the bound and the error."""
+    name = "greedy_run_d2" if d2 else "greedy_run"
+    checked = {which: check_greedy(ops, seen, d2, which)
+               for which, seen in calls.items()}
+    seen = calls["round 0 first"]
+    _, err, wv, wu = checked["round 0 first"]
+    kw, view0, usage0 = seen["kw"], seen["view"], seen["usage"]
+    nbrs = seen["args"][:-2]
+    P, n_slots = view0.shape
+    S = kw["superstep"]
+    # usage: 8 B (read, write) per entry the run changed; Least-Used also
+    # scans its whole row once
+    n_changed = int((wu != usage0).sum())
+    least_used = kw["selection"] == ops.LEAST_USED
+    usage_bytes = 8 * n_changed + (4 * usage0.numel() if least_used else 0)
+    b, by, n_act = run_bound(
+        view0, wv, nbrs, visited=P * kw["n_steps"] * S,
+        sentinel=n_slots - 1, speculative=True,
+        random_x=kw["selection"] == ops.RANDOM_X, extra_bytes=usage_bytes)
+    # the median of three readings: one warp per shard makes a launch
+    # short and its time sensitive to the card's state
+    ms = [device_ms(lambda: greedy_call(ops, seen, d2, "cuda"), 20, name)
+          for _ in range(3)]
+    t = dict(ms=statistics.median(ms),
+             plain_ms=device_ms(lambda: greedy_call(ops, seen, d2, "torch"),
+                                1, skip="Memcpy", warm=False, host=False),
+             bound=b, by=by, err=err)
+    for note, *_ in checked.values():
+        print(f"  {name} {label} {note}")
+    print(f"  {name} {label} timed on round 0's first run ({P} shards x "
+          f"{kw['n_steps']} supersteps of {S} positions): kernel "
+          f"{t['ms']:.4f} ms device per launch (median of "
+          f"{', '.join(f'{m:.4f}' for m in ms)}), plain "
+          f"{t['plain_ms']:.4f} ms device, bound {b:.4f} ms ({by}; "
+          f"{n_changed} usage entries changed; the vertex-to-vertex "
+          f"dependence is not in it), {n_act} colored vertices")
+    return t
+
+
+def counted(ops, fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after; returns (its result, the counts, its wall seconds)."""
+    for k in ops.KERNELS:
+        k.launches = 0
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return out, {k.name: k.launches for k in ops.KERNELS}, wall
+
+
+def check_valid(core, g, pg, view, distance: int, what: str) -> dict:
+    st = core.check_coloring(g, core.colors_from_views(pg, view),
+                             distance=distance)
+    check(st["valid"], f"{what}: distance-{distance} coloring invalid: {st}")
+    return st
+
+
+def phase_rand_pipeline(core, ops, dev, g, pg, order) -> None:
+    """Phase 7a: the ND-RAND%2^i schedule through ``pipeline_sim``."""
+    from repro_torch.core import presets
+    cfg = dataclasses.replace(
+        presets.pipeline_config(presets.quality(x=10), n_iters=MAIN_K),
+        rand_pow2=True)
+    (view, res), launches, _ = counted(
+        ops, lambda: core.pipeline_sim(pg, order, cfg, device=dev))
+    st = check_valid(core, g, pg, view, 1, "ND-RAND%2^i")
+    perms = [h["perm"] for h in res["history"]]
+    want = [core.schedule_for_iteration(it, rand_pow2=True)
+            for it in range(1, MAIN_K + 1)]
+    check(perms == want, f"ND-RAND%2^i ran {perms}, want {want}")
+    colors = [res["color"]["n_colors_distinct"]] + [
+        h["n_colors_distinct"] for h in res["history"]]
+    check(all(b <= a for a, b in zip(colors, colors[1:])),
+          f"recoloring raised the color count: {colors}")
+    check(launches["select_run"] > 0 and launches["conflict_frontier"] > 0
+          and launches["greedy_run"] == 0,
+          f"ND-RAND%2^i launches {launches}")
+    warm = [core.pipeline_sim(pg, order, cfg, device=dev)[1]["seconds"]
+            for _ in range(WARM_RUNS)]
+    median = {k: statistics.median(w[k] for w in warm) for k in warm[0]}
+    print(f"  7a ND-RAND%2^i (quality preset, K={MAIN_K}, RAND at "
+          f"iterations {[i + 1 for i, p in enumerate(perms) if p == 'rand']})"
+          f": colors {colors}, valid {st['valid']}; cold {stage_seconds(res)}"
+          f"; warm median of {WARM_RUNS}: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in median.items())
+          + f"; launches {launches}", flush=True)
+
+
+def phase_sequential(core, ops, dev, g, pg, order, cfg, label,
+                     warm: bool) -> tuple[dict, dict]:
+    """One counted ``color_graph_sim`` run of the sequential path: valid at
+    the config's distance, ``greedy_run[_d2]`` launched and ``select_run``
+    not.  With ``warm``, the color stage ``WARM_RUNS`` times more on
+    device-resident arrays (median wall).  Returns (view, stats,
+    launches)."""
+    d2 = cfg.distance == 2
+    name = "greedy_run_d2" if d2 else "greedy_run"
+    (view, st), launches, wall = counted(
+        ops, lambda: core.color_graph_sim(pg, order, cfg, device=dev))
+    check_valid(core, g, pg, view, cfg.distance, label)
+    check(launches[name] > 0, f"{label}: {name} never launched")
+    check(launches["select_run"] == 0 and launches["select_run_d2"] == 0,
+          f"{label}: a select run kernel launched on the sequential path")
+    frontier = "conflict_frontier_d2" if d2 else "conflict_frontier"
+    line = (f"  {label}: colors {st['n_colors_distinct']}, rounds "
+            f"{st['n_rounds']}, exchanges {st['n_exchanges']}; "
+            f"color_graph_sim cold {wall:.4f} s (to_device included); "
+            f"launches {name} {launches[name]}, {frontier} "
+            f"{launches[frontier]}")
+    if warm:
+        from repro_torch import rng
+        rcfg = core.resolve_cfg(pg, cfg)
+        arrs = core.to_device(pg, dev, sparse=rcfg.scheme == core.SPARSE)
+        order_t = torch.as_tensor(order, device=dev)
+        walls = []
+        stage = lambda: core.color_shards(arrs, order_t, rng.key(cfg.seed),
+                                          rcfg)
+        for _ in range(WARM_RUNS):
+            t = time.perf_counter()
+            stage()
+            walls.append(time.perf_counter() - t)
+        busy = device_ms(stage, 1, warm=False, host=False) / 1e3
+        mine = device_ms(stage, 1, name, warm=False, host=False) / 1e3
+        wall = statistics.median(walls)
+        del arrs
+        line += (f"; color stage warm median of {WARM_RUNS} {wall:.4f} s, "
+                 f"device time {busy:.4f} s (profiled repeat), of it {name} "
+                 f"{mine:.4f} s; device idle {1 - busy / wall:.3f}")
+    print(line, flush=True)
+    return view, st, launches
+
+
+def phase_variants(core, ops, dev, main, d2_cross):
+    """Phase 7: the paper's variant paths (a)–(e).  Returns the sequential
+    kernels' launches and measured numbers for the kernels line."""
+    g, pg, order, view3 = main
+    t0 = time.perf_counter()
+    phase_rand_pipeline(core, ops, dev, g, pg, order)
+    phase("7a ND-RAND%2^i pipeline", t0)
+    measured, launches = {}, {"greedy_run": 0, "greedy_run_d2": 0}
+    for sel in (ops.FIRST_FIT, ops.LEAST_USED):
+        t0 = time.perf_counter()
+        cfg = core.ColorConfig(selection=sel, parallel_chunk=False)
+        _, _, ln = phase_sequential(core, ops, dev, g, pg, order, cfg,
+                                    f"7b sequential {sel}", warm=True)
+        launches["greedy_run"] += ln["greedy_run"]
+        t = phase_greedy(ops, capture_greedy(core, ops, pg, order, cfg, dev),
+                         False, f"7d {sel}")
+        if sel == ops.FIRST_FIT:
+            measured["greedy_run"] = t
+        phase(f"7b/7d sequential {sel}", t0)
+    t0 = time.perf_counter()
+    (view, st), ln, wall = counted(ops, lambda: core.arc_sim(
+        pg, view3, core.RAND, core.RecolorConfig(),
+        core.ColorConfig(superstep=512), device=dev))
+    check_valid(core, g, pg, view, 1, "aRC")
+    print(f"  7c aRC (RAND rank of phase 3's coloring, First Fit tiles): "
+          f"colors {st['n_colors_distinct']}, rounds {st['n_rounds']}, "
+          f"exchanges {st['n_exchanges']}, n_out_of_range "
+          f"{st['n_out_of_range']}; wall {wall:.4f} s (to_device included); "
+          f"launches select_run {ln['select_run']}, conflict_frontier "
+          f"{ln['conflict_frontier']}", flush=True)
+    check(ln["select_run"] > 0, "aRC never launched select_run")
+    phase("7c aRC", t0)
+    g2, pg2, order2 = d2_cross
+    for sel in (ops.FIRST_FIT, ops.LEAST_USED):
+        t0 = time.perf_counter()
+        cfg = core.ColorConfig(selection=sel, parallel_chunk=False,
+                               distance=2)
+        view, st, ln = phase_sequential(core, ops, dev, g2, pg2, order2,
+                                        cfg, f"7e sequential D2 {sel}",
+                                        warm=False)
+        launches["greedy_run_d2"] += ln["greedy_run_d2"]
+        t = time.perf_counter()
+        plain = core.color_graph_sim(
+            pg2, order2, dataclasses.replace(cfg, backend="torch"),
+            device=dev)
+        check(torch.equal(view, plain[0]) and st == plain[1],
+              f"7e D2 {sel}: kernel and plain colorings differ")
+        print(f"  7e D2 {sel}: the plain coloring "
+              f"({time.perf_counter() - t:.3f} s) equals the kernels' "
+              "bitwise", flush=True)
+        t = phase_greedy(ops, capture_greedy(core, ops, pg2, order2, cfg,
+                                             dev), True, f"7e {sel}")
+        if sel == ops.FIRST_FIT:
+            measured["greedy_run_d2"] = t
+        phase(f"7e sequential D2 {sel}", t0)
+    return launches, measured
 
 
 def main() -> int:
@@ -1029,7 +1355,7 @@ def main() -> int:
     phase("2 kernels vs plain (bitwise)", t)
 
     t = time.perf_counter()
-    launches, runs = phase_main_path(core, ops, dev)
+    launches, runs, main = phase_main_path(core, ops, dev)
     measured.update(runs)
     phase(f"3 main path rmat_good({MAIN_SCALE}) P={MAIN_P} K={MAIN_K}", t)
 
@@ -1049,23 +1375,38 @@ def main() -> int:
         launches[name] = launches_d2[name]
 
     t = time.perf_counter()
-    phase_d2_cross_check(core, dev)
+    d2_cross = phase_d2_cross_check(core, dev)
     phase(f"6 distance-2 cross-check grid3d{D2_CROSS_GRID} P={D2_P} "
           f"K={D2_CROSS_K} kernels/plain x sparse/allgather, partial", t)
+
+    t = time.perf_counter()
+    launches_v, runs = phase_variants(core, ops, dev, main, d2_cross)
+    measured.update(runs)
+    launches.update(launches_v)
+    phase(f"7 variant paths rmat_good({MAIN_SCALE}) P={MAIN_P} and "
+          f"grid3d{D2_CROSS_GRID} P={D2_P}", t)
 
     kernels = []
     # launches: each kernel on its own path (the tile-form select and
     # conflict kernels serve ops.select_colors[_d2] and
     # ops.detect_conflicts[_d2] and are expected at 0 there)
-    for name, line in (("color_select", 172), ("conflict", 240),
-                       ("color_select_d2", 205), ("conflict_d2", 258),
-                       ("select_run", 172), ("select_run_d2", 205),
-                       ("conflict_frontier", 240),
-                       ("conflict_frontier_d2", 258)):
+    # (the sequential kernels replace the reference's _greedy_chunk loop,
+    # which is no Pallas kernel; their launches are phase 7's)
+    firstfit, greedy = "src/repro/kernels/firstfit.py", (
+        "src/repro/core/speculative.py:188")
+    for name, where in (("color_select", f"{firstfit}:172"),
+                        ("conflict", f"{firstfit}:240"),
+                        ("color_select_d2", f"{firstfit}:205"),
+                        ("conflict_d2", f"{firstfit}:258"),
+                        ("select_run", f"{firstfit}:172"),
+                        ("select_run_d2", f"{firstfit}:205"),
+                        ("conflict_frontier", f"{firstfit}:240"),
+                        ("conflict_frontier_d2", f"{firstfit}:258"),
+                        ("greedy_run", greedy), ("greedy_run_d2", greedy)):
         m = measured[name]
         src = f"src/repro_torch/kernels/csrc/{build.SOURCES[name]}"
         kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=f"src/repro/kernels/firstfit.py:{line}",
+                            replaces=where,
                             launches=launches[name], max_abs_err=m["err"],
                             ms=m["ms"], plain_ms=m["plain_ms"],
                             bound_ms=m["bound"], bound_by=m["by"],

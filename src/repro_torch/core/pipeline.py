@@ -163,6 +163,24 @@ def resolve_pipeline_cfg(pg: PartitionedGraph,
         recolor=resolve_cfg(pg, cfg.recolor))
 
 
+def recolor_loop_sim(pg: PartitionedGraph, view, cfg: PipelineConfig,
+                     key=None, *, device=None):
+    """The recolor-only loop of ``pg`` on one device (``cfg.color`` is not
+    used): K iterations from the coloring ``view`` with the adaptive stop,
+    ``recolor_iterations``' default path.
+
+    ``key`` defaults to ``rng.key(cfg.seed)``; iteration ``it`` uses
+    ``fold_in(key, it)``.  Returns ``(view, history, n_iters_run)``.
+    """
+    device = resolve_device(device)
+    cfg = resolve_pipeline_cfg(pg, cfg)
+    arrs = to_device(pg, device, sparse=cfg.needs_sparse_plan)
+    view, rows, n_run = recolor_loop(
+        arrs, torch.as_tensor(view, device=device),
+        rng.key(cfg.seed) if key is None else key, cfg)
+    return view, _history_to_host(rows), n_run
+
+
 def pipeline_sim(pg: PartitionedGraph, order, cfg: PipelineConfig, *,
                  marked=None, color_key=None, recolor_key=None, device=None):
     """Run the color→recolor pipeline of ``pg`` on one device.

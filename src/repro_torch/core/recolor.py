@@ -16,8 +16,13 @@ schedule is refined per ring-shift round.
 
 The schedule (the class count, chunks per class and exchange events) is
 computed on the device and read to the host once per iteration; the chunk
-loop then runs with host-known bounds and exchange decisions.  Only the
-RV, NI and ND class permutations are ported (RAND raises).
+loop then runs with host-known bounds and exchange decisions.  Class
+permutations: RV, NI, ND and RAND (``rng.permutation``), and the
+ND-RAND%x / ND-RAND%2^i schedules of ``recolor_iterations``.
+
+Asynchronous recoloring (aRC, ``arc_sim``): each shard orders its
+vertices locally by class step and reruns the speculative coloring from
+an empty view (conflicts possible, hence its repair rounds).
 
 Distance 2 (``RecolorConfig(distance=2)`` on a ``halo=2`` partition): a
 class of a valid D2 coloring is a distance-2 independent set, so the step
@@ -30,6 +35,7 @@ skips.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 
@@ -40,8 +46,8 @@ from .comm import (AUTO, DEFAULT_SCHEME, SCHEME_CHOICES, SPARSE, AxisComm,
                    CommConfig, make_exchange, sparse_rounds, stats_to_host,
                    take_rows)
 from .graph import PartitionedGraph, to_device
-from .speculative import (require_halo, resolve_cfg, resolve_device,
-                          validate_color_bounds)
+from .speculative import (ColorConfig, color_shards, require_halo,
+                          resolve_cfg, resolve_device, validate_color_bounds)
 
 RV = "rv"
 NI = "ni"
@@ -50,6 +56,16 @@ RAND = "rand"
 ALL_PERMS = (RV, NI, ND, RAND)
 PERM_IDS = {kind: i for i, kind in enumerate(ALL_PERMS)}
 INT32_MAX = 2**31 - 1
+
+# Key-less calls fold a per-call count into the config seed, so two of
+# them never replay one RAND permutation.  The count is this process's own
+# (the reference keeps another), so only calls with an explicit key= can
+# be held bitwise to the reference.
+_DEFAULT_KEY_CALLS = itertools.count()
+
+
+def _default_key(seed: int) -> torch.Tensor:
+    return rng.fold_in(rng.key(seed), next(_DEFAULT_KEY_CALLS))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +121,8 @@ def class_sizes(view, n_local, n_local_max: int, max_colors: int):
 def permutation_rank(sizes, kind: str, key=None) -> torch.Tensor:
     """rank[c] = recoloring step (1-based) of color class c; 0 for absent
     classes and class 0.  Ties break by color id; empty classes sort last.
+    RAND ranks by ``rng.permutation(key, max_colors)`` (one key for all
+    shards: the rank is global).
     """
     mc = sizes.shape[0]
     colors = torch.arange(mc, device=sizes.device)
@@ -116,8 +134,9 @@ def permutation_rank(sizes, kind: str, key=None) -> torch.Tensor:
     elif kind == ND:
         key_v = sizes
     elif kind == RAND:
-        raise NotImplementedError(
-            "the RAND permutation needs rng.permutation, not ported yet")
+        if key is None:
+            raise ValueError("the RAND permutation needs a key")
+        key_v = rng.permutation(key, mc).to(sizes.device)
     else:
         raise ValueError(f"unknown permutation {kind!r}")
     key_v = torch.where(present, key_v, INT32_MAX)
@@ -375,15 +394,16 @@ def recolor_sim(pg: PartitionedGraph, view, perm_kind: str,
     """One synchronous RC iteration of ``pg`` on one device.
 
     ``view`` — ``(P, n_slots)`` valid coloring with fresh ghosts (a tensor,
-    or numpy via ``view_from_numpy``); ``perm_kind`` — ``RV``/``NI``/``ND``.
-    ``key`` is accepted for the RAND permutation (not ported yet).
+    or numpy via ``view_from_numpy``); ``perm_kind`` — one of
+    ``RV``/``NI``/``ND``/``RAND``; ``key`` defaults to a per-call fold of
+    ``cfg.seed`` (pass one for a reproducible RAND permutation).
     Returns ``(view, stats)`` as ``recolor_shards``.
     """
     device = resolve_device(device)
     cfg = resolve_cfg(pg, cfg)
     arrs = to_device(pg, device, sparse=cfg.scheme == SPARSE)
     if key is None:
-        key = rng.key(cfg.seed)
+        key = _default_key(cfg.seed)
     return recolor_shards(arrs, torch.as_tensor(view, device=device),
                           perm_kind, cfg, key)
 
@@ -396,3 +416,85 @@ def schedule_for_iteration(it: int, base: str = ND, rand_every: int = 0,
     if rand_every and it % rand_every == 0:
         return RAND
     return base
+
+
+def recolor_iterations(pg: PartitionedGraph, view, n_iters: int,
+                       cfg: RecolorConfig, *, base_perm: str = ND,
+                       rand_every: int = 0, rand_pow2: bool = False,
+                       seed: int = 0, collect=None, fused: bool = True,
+                       device=None):
+    """``n_iters`` RC iterations under an ND-RAND%x style schedule.
+
+    By default through the recolor-only loop
+    (``pipeline.recolor_loop_sim``); ``fused=False`` runs one
+    ``recolor_sim`` per iteration, with key ``fold_in(key(seed), it)`` (the
+    same stream), and ``collect=`` implies it: ``collect(view, stats)`` is
+    called after every iteration.  Returns ``(view, history)``, one stats
+    dict per iteration (with ``iteration`` and ``perm``).
+    """
+    if fused and collect is None and n_iters > 0:
+        from .pipeline import PipelineConfig, recolor_loop_sim
+        pcfg = PipelineConfig(
+            color=None, recolor=cfg, n_iters=n_iters, base_perm=base_perm,
+            rand_every=rand_every, rand_pow2=rand_pow2, seed=seed)
+        view, history, _ = recolor_loop_sim(pg, view, pcfg, device=device)
+        return view, history
+    history = []
+    for it in range(1, n_iters + 1):
+        kind = schedule_for_iteration(it, base_perm, rand_every, rand_pow2)
+        key = rng.fold_in(rng.key(seed), it)
+        view, stats = recolor_sim(pg, view, kind, cfg, key, device=device)
+        stats["iteration"], stats["perm"] = it, kind
+        history.append(stats)
+        if collect is not None:
+            collect(view, stats)
+    return view, history
+
+
+def arc_order(view, n_local, n_local_max: int, rank) -> torch.Tensor:
+    """aRC visit order ``(P, n_local_max)`` int32: each shard's local slots
+    sorted by (class step, slot); -1 past the shard's vertices."""
+    mc = rank.shape[0]
+    step = rank[view[:, :n_local_max].long().clamp(0, mc - 1)]
+    valid = (torch.arange(n_local_max, device=view.device)
+             < n_local[:, None])
+    key_v = torch.where(valid, step, INT32_MAX)
+    slots = torch.argsort(key_v, dim=1, stable=True)   # stable: slot order
+    return torch.where(key_v.gather(1, slots) < INT32_MAX, slots,
+                       -1).to(torch.int32)
+
+
+def arc_shards(arrs: dict, view: torch.Tensor, key, perm_kind: str,
+               rc_cfg: RecolorConfig, sp_cfg: ColorConfig):
+    """One asynchronous recoloring iteration of all P shards (the
+    reference's ``arc_spmd`` under ``run_sim``): the class rank of
+    ``view`` under ``perm_kind``, each shard's local order by class step,
+    then the speculative coloring ``sp_cfg`` from an empty view.  The key
+    splits into the rank's and the repair's streams.  Returns ``(view,
+    stats)``: ``color_shards``' stats and ``n_out_of_range``."""
+    n_local_max = arrs["indptr"].shape[1] - 1
+    sizes, n_oor = class_sizes(view, arrs["n_local"], n_local_max,
+                               rc_cfg.max_colors)
+    k_rank, k_repair = rng.split(key)
+    rank = permutation_rank(sizes, perm_kind, k_rank)
+    order = arc_order(view, arrs["n_local"], n_local_max, rank)
+    new_view, stats = color_shards(arrs, order, k_repair, sp_cfg)
+    stats["n_out_of_range"] = int(n_oor)
+    return new_view, stats
+
+
+def arc_sim(pg: PartitionedGraph, view, perm_kind: str,
+            rc_cfg: RecolorConfig, sp_cfg: ColorConfig, key=None, *,
+            device=None):
+    """One aRC iteration of ``pg`` on one device: order by local class rank
+    (``rc_cfg``, ``perm_kind``) and rerun the speculative coloring
+    (``sp_cfg``; its sequential mode too).  ``key`` defaults to a per-call
+    fold of ``rc_cfg.seed``.  Returns ``(view, stats)`` as
+    ``arc_shards``."""
+    device = resolve_device(device)
+    rc_cfg, sp_cfg = resolve_cfg(pg, rc_cfg), resolve_cfg(pg, sp_cfg)
+    arrs = to_device(pg, device, sparse=sp_cfg.scheme == SPARSE)
+    if key is None:
+        key = _default_key(rc_cfg.seed)
+    return arc_shards(arrs, torch.as_tensor(view, device=device), key,
+                      perm_kind, rc_cfg, sp_cfg)

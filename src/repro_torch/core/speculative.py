@@ -1,12 +1,13 @@
 """Speculative greedy distributed coloring (Bozdağ et al. framework, §2.2).
 
-The reference's ``repro.core.speculative`` on its tile-parallel path, over
-``(P, …)`` tensors of one device:
+The reference's ``repro.core.speculative`` over ``(P, …)`` tensors of
+one device:
 
   while conflicts remain:
     compact uncolored vertices to the front of the visit order
     for each superstep chunk of `superstep` vertices:
-        color it as tile-parallel sub-tiles against the (stale) view
+        color it as tile-parallel sub-tiles against the (stale) view, or
+        (sequential mode) one vertex at a time
         exchange boundary colors (every `exchange_every` supersteps),
         skipped when no shard colored a boundary vertex since the last one
     detect conflicts over the round's frontier
@@ -19,6 +20,13 @@ the frontier size, the per-chunk boundary flags, and the previous round's
 conflict count and final-exchange flag travel together.  Every superstep
 up to the next boundary exchange is one call of ``ops.select_run``, which
 colors its tiles in order (one kernel launch on the card).
+
+Sequential mode (``parallel_chunk=False``, the paper's scalar loop, and
+every Least-Used run): the same rounds, runs and exchanges, but each run
+is one call of ``ops.greedy_run``, which colors one vertex at a time per
+shard, each seeing every color written before it; a ``(P, max_colors)``
+usage histogram (read by Least-Used) carries across supersteps and
+rounds and, as in the reference, still counts repaired vertices.
 
 Distance 2 (``ColorConfig(distance=2)`` on a ``halo=2`` partition): the
 selection ORs the one-hop and the strict two-hop colors
@@ -75,8 +83,8 @@ class ColorConfig:
     ``exchange_every`` counts supersteps between boundary exchanges;
     ``max_rounds`` bounds the speculate/repair rounds; ``distance`` is 1
     (proper coloring) or 2 (needs a ``halo=2`` partition); ``partial``
-    colors only the ``marked=`` subset.  Only the tile-parallel path is
-    ported: ``parallel_chunk=False`` and ``least_used`` raise.
+    colors only the ``marked=`` subset; ``parallel_chunk=False`` (and any
+    ``least_used`` run) colors each superstep sequentially.
     """
 
     max_colors: int = 1024
@@ -101,11 +109,7 @@ class ColorConfig:
             raise ValueError(f"bad scheme {self.scheme!r}")
         if self.tile <= 0 or self.superstep <= 0 or self.exchange_every <= 0:
             raise ValueError("tile, superstep and exchange_every must be > 0")
-        if self.selection == ops.LEAST_USED or not self.parallel_chunk:
-            raise NotImplementedError(
-                "the sequential path (parallel_chunk=False, least_used) is "
-                "not ported yet")
-        if self.selection not in ops.SELECTIONS:
+        if self.selection not in ops.STRATEGIES:
             raise ValueError(f"unknown selection {self.selection!r}")
         if self.distance not in (1, 2):
             raise ValueError(f"bad distance {self.distance}, want 1 or 2")
@@ -114,29 +118,40 @@ class ColorConfig:
     def comm_config(self) -> CommConfig:
         return CommConfig(scheme=self.scheme, wire16=self.wire16)
 
+    @property
+    def use_parallel_chunk(self) -> bool:
+        """Least-Used chases a running histogram, so it stays sequential."""
+        return self.parallel_chunk and self.selection != ops.LEAST_USED
+
     def stagger_offset(self, p_idx):
         """Staggered First Fit start color of processor ``p_idx``."""
         return (p_idx * self.stagger_estimate) % self.max_colors
 
 
-def _color_supersteps(view, order_pad, rand, arrs, offset,
+def _color_supersteps(view, usage, order_pad, rand, arrs, offset,
                       cfg: ColorConfig, superstep: int, first: int,
                       count: int):
     """Color supersteps ``first … first + count - 1`` against the view,
-    with no exchange between them, in one ``ops.select_run[_d2]`` call.
+    with no exchange between them, in one ``ops`` call.
 
-    Each superstep colors as tile-parallel sub-tiles of ``cfg.tile``
-    vertices per shard; the view updates between sub-tiles.  Same-tile
-    neighbours may conflict — the round loop repairs them.  Updates
-    ``view`` in place.
+    Tile-parallel (``ops.select_run[_d2]``): each superstep colors as
+    sub-tiles of ``cfg.tile`` vertices per shard, the view updating between
+    sub-tiles; same-tile neighbours may conflict — the round loop repairs
+    them.  Sequential (``ops.greedy_run[_d2]``): one vertex at a time,
+    counting each color in ``usage``.  Updates ``view`` (and ``usage``) in
+    place and returns the view.
     """
     kw = dict(first_step=first, n_steps=count, superstep=superstep,
-              tile=min(cfg.tile, superstep), max_colors=cfg.max_colors,
-              selection=cfg.selection, x=cfg.random_x, backend=cfg.backend)
-    if cfg.distance == 2:
-        return ops.select_run_d2(view, order_pad, arrs["nbr"], arrs["nbr2"],
-                                 rand, offset, **kw)
-    return ops.select_run(view, order_pad, arrs["nbr"], rand, offset, **kw)
+              max_colors=cfg.max_colors, selection=cfg.selection,
+              x=cfg.random_x, backend=cfg.backend)
+    nbrs = (arrs["nbr"], arrs["nbr2"]) if cfg.distance == 2 else (
+        arrs["nbr"],)
+    if not cfg.use_parallel_chunk:
+        run = ops.greedy_run_d2 if cfg.distance == 2 else ops.greedy_run
+        return run(view, usage, order_pad, *nbrs, rand, offset, **kw)[0]
+    run = ops.select_run_d2 if cfg.distance == 2 else ops.select_run
+    return run(view, order_pad, *nbrs, rand, offset,
+               tile=min(cfg.tile, superstep), **kw)
 
 
 def _detect_conflicts_frontier(view, arrs, order_pad, n_steps: int, n_need,
@@ -182,6 +197,9 @@ def _speculate(arrs: dict, order: torch.Tensor, key: torch.Tensor,
     S = min(cfg.superstep, n_local_max)
     n_chunks_max = -(-n_local_max // S)
     view = torch.zeros((P, n_slots), dtype=torch.int32, device=dev)
+    # colors handed out per shard, never decremented (the sequential mode)
+    usage = (None if cfg.use_parallel_chunk else
+             torch.zeros((P, cfg.max_colors), dtype=torch.int32, device=dev))
     offset = None
     if cfg.selection == ops.STAGGERED:
         offset = cfg.stagger_offset(comm.index(dev)).to(torch.int32)[:, None]
@@ -221,8 +239,9 @@ def _speculate(arrs: dict, order: torch.Tensor, key: torch.Tensor,
             pending = pending or bool(chunk_bnd_h[si])
             due = (si + 1) % cfg.exchange_every == 0 or si == n_steps - 1
             if (due and pending) or si == n_steps - 1:
-                view = _color_supersteps(view, order_pad, rand, arrs, offset,
-                                         cfg, S, first, si + 1 - first)
+                view = _color_supersteps(view, usage, order_pad, rand,
+                                         arrs, offset, cfg, S, first,
+                                         si + 1 - first)
                 first = si + 1
             if due and pending:
                 view, b = exchange(view)

@@ -6,7 +6,8 @@ library is named after a hash of its source and the flags, under
 ``build/repro_torch_kernels/`` at the repository root, so an edited source
 rebuilds and an unchanged one is reused; the hash covers every header in
 ``csrc/`` too (``select_common.cuh`` is shared by the four select
-kernels, ``select_run.cuh`` by the two run kernels,
+kernels, ``select_run.cuh`` by the two run kernels and the two
+sequential kernels, ``greedy_run.cuh`` by the two sequential kernels,
 ``conflict_frontier.cuh`` by the two frontier conflict kernels).  ``build()`` starts
 one ``nvcc`` per missing library, all at once, and waits for all of them.
 """
@@ -26,7 +27,8 @@ SOURCES = {"color_select": "color_select.cu", "conflict": "conflict.cu",
            "conflict_d2": "conflict_d2.cu", "select_run": "select_run.cu",
            "select_run_d2": "select_run_d2.cu",
            "conflict_frontier": "conflict_frontier.cu",
-           "conflict_frontier_d2": "conflict_frontier_d2.cu"}
+           "conflict_frontier_d2": "conflict_frontier_d2.cu",
+           "greedy_run": "greedy_run.cu", "greedy_run_d2": "greedy_run_d2.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -16,7 +16,11 @@ reference's ``select_colors``.  ``detect_conflicts_frontier`` (and its
 ``_d2`` form) is the fused frontier form of the loser test, which the
 speculative repair goes through: one call tests a whole round's frontier
 on every shard, straight from the view and the ELL arrays, and returns
-the uncolored copy of the view and the two counts.  ``backend``:
+the uncolored copy of the view and the two counts.  ``greedy_run`` (and
+its ``_d2`` form) is the sequential superstep coloring (the paper's
+scalar loop, and every Least-Used run): one call colors a run of
+supersteps one vertex at a time per shard, each vertex seeing every color
+written before it.  ``backend``:
 
   "cuda"  — the hand-written Hopper kernels in ``csrc/`` (built by
             ``build.py`` at first use); CUDA tensors only, and a launch
@@ -47,6 +51,8 @@ STAGGERED = "staggered"
 RANDOM_X = "random_x"
 LEAST_USED = "least_used"   # sequential by nature; not a tile strategy
 SELECTIONS = (FIRST_FIT, STAGGERED, RANDOM_X)
+# every strategy of the coloring loops (the sequential kernel takes all)
+STRATEGIES = (FIRST_FIT, STAGGERED, LEAST_USED, RANDOM_X)
 
 BACKENDS = ("auto", "torch", "cuda")
 
@@ -113,8 +119,13 @@ CONFLICT_FRONTIER = Kernel("conflict_frontier", "repro_conflict_frontier",
                            _FRONTIER_ARGS)
 CONFLICT_FRONTIER_D2 = Kernel(
     "conflict_frontier_d2", "repro_conflict_frontier_d2", _FRONTIER_ARGS)
+_GREEDY_ARGS = [_P] * 7 + [ctypes.c_int, ctypes.c_longlong] + (
+    [ctypes.c_int] * 11) + [_P]
+GREEDY_RUN = Kernel("greedy_run", "repro_greedy_run", _GREEDY_ARGS)
+GREEDY_RUN_D2 = Kernel("greedy_run_d2", "repro_greedy_run_d2", _GREEDY_ARGS)
 KERNELS = (COLOR_SELECT, CONFLICT, COLOR_SELECT_D2, CONFLICT_D2, SELECT_RUN,
-           SELECT_RUN_D2, CONFLICT_FRONTIER, CONFLICT_FRONTIER_D2)
+           SELECT_RUN_D2, CONFLICT_FRONTIER, CONFLICT_FRONTIER_D2,
+           GREEDY_RUN, GREEDY_RUN_D2)
 
 
 def resolve_backend(backend: str, t: torch.Tensor) -> str:
@@ -595,3 +606,98 @@ def _conflicts_frontier(view, prio, is_internal, order_pad, nbrs, n_need, *,
             nbrs[1].shape[2] if len(nbrs) > 1 else 0, view.device.index,
             _stream(view))
     return new_view, counts[0], counts[1] != 0
+
+
+def greedy_run(view: torch.Tensor, usage: torch.Tensor,
+               order_pad: torch.Tensor, nbr: torch.Tensor, rand=None,
+               offset=None, *, first_step: int, n_steps: int,
+               superstep: int, max_colors: int, selection: str = FIRST_FIT,
+               x: int = 10, backend: str = "auto"):
+    """Sequential supersteps ``first_step … first_step + n_steps - 1`` in
+    one call: their positions of the visit order one at a time, in order,
+    on every shard (``ref.greedy_run``).
+
+    ``view`` ``(P, n_slots)`` int32 and ``usage`` ``(P, max_colors)`` int32
+    (colors handed out per shard so far, read by Least-Used) are updated
+    in place and returned; ``order_pad``, ``nbr``, ``rand`` and ``offset``
+    as in ``select_run``.  ``selection`` may also be ``"least_used"``.
+    """
+    return _greedy_run(view, usage, order_pad, (nbr,), rand, offset,
+                       first_step=first_step, n_steps=n_steps,
+                       superstep=superstep, max_colors=max_colors,
+                       selection=selection, x=x, backend=backend)
+
+
+def greedy_run_d2(view: torch.Tensor, usage: torch.Tensor,
+                  order_pad: torch.Tensor, nbr: torch.Tensor,
+                  nbr2: torch.Tensor, rand=None, offset=None, *,
+                  first_step: int, n_steps: int, superstep: int,
+                  max_colors: int, selection: str = FIRST_FIT, x: int = 10,
+                  backend: str = "auto"):
+    """``greedy_run`` at distance 2 (``nbr2`` as in ``select_run_d2``)."""
+    return _greedy_run(view, usage, order_pad, (nbr, nbr2), rand, offset,
+                       first_step=first_step, n_steps=n_steps,
+                       superstep=superstep, max_colors=max_colors,
+                       selection=selection, x=x, backend=backend)
+
+
+def _greedy_run(view, usage, order_pad, nbrs, rand, offset, *, first_step,
+                n_steps, superstep, max_colors, selection, x, backend):
+    if selection not in STRATEGIES:
+        raise ValueError(f"unknown selection {selection!r}, want one of "
+                         f"{STRATEGIES}")
+    _check_run(view, nbrs, max_colors, superstep)
+    P = view.shape[0]
+    if usage.dtype != torch.int32 or tuple(usage.shape) != (P, max_colors):
+        raise TypeError(f"usage must be ({P}, {max_colors}) int32, got "
+                        f"{usage.dtype} {tuple(usage.shape)}")
+    if first_step < 0 or (first_step + max(n_steps, 0)) * superstep > (
+            order_pad.shape[1]):
+        raise ValueError(f"supersteps {first_step} + {n_steps} of "
+                         f"{superstep} pass the {order_pad.shape[1]} "
+                         "columns of order_pad")
+    staggered = selection == STAGGERED
+    x_eff = x if selection == RANDOM_X else 0
+    if x_eff < 0:
+        raise ValueError(f"random_x needs x >= 0, got {x}")
+    if x_eff and rand is None:
+        raise ValueError("random_x needs the per-row draws rand=")
+    off = None
+    if staggered:     # one start color per shard, (P,)
+        off = torch.broadcast_to(torch.as_tensor(
+            0 if offset is None else offset, device=view.device).reshape(-1),
+            (P,))
+    backend = resolve_backend(backend, view)
+    if n_steps <= 0:
+        return view, usage
+    if backend == "torch":
+        return ref.greedy_run(view, usage, order_pad, nbrs,
+                              rand if x_eff else None, off,
+                              first_step=first_step, n_steps=n_steps,
+                              superstep=superstep, max_colors=max_colors,
+                              x=x_eff, staggered=staggered,
+                              least_used=selection == LEAST_USED)
+    n_words = max_colors // 32
+    if n_words * 33 * 4 > _MAX_SMEM:
+        raise ValueError(
+            f"max_colors={max_colors} needs {n_words * 33 * 4} bytes of "
+            f"shared memory (bitset and usage row); the CUDA sequential "
+            f"kernels take at most {_MAX_SMEM}")
+    nbrs = tuple(n.contiguous() for n in nbrs)
+    rows = _int32(order_pad)
+    rand = _int32(rand) if x_eff else None
+    off = _int32(off) if staggered else None
+    _check_cuda(*(t for t in (view, usage, rows, rand, off, *nbrs)
+                  if t is not None))
+    P, n_slots = view.shape
+    ptr = lambda t: None if t is None else t.data_ptr()
+    kernel = GREEDY_RUN if len(nbrs) == 1 else GREEDY_RUN_D2
+    kernel.launch(
+        view.data_ptr(), usage.data_ptr(), rows.data_ptr(),
+        nbrs[0].data_ptr(), ptr(nbrs[1] if len(nbrs) > 1 else None),
+        ptr(rand), ptr(off), P, n_slots, rows.shape[1], nbrs[0].shape[1],
+        nbrs[0].shape[2], nbrs[1].shape[2] if len(nbrs) > 1 else 0,
+        first_step * superstep, (first_step + n_steps) * superstep, n_words,
+        x_eff, int(staggered), int(selection == LEAST_USED),
+        view.device.index, _stream(view))
+    return view, usage

@@ -17,8 +17,10 @@ are held against on the card.  Semantics (the reference's
 - inactive rows return 0 / False.
 
 Both work on a whole ``(V, MAXD)`` tile through a ``(V, max_colors)``
-occupancy mask — not the kernels' bitset walk — so they check the
-kernels' arithmetic rather than repeat it.  The distance-2 versions run
+occupancy mask (``taken_mask`` and the row-wise strategies
+``find_first_zero``, ``staggered``, ``random_x``, ``least_used``) — not
+the kernels' bitset walk — so they check the kernels' arithmetic rather
+than repeat it.  The distance-2 versions run
 the same mask over the one-hop and the strict two-hop tile side by side.
 
 ``select_run`` and ``recolor_run`` are the plain versions of the run
@@ -27,6 +29,9 @@ kernels: the speculative tile loop and the recolor chunk loop over
 per tile, in order.  ``detect_conflicts_frontier`` is the plain version
 of the frontier conflict kernels: the repair's chunk loop, one ELL
 gather, one tile test and one scatter per superstep chunk.
+``greedy_run`` is the plain version of the sequential kernels: one
+vertex per shard at a time through the same row-wise strategies, with
+Least-Used beside them.
 """
 from __future__ import annotations
 
@@ -45,11 +50,80 @@ def take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return t.reshape((P * N,) + t.shape[2:])[base + idx]
 
 
+def taken_mask(nbr_colors: torch.Tensor, max_colors: int) -> torch.Tensor:
+    """``(rows, D)`` neighbour colors -> ``(rows, max_colors)`` bool mask of
+    taken colors: colors ``<= 0`` or ``>= max_colors`` are ignored, color 0
+    always counts as taken."""
+    ok = (nbr_colors > 0) & (nbr_colors < max_colors)
+    taken = torch.zeros((nbr_colors.shape[0], max_colors), dtype=torch.bool,
+                        device=nbr_colors.device)
+    taken.scatter_(1, torch.where(ok, nbr_colors, 0).long(), True)
+    taken[:, 0] = True
+    return taken
+
+
+def _free(taken: torch.Tensor) -> torch.Tensor:
+    free = ~taken
+    free[:, -1] = False        # the saturation sentinel is never free
+    return free
+
+
 def _first(mask: torch.Tensor) -> torch.Tensor:
     """(V, C) bool -> (V,) index of the first True, C - 1 where none."""
     c = mask.shape[1]
     first = mask.to(torch.uint8).argmax(dim=1)
     return torch.where(mask.any(dim=1), first, c - 1)
+
+
+def find_first_zero(taken: torch.Tensor) -> torch.Tensor:
+    """First Fit: each row's smallest free color below the sentinel."""
+    return _first(_free(taken))
+
+
+def staggered(taken: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    """Staggered First Fit: each row's smallest free color ``>= offset``
+    ``(rows,)``, wrapping to First Fit when there is none."""
+    free = _free(taken)
+    cols = torch.arange(taken.shape[1], device=taken.device)
+    color = _first(free & (cols >= offset[:, None]))
+    return torch.where(color == taken.shape[1] - 1, _first(free), color)
+
+
+def random_x(taken: torch.Tensor, x: int, rand: torch.Tensor) -> torch.Tensor:
+    """Random-X: the ``rand % n_free``-th smallest free color, ``n_free =
+    max(1, min(x, free colors))`` in uint32 arithmetic; ``rand`` ``(rows,)``
+    holds uint32 draws (int32 bit patterns or int64 words)."""
+    free = _free(taken)
+    rank = free.cumsum(dim=1)
+    n_free = rank[:, -1].clamp(max=x).clamp(min=1)
+    idx = (rand.long() & 0xFFFFFFFF) % n_free
+    return _first(free & (rank == idx[:, None] + 1))
+
+
+def least_used(taken: torch.Tensor, usage: torch.Tensor) -> torch.Tensor:
+    """Least-Used: each row's free color with the smallest positive
+    ``usage`` ``(rows, max_colors)``, ties to the smaller color; First Fit
+    where no open (``usage > 0``) color is free."""
+    mc = taken.shape[1]
+    ok = _free(taken) & (usage > 0)
+    # usage * mc + color orders by usage, then by color
+    score = torch.where(ok, usage.long() * mc
+                        + torch.arange(mc, device=taken.device),
+                        torch.iinfo(torch.int64).max)
+    return torch.where(ok.any(dim=1), score.argmin(dim=1),
+                       find_first_zero(taken))
+
+
+def _pick(taken, *, x: int, stagger: bool, offset, rand, usage=None):
+    """The row's color from its taken mask: Least-Used when ``usage`` is
+    given, else Staggered, Random-X (``x > 0``) or First Fit."""
+    if usage is not None:
+        return least_used(taken, usage)
+    if stagger:
+        return staggered(taken, offset)
+    if x:
+        return random_x(taken, x, rand)
+    return find_first_zero(taken)
 
 
 def select_colors(nbr_colors, active, rand_u32, offset, *, max_colors: int,
@@ -59,25 +133,8 @@ def select_colors(nbr_colors, active, rand_u32, offset, *, max_colors: int,
     ``rand_u32`` is the int32 bit pattern of uint32 draws; ``offset`` the
     per-row staggered start color.
     """
-    mc = max_colors
-    v = nbr_colors.shape[0]
-    ok = (nbr_colors > 0) & (nbr_colors < mc)
-    taken = torch.zeros((v, mc), dtype=torch.bool, device=nbr_colors.device)
-    taken.scatter_(1, torch.where(ok, nbr_colors, 0).long(), True)
-    free = ~taken
-    free[:, 0] = False
-    free[:, mc - 1] = False
-    if staggered:
-        cols = torch.arange(mc, device=nbr_colors.device)
-        color = _first(free & (cols >= offset[:, None]))
-        color = torch.where(color == mc - 1, _first(free), color)
-    elif x == 0:
-        color = _first(free)
-    else:
-        rank = free.cumsum(dim=1)
-        n_free = rank[:, -1].clamp(max=x).clamp(min=1)
-        idx = (rand_u32.long() & 0xFFFFFFFF) % n_free
-        color = _first(free & (rank == idx[:, None] + 1))
+    color = _pick(taken_mask(nbr_colors, max_colors), x=x,
+                  stagger=staggered, offset=offset, rand=rand_u32)
     return torch.where(active != 0, color, 0).to(torch.int32)
 
 
@@ -224,3 +281,47 @@ def detect_conflicts_frontier(view, prio, is_internal, order_pad,
         n_conf = n_conf + conf.sum()
         bnd = bnd | (conf & ~take_rows(is_internal, r_safe)).any()
     return new_view, n_conf, bnd
+
+
+def greedy_run(view, usage, order_pad, nbrs: tuple, rand, offset, *,
+               first_step: int, n_steps: int, superstep: int,
+               max_colors: int, x: int, staggered: bool,
+               least_used: bool):
+    """Sequential supersteps ``first_step … first_step + n_steps - 1``:
+    positions ``first_step * superstep`` to ``(first_step + n_steps) *
+    superstep - 1`` of ``order_pad`` ``(P, L)``, one at a time, on all P
+    shards at once.  ``view`` ``(P, n_slots)`` and ``usage`` ``(P,
+    max_colors)`` int32 are updated in place and returned.
+
+    A position colors its vertex iff its entry is ``>= 0`` and the vertex's
+    view color is 0, reading the view as the previous position left it: the
+    colors of its ELL rows (``nbrs`` is ``(nbr,)`` or ``(nbr, nbr2)``; the
+    sentinel padding holds color 0) give the taken mask; Least-Used (which
+    reads ``usage``), Staggered (from ``offset`` ``(P,)``), Random-X
+    (``x > 0``, the draws ``rand`` ``(P, n_local_max)``) or First Fit
+    picks; the color is capped at ``max_colors - 1``, written, and counted
+    in ``usage``.
+    """
+    n_slots = view.shape[1]
+    off = None if offset is None else offset.reshape(-1)
+    # a local color only ever goes from 0 to a color within a run, so a
+    # position no shard could color at the start stays idle: skip it
+    pos0, pos1 = first_step * superstep, (first_step + n_steps) * superstep
+    rows = order_pad[:, pos0:pos1].long()
+    live = ((rows >= 0) & (take_rows(view, rows.clamp(min=0)) == 0)).any(0)
+    for i in (pos0 + live.nonzero()[:, 0]).tolist():
+        v = order_pad[:, i:i + 1].long()                        # (P, 1)
+        v_safe = v.clamp(min=0)
+        active = ((v >= 0) & (view.gather(1, v_safe) == 0))[:, 0]
+        cols = torch.cat([take_rows(view, take_rows(n, v_safe)[:, 0])
+                          for n in nbrs], dim=1)
+        draw = None if rand is None else take_rows(rand, v_safe)[:, 0]
+        c = _pick(taken_mask(cols, max_colors), x=x, stagger=staggered,
+                  offset=off, rand=draw,
+                  usage=usage if least_used else None)
+        c = c.clamp(max=max_colors - 1)
+        idx = torch.where(active, v_safe[:, 0], n_slots - 1)[:, None]
+        view.scatter_(1, idx,
+                      torch.where(active, c, 0)[:, None].to(view.dtype))
+        usage.scatter_add_(1, c[:, None], active[:, None].to(usage.dtype))
+    return view, usage

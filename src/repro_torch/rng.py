@@ -1,25 +1,28 @@
 """Explicit threefry2x32 keys, bitwise equal to ``jax.random``'s.
 
 The coloring's randomness (Random-X Fit tie-breaks, the per-round and
-per-iteration key folds) must reproduce the reference's streams exactly,
-so this module re-implements the three ``jax.random`` operations the main
-path uses, as jax computes them with ``jax_threefry_partitionable=True``
-(the default of the jax releases the reference targets):
+per-iteration key folds, the RAND class permutation) must reproduce the
+reference's streams exactly, so this module re-implements the
+``jax.random`` operations the coloring uses, as jax computes them with
+``jax_threefry_partitionable=True`` (the default of the jax releases the
+reference targets):
 
 - ``key(seed)`` — the raw key words ``[0, seed & 0xFFFFFFFF]``;
 - ``fold_in(key, data)`` — ``threefry2x32(key, (0, data))``;
 - ``bits(key, n)`` — word ``i`` is ``lo ^ hi`` of ``threefry2x32(key,
   (0, i))``.  Each word depends only on its own counter, so the first
-  ``n`` words of a longer draw are the draw of length ``n``.
+  ``n`` words of a longer draw are the draw of length ``n``;
+- ``split(key, n)`` — key ``i`` is ``threefry2x32(key, (0, i))``, i.e.
+  ``fold_in(key, i)``;
+- ``permutation(key, n)`` — jax's sort-based shuffle of ``arange(n)``.
 
 A key is an int64 tensor of shape ``(..., 2)``; leading dims are a batch
 of keys (one per shard).  Words are carried as int64 masked to 32 bits:
 ``torch.uint32`` lacks the shifts, additions and modulo the hash needs.
-``split`` and ``permutation`` (the RAND permutation and aRC) are not
-ported yet.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -97,3 +100,32 @@ def bits(k: torch.Tensor, n: int) -> torch.Tensor:
 def as_int32_bits(words: torch.Tensor) -> torch.Tensor:
     """uint32 words held in int64 -> their int32 bit pattern."""
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def split(k: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``jax.random.split(k, n)``: ``(n, 2)`` keys on ``k``'s device.
+
+    Under partitionable threefry key ``i`` hashes the counter ``(0, i)``,
+    which is exactly ``fold_in(k, i)``.
+    """
+    return fold_in(k, torch.arange(n, dtype=torch.int64, device=k.device))
+
+
+def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(k, n)``: a shuffle of ``arange(n)`` (int64,
+    on ``k``'s device).
+
+    jax's ``_shuffle``: ``ceil(3 ln(max(1, n)) / ln(2**32 - 1))`` rounds
+    (one up to n = 1625, two beyond), each splitting ``k, sub = split(k)``
+    and stably sorting the current order by ``bits(sub, n)`` as unsigned
+    32-bit keys (held in int64, so ``torch.sort`` orders them unsigned;
+    stability decides ties).
+    """
+    uint32max = np.iinfo(np.uint32).max
+    n_rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(uint32max)))
+    x = torch.arange(n, dtype=torch.int64, device=k.device)
+    for _ in range(n_rounds):
+        k, sub = split(k)
+        perm = torch.sort(bits(sub, n), stable=True).indices
+        x = x[perm]
+    return x

@@ -13,7 +13,6 @@ import torch
 import repro.core as R
 import repro_torch.core as T
 from repro_torch.core.graph import arrays_from_numpy, view_from_numpy
-from repro_torch.core.recolor import permutation_rank
 
 SCHEMES = ["sparse", "allgather"]
 SELECTIONS = ["first_fit", "random_x"]
@@ -132,7 +131,8 @@ def test_run_preset_matches_reference(parts, preset):
     assert log_t == log_r
 
 
-@pytest.mark.parametrize("entry", ["color", "recolor", "pipeline"])
+@pytest.mark.parametrize("entry", ["color", "recolor", "pipeline", "arc",
+                                   "recolor_iterations", "recolor_loop"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(parts, monkeypatch,
                                                      entry):
     _, pt, order, _ = parts(2)
@@ -143,16 +143,13 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(parts, monkeypatch,
         "recolor": lambda: T.recolor_sim(pt, view, T.ND, T.RecolorConfig()),
         "pipeline": lambda: T.pipeline_sim(
             pt, order, T.PipelineConfig(color=T.ColorConfig())),
+        "arc": lambda: T.arc_sim(pt, view, T.ND, T.RecolorConfig(),
+                                 T.ColorConfig()),
+        "recolor_iterations": lambda: T.recolor_iterations(
+            pt, view, 2, T.RecolorConfig(), fused=False),
+        "recolor_loop": lambda: T.recolor_loop_sim(
+            pt, view, T.PipelineConfig(n_iters=2)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
 
-
-@pytest.mark.parametrize("make", [
-    lambda: T.ColorConfig(parallel_chunk=False),
-    lambda: T.ColorConfig(selection="least_used"),
-    lambda: permutation_rank(torch.ones(64, dtype=torch.int64), T.RAND),
-], ids=["sequential", "least_used", "rand_perm"])
-def test_unported_paths_raise(make):
-    with pytest.raises(NotImplementedError):
-        make()
