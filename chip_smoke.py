@@ -65,21 +65,28 @@ before the final line):
    ``parallel_chunk=False`` and then Least-Used: valid, ``greedy_run``
    launched and ``select_run`` not (counted per run), with the warm
    color stage's median wall; (c) ``arc_sim`` with the RAND rank of phase
-   3's coloring: valid; (d) ``greedy_run`` against its plain version on
-   three of each (b) run's own runs of supersteps (``capture_greedy``:
-   round 0's first and middle, round 1's first), view and usage bitwise,
-   and First Fit also against ``select_run`` at ``tile=1``, with device
-   times and the bytes bound on round 0's first; (e) the sequential coloring at distance 2
-   (First Fit and Least-Used) on phase 6's partition: valid at distance
-   2, bitwise equal to the plain coloring, ``greedy_run_d2`` against its
-   plain version as in (d).
+   3's coloring: valid; (d) ``greedy_run`` in both instantiations (the
+   local colors in shared memory, as the shapes choose, and in device
+   memory, under a lowered budget) against its plain version on three of
+   each (b) run's own runs of supersteps (``capture_greedy``: round 0's
+   first and middle, round 1's first), view and usage bitwise, and First
+   Fit also against ``select_run`` at ``tile=1``; on round 0's first the
+   time per launch by CUDA events (five readings of 20 launches with the
+   L2 cache flushed before every launch, five without, five of the
+   device-memory form), the card's clock and power beside them, the
+   time per vertex and the bytes bound; (e) the sequential coloring at
+   distance 2 (First Fit and Least-Used) on phase 6's partition: valid at
+   distance 2, bitwise equal to the plain coloring, ``greedy_run_d2`` as
+   in (d).
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
 result line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -107,6 +114,11 @@ D2_TILE_ROWS = {"speculative tile": D2_P * D2_TILE,
 D2_CONFLICT_ROWS = D2_P * 512
 SELECTIONS = (("first_fit", 0), ("staggered", 0), ("random_x", 10))
 WARM_RUNS = 5  # warm repeats of each full-size path, for their median walls
+# the sequential kernels' timing: readings of launches each, and the
+# buffer written to flush the L2 cache (50 MB on an H100) before a launch
+GREEDY_READINGS, GREEDY_LAUNCHES = 5, 20
+FLUSH_BYTES = 128 << 20
+HOST_COVER_CYCLES = 1_000_000  # about 0.5 ms of device wait per launch
 
 
 def phase(name: str, t0: float, detail: str = "") -> None:
@@ -137,38 +149,56 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_ms(fn, reps: int, kernel: str | None = None,
               skip: str | None = None, warm: bool = True,
-              host: bool = True) -> float:
-    """Mean device time per call of ``fn()`` over ``reps`` calls, summed
-    from torch.profiler's device-side events: those of the kernel named
+              per_call: int | None = 1) -> float:
+    """Mean device time per call of ``fn()`` over ``reps`` calls, from
+    torch.profiler's trace of the device: the events of the kernel named
     ``kernel`` only, or every device event when ``kernel`` is None (but
-    those whose name holds ``skip``).  Every call launches device work, so
-    a trace with none of it is a lost trace: it is taken again (up to
-    three times in all), and the script fails if all three lose it.
-    ``warm=False`` skips the warm-up call (the caller has made one);
-    ``host=False`` traces the device alone (the same device events; the
-    host's operator events of a call that launches thousands of kernels
-    cost the trace seconds to record and aggregate)."""
+    those whose name holds ``skip``).  The profiler loses device events
+    now and then: a trace with none, or with another count of the named
+    kernel's events than ``per_call`` per call (None: not checked), is
+    taken again, up to ``TRACE_TRIES`` times in all, and each loss is
+    counted in ``LOST_TRACES``.  For a named kernel with ``per_call``
+    launches per call the time is the mean of the launches the trace
+    holds (the fullest one, when none is whole), times ``per_call``; else
+    the sum over ``reps``.  When no trace holds a device event, the calls
+    are timed by CUDA events around them (``event_ms``; noted in
+    ``LOST_TRACES``).  ``warm=False`` skips the warm-up call (the caller
+    has made one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if warm:
         fn()
     torch.cuda.synchronize()
-    activities = ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if host
-                  else [ProfilerActivity.CUDA])
-    for _ in range(3):
-        with profile(activities=activities) as prof:
+    counted = kernel is not None and per_call is not None
+    best = None  # (total µs, events) of the fullest trace
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and (kernel is None or kernel + "_kernel" in e.key)
-                       and (skip is None or skip not in e.key))
-        if total_us > 0:
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and (kernel is None or kernel + "_kernel" in e.key)
+                  and (skip is None or skip not in e.key)]
+        total_us = sum(e.self_device_time_total for e in events)
+        n = sum(e.count for e in events)
+        if total_us > 0 and (best is None or n > best[1]):
+            best = (total_us, n)
+        if total_us > 0 and (not counted or n == reps * per_call):
             break
-    check(total_us > 0, f"three profiler traces of {kernel or 'a call'} "
-          "lost their device events")
+        LOST_TRACES.append(f"{kernel or 'a call'}: {n} events" + (
+            f" of {reps * per_call}" if counted else ""))
+    if best is None:
+        LOST_TRACES.append(f"{kernel or 'a call'}: timed by CUDA events")
+        return event_ms(lambda: None, fn, reps)
+    total_us, n = best
+    if counted:
+        return total_us / n * per_call / 1e3
     return total_us / reps / 1e3
+
+
+LOST_TRACES = []  # traces that lost device events and were taken again
+TRACE_TRIES = 5
 
 
 def time_pair(name: str, kernel_fn, plain_fn, reps: int, plain_reps: int):
@@ -1089,27 +1119,66 @@ def capture_greedy(core, ops, pg, order, cfg, dev) -> dict:
     return seen
 
 
-def greedy_call(ops, seen: dict, d2: bool, backend: str):
+def greedy_call(ops, seen: dict, d2: bool, backend: str, flush=None):
     """A captured call (``capture_greedy``) again, on copies of its view
-    and usage, through ``backend``; returns (view, usage)."""
+    and usage, through ``backend``; with ``flush`` (a buffer larger than
+    the L2 cache) the buffer is written between the copies and the
+    launch.  Returns (view, usage)."""
     kw = {k: v for k, v in seen["kw"].items() if k != "backend"}
+    view, usage = seen["view"].clone(), seen["usage"].clone()
+    if flush is not None:
+        flush.fill_(next(_FILLS))
     return getattr(ops, "greedy_run_d2" if d2 else "greedy_run")(
-        seen["view"].clone(), seen["usage"].clone(), seen["order_pad"],
-        *seen["args"], backend=backend, **kw)
+        view, usage, seen["order_pad"], *seen["args"], backend=backend, **kw)
+
+
+_FILLS = itertools.count(1)
+
+
+@contextlib.contextmanager
+def greedy_form(ops, seen: dict, form: str):
+    """The sequential kernels' instantiation ``form`` for this captured
+    call: ``"shared"`` as the shapes choose it, or ``"device"`` under the
+    largest shared-memory budget at which these shapes take it (local
+    colors in device memory).  Checks the choice."""
+    n_local_max = seen["args"][0].shape[1]
+    mc = seen["kw"]["max_colors"]
+    budget = ops._GREEDY_SMEM
+    if form == "device":
+        slot = ops._SLOT_HEADER + mc // 32 + ops._GREEDY_LIST
+        budget = 4 * (mc + ops._GREEDY_CONTROL + ops._GREEDY_MIN_RING * slot
+                      + (n_local_max + 1) // 2 - 1)
+    old, ops._GREEDY_SMEM = ops._GREEDY_SMEM, budget
+    try:
+        check(ops._greedy_layout(n_local_max, mc)[0] == form,
+              f"the {form} form is not the layout's choice")
+        yield ops._greedy_layout(n_local_max, mc)
+    finally:
+        ops._GREEDY_SMEM = old
 
 
 def check_greedy(ops, seen: dict, d2: bool, label: str):
-    """One captured call: the kernel against its plain version, view and
-    usage bitwise; for a tile strategy also ``select_run[_d2]`` at
-    ``tile=1`` on the same arrays.  Returns (a note for the log, the
-    error, the plain view and usage)."""
+    """One captured call: the kernel in both instantiations (local colors
+    in shared and in device memory) against its plain version, view and
+    usage bitwise, each instantiation's launch counted; for a tile
+    strategy also ``select_run[_d2]`` at ``tile=1`` on the same arrays.
+    Returns (a note for the log, the error, the plain view and usage)."""
     name = "greedy_run_d2" if d2 else "greedy_run"
+    kernel = ops.GREEDY_RUN_D2 if d2 else ops.GREEDY_RUN
     kw, view0, usage0 = seen["kw"], seen["view"], seen["usage"]
-    (gv, gu), (wv, wu) = (greedy_call(ops, seen, d2, "cuda"),
-                          greedy_call(ops, seen, d2, "torch"))
-    err = int((gv - wv).abs().max()) + int((gu - wu).abs().max())
-    check(err == 0, f"{name} {label}: kernel and plain differ")
-    note = ""
+    wv, wu = greedy_call(ops, seen, d2, "torch")
+    err, rings = 0, []
+    for form in ("shared", "device"):
+        with greedy_form(ops, seen, form) as (_, ring, _):
+            before = kernel.variants.get(form, 0)
+            gv, gu = greedy_call(ops, seen, d2, "cuda")
+            torch.cuda.synchronize()
+        check(kernel.variants.get(form, 0) == before + 1,
+              f"{name} {label}: the {form} form did not launch")
+        err = max(err, int((gv - wv).abs().max()) + int((gu - wu).abs().max()))
+        check(err == 0, f"{name} {label}: the {form} form and plain differ")
+        rings.append(f"{form} ring {ring}")
+    note = f" in both forms ({', '.join(rings)})"
     if kw["selection"] != ops.LEAST_USED:
         spec = ops.select_run_d2 if d2 else ops.select_run
         tile1 = spec(view0.clone(), seen["order_pad"], *seen["args"],
@@ -1118,7 +1187,7 @@ def check_greedy(ops, seen: dict, d2: bool, label: str):
                          "selection", "x")})
         check(torch.equal(tile1, wv),
               f"{name} {label}: differs from select_run at tile=1")
-        note = ", select_run at tile=1 equal"
+        note += ", select_run at tile=1 equal"
     n_local_max = seen["args"][0].shape[1]
     n_pre = int((view0[:, :n_local_max] > 0).sum())
     n_ghost = int((view0[:, n_local_max:] > 0).sum())
@@ -1128,12 +1197,75 @@ def check_greedy(ops, seen: dict, d2: bool, label: str):
             f"vertices, bitwise{note}"), err, wv, wu
 
 
+def smi_sample() -> str:
+    """The card's SM clock, power draw and power limit, now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def event_ms(prepare, launch, reps: int) -> float:
+    """Mean time of ``launch()`` between CUDA events around it, over
+    ``reps`` launches, each after ``prepare()`` (copies, a cache flush)
+    and a device-side wait (``torch.cuda._sleep``) long enough for the
+    host to enqueue the events and the launch behind it, so the events
+    time the kernel and not the host."""
+    pairs = []
+    for _ in range(reps):
+        prepare()
+        torch.cuda._sleep(HOST_COVER_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def greedy_readings(ops, seen: dict, d2: bool, flush) -> list[float]:
+    """``GREEDY_READINGS`` readings of the kernel's time per launch (the
+    mean of ``GREEDY_LAUNCHES`` launches each, by CUDA events:
+    ``event_ms``) on a captured call; with ``flush`` the L2 cache is
+    flushed before every launch, outside the events."""
+    name = "greedy_run_d2" if d2 else "greedy_run"
+    kw = {k: v for k, v in seen["kw"].items() if k != "backend"}
+    fn = getattr(ops, name)
+    copies = {}
+
+    def prepare():
+        copies["view"] = seen["view"].clone()
+        copies["usage"] = seen["usage"].clone()
+        if flush is not None:
+            flush.fill_(next(_FILLS))
+
+    def launch():
+        fn(copies["view"], copies["usage"], seen["order_pad"], *seen["args"],
+           backend="cuda", **kw)
+
+    prepare()
+    launch()  # warm
+    return [event_ms(prepare, launch, GREEDY_LAUNCHES)
+            for _ in range(GREEDY_READINGS)]
+
+
+def spread_note(ms: list[float]) -> str:
+    return (f"median {statistics.median(ms):.4f} ms, spread "
+            f"{max(ms) / min(ms):.3f}x ({', '.join(f'{m:.4f}' for m in ms)})")
+
+
 def phase_greedy(ops, calls: dict, d2: bool, label: str) -> dict:
     """The sequential kernel on the path's own runs (``capture_greedy``):
-    each captured call held against its plain version (``check_greedy``);
-    round 0's first run timed against its plain version and its bytes
-    bound.  Returns the kernel's device time per launch, the plain
-    version's, the bound and the error."""
+    each captured call held against its plain version in both
+    instantiations (``check_greedy``); round 0's first run timed with the
+    L2 cache flushed before every launch and without, and in the
+    device-memory form (flushed), by CUDA events, beside the plain
+    version and its bytes bound, with the card's clock and power sampled
+    after each set.  Returns the kernel's time per
+    launch (the flushed median by events), the plain version's device
+    time, the bound and the error."""
     name = "greedy_run_d2" if d2 else "greedy_run"
     checked = {which: check_greedy(ops, seen, d2, which)
                for which, seen in calls.items()}
@@ -1152,23 +1284,44 @@ def phase_greedy(ops, calls: dict, d2: bool, label: str) -> dict:
         view0, wv, nbrs, visited=P * kw["n_steps"] * S,
         sentinel=n_slots - 1, speculative=True,
         random_x=kw["selection"] == ops.RANDOM_X, extra_bytes=usage_bytes)
-    # the median of three readings: one warp per shard makes a launch
-    # short and its time sensitive to the card's state
-    ms = [device_ms(lambda: greedy_call(ops, seen, d2, "cuda"), 20, name)
-          for _ in range(3)]
-    t = dict(ms=statistics.median(ms),
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                        device=view0.device)
+    flushed = greedy_readings(ops, seen, d2, flush)
+    smi_flushed = smi_sample()
+    warm = greedy_readings(ops, seen, d2, None)
+    smi_warm = smi_sample()
+    with greedy_form(ops, seen, "device") as (_, ring, _):
+        device_form = greedy_readings(ops, seen, d2, flush)
+    smi_device = smi_sample()
+    del flush
+    ms = statistics.median(flushed)
+    t = dict(ms=ms,
              plain_ms=device_ms(lambda: greedy_call(ops, seen, d2, "torch"),
-                                1, skip="Memcpy", warm=False, host=False),
+                                1, skip="Memcpy", warm=False),
              bound=b, by=by, err=err)
+    per_vertex = lambda m: m * 1e6 / (n_act / P)
+
+    def reading(r: list[float], smi: str) -> str:
+        return (f"{spread_note(r)}, {per_vertex(statistics.median(r)):.1f} "
+                f"ns per vertex per shard [clocks.sm, power.draw, "
+                f"power.limit: {smi}]")
+
     for note, *_ in checked.values():
         print(f"  {name} {label} {note}")
     print(f"  {name} {label} timed on round 0's first run ({P} shards x "
-          f"{kw['n_steps']} supersteps of {S} positions): kernel "
-          f"{t['ms']:.4f} ms device per launch (median of "
-          f"{', '.join(f'{m:.4f}' for m in ms)}), plain "
-          f"{t['plain_ms']:.4f} ms device, bound {b:.4f} ms ({by}; "
-          f"{n_changed} usage entries changed; the vertex-to-vertex "
-          f"dependence is not in it), {n_act} colored vertices")
+          f"{kw['n_steps']} supersteps of {S} positions, {n_act} colored "
+          f"vertices, {n_act / P:.1f} per shard), time per launch by CUDA "
+          f"events, {GREEDY_READINGS} readings of {GREEDY_LAUNCHES} "
+          f"launches each:"
+          f"\n    L2 flushed ({FLUSH_BYTES >> 20} MB written before each "
+          f"launch): {reading(flushed, smi_flushed)}"
+          f"\n    not flushed: {reading(warm, smi_warm)}; flushed / not "
+          f"flushed {ms / statistics.median(warm):.3f}"
+          f"\n    device-memory form (ring {ring}), L2 flushed: "
+          f"{reading(device_form, smi_device)}"
+          f"\n    plain {t['plain_ms']:.4f} ms device, bound {b:.4f} ms "
+          f"({by}; {n_changed} usage entries changed; the vertex-to-vertex "
+          f"chain is not in it), {ms / b:.1f}x the bound", flush=True)
     return t
 
 
@@ -1176,7 +1329,7 @@ def counted(ops, fn):
     """``fn()`` with every launch count set to 0 just before and read just
     after; returns (its result, the counts, its wall seconds)."""
     for k in ops.KERNELS:
-        k.launches = 0
+        k.reset()
     t = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
@@ -1235,13 +1388,16 @@ def phase_sequential(core, ops, dev, g, pg, order, cfg, label,
         ops, lambda: core.color_graph_sim(pg, order, cfg, device=dev))
     check_valid(core, g, pg, view, cfg.distance, label)
     check(launches[name] > 0, f"{label}: {name} never launched")
+    forms = dict((ops.GREEDY_RUN_D2 if d2 else ops.GREEDY_RUN).variants)
+    check(forms == {"shared": launches[name]},
+          f"{label}: {name} launched {forms}, want the shared form only")
     check(launches["select_run"] == 0 and launches["select_run_d2"] == 0,
           f"{label}: a select run kernel launched on the sequential path")
     frontier = "conflict_frontier_d2" if d2 else "conflict_frontier"
     line = (f"  {label}: colors {st['n_colors_distinct']}, rounds "
             f"{st['n_rounds']}, exchanges {st['n_exchanges']}; "
             f"color_graph_sim cold {wall:.4f} s (to_device included); "
-            f"launches {name} {launches[name]}, {frontier} "
+            f"launches {name} {launches[name]} (forms {forms}), {frontier} "
             f"{launches[frontier]}")
     if warm:
         from repro_torch import rng
@@ -1255,8 +1411,8 @@ def phase_sequential(core, ops, dev, g, pg, order, cfg, label,
             t = time.perf_counter()
             stage()
             walls.append(time.perf_counter() - t)
-        busy = device_ms(stage, 1, warm=False, host=False) / 1e3
-        mine = device_ms(stage, 1, name, warm=False, host=False) / 1e3
+        busy = device_ms(stage, 1, warm=False) / 1e3
+        mine = device_ms(stage, 1, name, warm=False, per_call=None) / 1e3
         wall = statistics.median(walls)
         del arrs
         line += (f"; color stage warm median of {WARM_RUNS} {wall:.4f} s, "
@@ -1411,6 +1567,8 @@ def main() -> int:
                             ms=m["ms"], plain_ms=m["plain_ms"],
                             bound_ms=m["bound"], bound_by=m["by"],
                             library_ms=None))
+    print(f"  profiler traces taken again for lost device events: "
+          f"{len(LOST_TRACES)} {LOST_TRACES}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

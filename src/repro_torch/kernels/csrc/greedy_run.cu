@@ -12,13 +12,18 @@
 //
 // What bounds it on an H100: per colored vertex it reads its order entry,
 // its own color, its ELL ids up to the first sentinel, their colors, and
-// writes one color, so device-memory bytes bound the work; but every
-// vertex waits for the previous one's write, so the real floor is one
-// chain of dependent loads (own color, ids, gathered colors) and a warp
-// reduction per vertex, one warp per shard.  Design: the order entries
-// come 32 at a time, one per lane; the bitset and the usage row stay in
-// shared memory; one launch per run of supersteps, no host work per
-// vertex.
+// writes one color, so device-memory bytes bound the work (a few µs per
+// 512-vertex launch); but every vertex waits for the previous one's
+// write, so the floor is one in-order step per vertex per shard.  Design
+// (greedy_run.cuh): what cannot change within the launch (order entries,
+// ids, ghost colors, draws) is read ahead by 12 producer warps into a
+// ring of slots in shared memory; 4 turn warps prepare the next vertices
+// from it (the local neighbours' colors, which live in shared memory as
+// 16-bit values when they fit, and the pick's candidates), so the
+// in-order step left is a turn: the one write since the preparation
+// checked, the pick taken from the candidates, the color written and the
+// turn passed on, all in shared memory.  When the local colors do not
+// fit, the second instantiation reads them from device memory.
 #include <cuda_runtime.h>
 
 #include "greedy_run.cuh"
@@ -27,26 +32,31 @@ namespace {
 
 using namespace repro_select;
 
-template <bool kLeastUsed>
-__global__ void __launch_bounds__(32) greedy_run_kernel(const GreedyArgs a) {
-  greedy_run_body<false, kLeastUsed>(a);
+template <bool kLeastUsed, bool kLocalSmem>
+__global__ void __launch_bounds__(kGreedyThreads, 1)
+    greedy_run_kernel(const GreedyArgs a) {
+  greedy_run_body<false, kLeastUsed, kLocalSmem>(a);
 }
 
 }  // namespace
 
 // Launch on `stream` (PyTorch's current stream).  Allocates nothing;
 // returns the cudaError_t of the launch (0 = launched).  `nbr2`/`maxd2`
-// are ignored (distance 1).
+// are ignored (distance 1).  `ring`, `list_cap` and `local_smem` come from
+// the wrapper's layout (ops.py:_greedy_layout).
 extern "C" int repro_greedy_run(
     void* view, void* usage, const void* rows, const void* nbr,
     const void* nbr2, const void* rand_bits, const void* offset,
     int n_shards, long long n_slots, int rows_len, int n_local_max, int maxd,
     int maxd2, int pos0, int pos1, int n_words, int x, int staggered,
-    int least_used, int device, void* stream) {
-  auto kernel =
-      least_used ? &greedy_run_kernel<true> : &greedy_run_kernel<false>;
+    int least_used, int ring, int list_cap, int local_smem, int device,
+    void* stream) {
+  auto kernel = least_used ? (local_smem ? &greedy_run_kernel<true, true>
+                                         : &greedy_run_kernel<true, false>)
+                           : (local_smem ? &greedy_run_kernel<false, true>
+                                         : &greedy_run_kernel<false, false>);
   return launch_greedy(kernel, view, usage, rows, nbr, nbr2, rand_bits,
                        offset, n_shards, n_slots, rows_len, n_local_max, maxd,
-                       maxd2, pos0, pos1, n_words, x, staggered, device,
-                       stream);
+                       maxd2, pos0, pos1, n_words, x, staggered, ring,
+                       list_cap, local_smem != 0, device, stream);
 }

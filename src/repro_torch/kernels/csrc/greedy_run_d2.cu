@@ -9,9 +9,12 @@
 // greedy_run.cuh.
 //
 // What bounds it on an H100: per colored vertex its MAXD + MAXD2 ids (one
-// round of loads up to 256 ids) and their colors, one write; the vertex
-// to vertex dependence (one dependent chain and a warp reduction per
-// vertex, one warp per shard) is the real floor.  Design: greedy_run.cu.
+// round of loads up to 256 ids) and their colors, one write: the bytes
+// bound; the vertex-to-vertex dependence is one in-order step per vertex
+// per shard.  Design: greedy_run.cu — the producer warps read both rows
+// ahead and gather their ghost colors; the turn warps OR the local ids'
+// colors (of both rows, mostly local on a stencil: a slot lists 128)
+// from shared memory while the vertices before take their turns.
 #include <cuda_runtime.h>
 
 #include "greedy_run.cuh"
@@ -20,10 +23,10 @@ namespace {
 
 using namespace repro_select;
 
-template <bool kLeastUsed>
-__global__ void __launch_bounds__(32)
+template <bool kLeastUsed, bool kLocalSmem>
+__global__ void __launch_bounds__(kGreedyThreads, 1)
     greedy_run_d2_kernel(const GreedyArgs a) {
-  greedy_run_body<true, kLeastUsed>(a);
+  greedy_run_body<true, kLeastUsed, kLocalSmem>(a);
 }
 
 }  // namespace
@@ -35,11 +38,15 @@ extern "C" int repro_greedy_run_d2(
     const void* nbr2, const void* rand_bits, const void* offset,
     int n_shards, long long n_slots, int rows_len, int n_local_max, int maxd,
     int maxd2, int pos0, int pos1, int n_words, int x, int staggered,
-    int least_used, int device, void* stream) {
+    int least_used, int ring, int list_cap, int local_smem, int device,
+    void* stream) {
   auto kernel =
-      least_used ? &greedy_run_d2_kernel<true> : &greedy_run_d2_kernel<false>;
+      least_used ? (local_smem ? &greedy_run_d2_kernel<true, true>
+                               : &greedy_run_d2_kernel<true, false>)
+                 : (local_smem ? &greedy_run_d2_kernel<false, true>
+                               : &greedy_run_d2_kernel<false, false>);
   return launch_greedy(kernel, view, usage, rows, nbr, nbr2, rand_bits,
                        offset, n_shards, n_slots, rows_len, n_local_max, maxd,
-                       maxd2, pos0, pos1, n_words, x, staggered, device,
-                       stream);
+                       maxd2, pos0, pos1, n_words, x, staggered, ring,
+                       list_cap, local_smem != 0, device, stream);
 }

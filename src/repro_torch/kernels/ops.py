@@ -62,6 +62,15 @@ BACKENDS = ("auto", "torch", "cuda")
 _MAX_SMEM = 227 * 1024
 _SELECT_WARPS = 8
 _RUN_WARPS = 32
+# the sequential kernels (csrc/greedy_run.cuh): the shared memory a block
+# may use, the most slots of the producers' ring, the local ids a slot
+# lists, and the least ring that keeps the local colors in shared memory
+_GREEDY_SMEM = _MAX_SMEM
+_GREEDY_RING = 128
+_GREEDY_LIST = 128
+_GREEDY_MIN_RING = 32
+_SLOT_HEADER = 5     # int32 words per slot: two flags, vertex, count, draw
+_GREEDY_CONTROL = 26  # int32 words of the turn warps' state
 
 _P = ctypes.c_void_p
 
@@ -70,7 +79,10 @@ class Kernel:
     """One hand-written CUDA kernel: its C entry point and launch count.
 
     ``launches`` is incremented once per successful launch, and nowhere
-    else, so a run can show which kernels it went through.
+    else, so a run can show which kernels it went through; ``variants``
+    counts the launches of a kernel with several template instantiations
+    per instantiation (the sequential kernels: ``"shared"`` and
+    ``"device"``, where the local colors live).
     """
 
     def __init__(self, name: str, symbol: str, argtypes: list):
@@ -78,9 +90,10 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.variants: dict[str, int] = {}
         self._fn = None
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, variant: str | None = None) -> None:
         if self._fn is None:
             fn = getattr(build.load(self.name), self.symbol)
             fn.argtypes = self.argtypes
@@ -91,6 +104,13 @@ class Kernel:
             raise RuntimeError(
                 f"{self.name} kernel launch failed: CUDA error {err}")
         self.launches += 1
+        if variant is not None:
+            self.variants[variant] = self.variants.get(variant, 0) + 1
+
+    def reset(self) -> None:
+        """Set the launch counts to 0."""
+        self.launches = 0
+        self.variants = {}
 
 
 COLOR_SELECT = Kernel(
@@ -120,7 +140,7 @@ CONFLICT_FRONTIER = Kernel("conflict_frontier", "repro_conflict_frontier",
 CONFLICT_FRONTIER_D2 = Kernel(
     "conflict_frontier_d2", "repro_conflict_frontier_d2", _FRONTIER_ARGS)
 _GREEDY_ARGS = [_P] * 7 + [ctypes.c_int, ctypes.c_longlong] + (
-    [ctypes.c_int] * 11) + [_P]
+    [ctypes.c_int] * 14) + [_P]
 GREEDY_RUN = Kernel("greedy_run", "repro_greedy_run", _GREEDY_ARGS)
 GREEDY_RUN_D2 = Kernel("greedy_run_d2", "repro_greedy_run_d2", _GREEDY_ARGS)
 KERNELS = (COLOR_SELECT, CONFLICT, COLOR_SELECT_D2, CONFLICT_D2, SELECT_RUN,
@@ -678,11 +698,7 @@ def _greedy_run(view, usage, order_pad, nbrs, rand, offset, *, first_step,
                               x=x_eff, staggered=staggered,
                               least_used=selection == LEAST_USED)
     n_words = max_colors // 32
-    if n_words * 33 * 4 > _MAX_SMEM:
-        raise ValueError(
-            f"max_colors={max_colors} needs {n_words * 33 * 4} bytes of "
-            f"shared memory (bitset and usage row); the CUDA sequential "
-            f"kernels take at most {_MAX_SMEM}")
+    variant, ring, list_cap = _greedy_layout(nbrs[0].shape[1], max_colors)
     nbrs = tuple(n.contiguous() for n in nbrs)
     rows = _int32(order_pad)
     rand = _int32(rand) if x_eff else None
@@ -698,6 +714,44 @@ def _greedy_run(view, usage, order_pad, nbrs, rand, offset, *, first_step,
         ptr(rand), ptr(off), P, n_slots, rows.shape[1], nbrs[0].shape[1],
         nbrs[0].shape[2], nbrs[1].shape[2] if len(nbrs) > 1 else 0,
         first_step * superstep, (first_step + n_steps) * superstep, n_words,
-        x_eff, int(staggered), int(selection == LEAST_USED),
-        view.device.index, _stream(view))
+        x_eff, int(staggered), int(selection == LEAST_USED), ring, list_cap,
+        int(variant == "shared"), view.device.index, _stream(view),
+        variant=variant)
     return view, usage
+
+
+def _greedy_layout(n_local_max: int, max_colors: int,
+                   budget: int | None = None) -> tuple[str, int, int]:
+    """Which instantiation of the sequential kernels a launch takes, from
+    the shapes alone: ``(variant, ring, list_cap)``.
+
+    A block holds the usage row (``max_colors`` int32), the turn warps'
+    state (``_GREEDY_CONTROL`` int32), a ring of slots
+    (per slot: a 5-word header, the ``max_colors / 32``-word bitset and
+    ``list_cap`` local ids) and, in the ``"shared"`` form, the shard's
+    ``n_local_max`` local colors as 16-bit values
+    (``greedy_run.cuh:greedy_smem_bytes``).  ``"shared"`` when the local
+    colors fit beside a ring of at least ``_GREEDY_MIN_RING`` slots (up to
+    ``_GREEDY_RING``); else ``"device"``, the local colors read and written
+    in device memory, with the largest ring that fits (its id lists cut
+    down only when not one slot fits whole).  ``budget`` defaults to
+    ``_GREEDY_SMEM`` bytes.  Raises when not even a one-slot ring fits.
+    """
+    budget = _GREEDY_SMEM if budget is None else budget
+    n_words = max_colors // 32
+    room = budget // 4 - max_colors - _GREEDY_CONTROL  # int32 words left
+    slot = _SLOT_HEADER + n_words + _GREEDY_LIST
+    ring = min(_GREEDY_RING, (room - (n_local_max + 1) // 2) // slot)
+    if ring >= _GREEDY_MIN_RING:
+        return "shared", ring, _GREEDY_LIST
+    ring = min(_GREEDY_RING, room // slot)
+    if ring >= 1:
+        return "device", ring, _GREEDY_LIST
+    list_cap = room - _SLOT_HEADER - n_words
+    if list_cap < 0:
+        raise ValueError(
+            f"max_colors={max_colors} needs "
+            f"{4 * (max_colors + _GREEDY_CONTROL + _SLOT_HEADER + n_words)} "
+            f"bytes of shared memory (usage row, turn state and one ring "
+            f"slot); the CUDA sequential kernels take at most {budget}")
+    return "device", 1, list_cap

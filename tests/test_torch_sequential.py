@@ -167,6 +167,164 @@ def test_plain_greedy_run_counts_every_color_in_usage():
     assert torch.equal(usage - torch.from_numpy(a["usage"]), counts)
 
 
+# -- cases that stress the kernels' split of the in-order chain ---------------
+#
+# The CUDA kernels read everything that cannot change within a launch ahead
+# of the vertex's turn (producer warps) and only the local neighbours'
+# colors at it (consumer warp), from a per-slot list of local ids.  These
+# arrays plant what that split has to get right; the plain version is held
+# to the reference's _greedy_chunk on them here, the kernels to the plain
+# version on the card below.
+
+STRESS = [("chain", False), ("self_and_repeats", False),
+          ("wide_local", False), ("wide_local", True),
+          ("mostly_colored", False), ("two_hop_local", True)]
+
+
+def _stress(case: str, d2: bool, seed: int = 21) -> dict:
+    """Seeded arrays of 2 shards × 48 local rows, 64 ghosts, MC colors:
+
+    - ``chain``: each vertex's row lists the vertices just before and just
+      after it in the visit order (v1–v2–v3 … at consecutive positions),
+      so its local neighbours come both earlier and later in the launch;
+    - ``self_and_repeats``: each row lists its own vertex twice, one local
+      id three times and one ghost id three times;
+    - ``wide_local``: rows of 140–300 ids, nine in ten local (repeats), so
+      most rows list more local ids than a slot holds
+      (``ops._GREEDY_LIST``); at distance 2 split over both rows;
+    - ``mostly_colored``: nine in ten local vertices colored before the run,
+      so most positions are dropped;
+    - ``two_hop_local``: two-hop rows of local ids only.
+
+    Ghost slots hold colors 0 … MC + 3 (those >= MC ignored); the view's
+    other local slots are 0; order entries with -1 holes and superstep
+    padding; usage rows of 0 … 3."""
+    gen = np.random.default_rng(seed)
+    P, n_local, n_ghost = 2, 48, 64
+    n_slots = n_local + n_ghost + 1
+    sentinel = n_slots - 1
+    local = lambda *shape: gen.integers(0, n_local, shape)
+    ghost = lambda *shape: gen.integers(n_local, sentinel, shape)
+    order = np.full((P, n_local + S_SYN), -1, np.int32)
+    for p in range(P):
+        order[p, :n_local] = gen.permutation(n_local)
+    order[:, 7] = -1
+
+    def ell(width, lo, hi, local_share):
+        deg = gen.integers(lo, hi + 1, (P, n_local))
+        ids = np.where(gen.random((P, n_local, width)) < local_share,
+                       local(P, n_local, width), ghost(P, n_local, width))
+        return deg, ids
+
+    width = 300 if case == "wide_local" else 24
+    if case == "wide_local":
+        deg, ids = ell(width, 140, 300, 0.9)
+    else:
+        deg, ids = ell(width, 0, 12, 0.5)
+    for p in range(P):
+        seq = order[p, :n_local]
+        for i, v in enumerate(seq):
+            if v < 0:
+                continue
+            if case == "chain":
+                before = seq[i - 1] if i > 0 and seq[i - 1] >= 0 else v
+                after = seq[i + 1] if i + 1 < n_local and seq[i + 1] >= 0 \
+                    else v
+                ids[p, v, :2] = [before, after]
+                deg[p, v] = max(deg[p, v], 2)
+            elif case == "self_and_repeats":
+                u, g = local(), ghost()
+                ids[p, v, :8] = [v, u, g, v, u, g, u, g]
+                deg[p, v] = max(deg[p, v], 8)
+    nbr = np.where(np.arange(width) < deg[..., None], ids,
+                   sentinel).astype(np.int32)
+    view = gen.integers(0, MC + 4, (P, n_slots)).astype(np.int32)
+    view[:, :n_local] = 0
+    if case == "mostly_colored":
+        pre = gen.random((P, n_local)) < 0.9
+        view[:, :n_local] = np.where(pre, gen.integers(1, MC, (P, n_local)),
+                                     0)
+    view[:, -1] = 0
+    usage = gen.integers(0, 4, (P, MC)).astype(np.int32)
+    usage[:, 0] = 0
+    out = dict(view=view, order=order, usage=usage, nbr=nbr,
+               rand=gen.integers(-2**31, 2**31, (P, n_local),
+                                 dtype=np.int64).astype(np.int32),
+               offset=(np.arange(P) * STAGGER % MC).astype(np.int32))
+    if d2:
+        w2 = 70
+        share = 1.0 if case == "two_hop_local" else 0.9
+        lo = 60 if case == "wide_local" else 0
+        deg2, ids2 = ell(w2, lo, w2, share)
+        out["nbr2"] = np.where(np.arange(w2) < deg2[..., None], ids2,
+                               sentinel).astype(np.int32)
+    return out
+
+
+def _n_local_ids(a: dict) -> np.ndarray:
+    """Local ids per row (both rows at distance 2), repeats counted."""
+    n_local = a["nbr"].shape[1]
+    rows = [a["nbr"]] + ([a["nbr2"]] if "nbr2" in a else [])
+    return sum((r < n_local).sum(-1) for r in rows)
+
+
+@pytest.mark.parametrize("selection,x", SELECTIONS)
+@pytest.mark.parametrize("case,d2", STRESS)
+def test_plain_greedy_run_matches_reference_on_stress_rows(case, d2,
+                                                           selection, x):
+    a = _stress(case, d2)
+    if case == "wide_local":
+        assert (_n_local_ids(a) > ops._GREEDY_LIST).mean() > 0.5
+    view, usage = _greedy(a, selection, x)
+    want_view, want_usage = _ref_greedy(a, selection, x)
+    np.testing.assert_array_equal(view.numpy(), want_view)
+    np.testing.assert_array_equal(usage.numpy(), want_usage)
+    n_local = a["nbr"].shape[1]
+    live = (a["order"][:, :n_local] >= 0).sum()
+    if case == "mostly_colored":
+        assert 0 < int((view != torch.from_numpy(a["view"])).sum()) < live / 4
+    else:   # every listed vertex but the -1 hole is colored
+        assert int((view[:, :n_local] > 0).sum()) == live
+
+
+def test_greedy_layout_follows_the_shapes():
+    """The instantiation of the sequential kernels is chosen from the
+    shapes alone, and its shared memory (``greedy_smem_bytes`` of
+    ``greedy_run.cuh``) never passes the budget."""
+    def smem(variant, ring, list_cap, n_local_max, mc):
+        local = (n_local_max + 1) // 2 if variant == "shared" else 0
+        return 4 * (mc + ops._GREEDY_CONTROL
+                    + ring * (ops._SLOT_HEADER + mc // 32 + list_cap) + local)
+
+    budget = ops._GREEDY_SMEM
+    cases = [(16384, 1024, "shared"),      # D1 main path: 64 shards
+             (2048, 1024, "shared"),       # D2 grid3d(32^3) on 16 shards
+             (40, 64, "shared"),
+             (1 << 20, 1024, "device"),    # one shard at scale 20
+             (110000, 1024, "device"),
+             (100000, 1024, "shared"),
+             (16384, 56320, "device")]     # the widest bitset accepted
+    for n_local_max, mc, want in cases:
+        variant, ring, list_cap = ops._greedy_layout(n_local_max, mc)
+        assert variant == want, (n_local_max, mc)
+        assert 1 <= ring <= ops._GREEDY_RING and 0 <= list_cap
+        assert smem(variant, ring, list_cap, n_local_max, mc) <= budget
+        if variant == "shared":
+            assert ring >= ops._GREEDY_MIN_RING
+            assert list_cap == ops._GREEDY_LIST
+    assert ops._greedy_layout(16384, 1024) == ("shared", 128, 128)
+    # a lower budget moves the same shapes to device memory, then shrinks
+    # the ring, then the id list of its one slot
+    ctl = ops._GREEDY_CONTROL
+    assert ops._greedy_layout(40, 64, budget=4096) == ("device", 6, 128)
+    assert ops._greedy_layout(40, 64, budget=4 * (64 + ctl + 5 + 2 + 10)) == (
+        "device", 1, 10)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops._greedy_layout(40, 64, budget=4 * (64 + ctl + 5 + 1))
+    with pytest.raises(ValueError, match="shared memory"):
+        ops._greedy_layout(40, 57344)
+
+
 # -- the row-wise strategies against the reference's scalar ones -------------
 
 @pytest.mark.parametrize("selection,x", SELECTIONS + [("random_x", 1)])
@@ -375,3 +533,55 @@ def test_cuda_sequential_coloring_matches_plain(cuda_device, case,
     colors = T.colors_from_views(pg, out["cuda"][0])
     assert T.check_coloring(g, colors, distance=1 if case == "d1"
                             else 2)["valid"]
+
+
+def _budget_for(variant: str) -> int | None:
+    """A shared-memory budget that makes the stress shapes take
+    ``variant``: the real one, a ring of 6 slots in device memory, or one
+    slot listing 10 local ids."""
+    return {"shared": None, "device": 4096,
+            "device_one_slot": 4 * (MC + ops._GREEDY_CONTROL + 5 + MC // 32
+                                    + 10)}[variant]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["shared", "device", "device_one_slot"])
+@pytest.mark.parametrize("selection,x", SELECTIONS)
+@pytest.mark.parametrize("case,d2", STRESS)
+def test_cuda_greedy_run_stress_rows_match_plain(cuda_device, monkeypatch,
+                                                 case, d2, selection, x,
+                                                 variant):
+    """Both instantiations (the local colors in shared or device memory;
+    the budget is lowered to force the second) on the stress rows."""
+    a = _stress(case, d2)
+    budget = _budget_for(variant)
+    if budget is not None:
+        monkeypatch.setattr(ops, "_GREEDY_SMEM", budget)
+    n_local = a["nbr"].shape[1]
+    form = ops._greedy_layout(n_local, MC)[0]
+    assert form == ("shared" if variant == "shared" else "device")
+    kernel = ops.GREEDY_RUN_D2 if d2 else ops.GREEDY_RUN
+    before = kernel.variants.get(form, 0)
+    got = _greedy(a, selection, x, backend="cuda", device=cuda_device)
+    torch.cuda.synchronize()
+    assert kernel.variants[form] == before + 1
+    want = _greedy(a, selection, x, backend="torch", device=cuda_device)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d2", [False, True], ids=["d1", "d2"])
+@pytest.mark.parametrize("selection,x", SELECTIONS)
+def test_cuda_greedy_run_device_form_matches_plain(cuda_device, monkeypatch,
+                                                   selection, x, d2):
+    """The device-memory instantiation on the wide synthetic rows, its
+    launch count rising."""
+    a = _synthetic(5, d2)
+    monkeypatch.setattr(ops, "_GREEDY_SMEM", 4096)
+    kernel = ops.GREEDY_RUN_D2 if d2 else ops.GREEDY_RUN
+    before = kernel.variants.get("device", 0)
+    got = _greedy(a, selection, x, backend="cuda", device=cuda_device)
+    torch.cuda.synchronize()
+    assert kernel.variants["device"] == before + 1
+    want = _greedy(a, selection, x, backend="torch", device=cuda_device)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
