@@ -31,10 +31,13 @@ before the final line):
    against its plain version on the arguments of the path's own first
    repair (round 0's pre-repair view, as its supersteps and boundary
    exchanges left it, taken from one more run that ends there), bitwise,
-   each with its device time per launch, the device time of the plain
-   version and of the unfused sequence it replaced (ELL gathers + the
-   tile kernel + the scatters, per tile or superstep chunk), and the
-   bytes bound of the work this run's data needs; then the same path
+   each with its time per launch by CUDA events (five readings of 20
+   launches, the L2 cache flushed before each, as phase 7 times the
+   sequential kernels; the profiler's reading beside it), the device
+   time of the plain version and of the unfused sequence it replaced
+   (ELL gathers + the tile kernel + the scatters, per tile or superstep
+   chunk), and the bytes bound of the work this run's data needs; then
+   the same path
    ``WARM_RUNS`` times more, warm and unprofiled (their median stage
    walls), and once under ``torch.profiler`` for the device-time
    breakdown and the operators that launched it;
@@ -77,7 +80,23 @@ before the final line):
    time per vertex and the bytes bound; (e) the sequential coloring at
    distance 2 (First Fit and Least-Used) on phase 6's partition: valid at
    distance 2, bitwise equal to the plain coloring, ``greedy_run_d2`` as
-   in (d).
+   in (d);
+8. batched multi-graph coloring at full size through ``color_many``
+   (``pad_batch=True``): 8 x ``rmat_good(17, 8)`` and 4 x
+   ``rmat_bad(17, 8)`` on P=16 (two shape buckets, as many edges in all
+   as phase 3's graph), the quality preset with K=8, and a distance-2
+   bucket of phase 6's ``grid3d(32, 32, 32)`` partition and
+   ``grid3d(32, 32, 24)`` (halo 2, P=16), the D2 preset with K=8.  Per
+   bucket: a counted cold run (its launches), every lane valid at its
+   distance and bitwise equal to a counted solo ``pipeline_sim`` of its
+   padded member on the card, fewer launches of the path's kernels than
+   the solo runs together (B >= 2), the warm median wall against the
+   solo stage walls together, the warm device idle share, peak device
+   memory; then the lane forms of ``conflict_frontier[_d2]`` (per-lane
+   counts) and of the recolor mode of ``select_run[_d2]`` (per-lane
+   ``class_chunks``) against their plain versions on the bucket's own
+   first repair and its largest recolor run, bitwise, timed by CUDA
+   events.
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
 result line.
@@ -119,6 +138,11 @@ WARM_RUNS = 5  # warm repeats of each full-size path, for their median walls
 GREEDY_READINGS, GREEDY_LAUNCHES = 5, 20
 FLUSH_BYTES = 128 << 20
 HOST_COVER_CYCLES = 1_000_000  # about 0.5 ms of device wait per launch
+# the batched path (phase 8): two D1 buckets of scale-17 RMAT graphs, one
+# D2 bucket of two 27-point stencils
+MANY_SCALE, MANY_P, MANY_K = 17, 16, 8
+MANY_GOOD, MANY_BAD = range(1, 9), range(1, 5)
+D2_MANY_GRID = (32, 32, 24)
 
 
 def phase(name: str, t0: float, detail: str = "") -> None:
@@ -616,26 +640,27 @@ class _FirstRepair(Exception):
     """Ends a run at its first repair (``capture_first_repair``)."""
 
 
-def capture_first_repair(core, pg, order, cfg, dev) -> dict:
-    """The arguments of the path's first repair: round 0's pre-repair view,
+def capture_first_repair(run) -> dict:
+    """The arguments of a path's first repair: round 0's pre-repair view,
     as the round's supersteps and boundary exchanges left it, and the
-    round's visit order, frontier and device arrays.  ``pipeline_sim`` is
-    run once more (its launches are not counted) with
+    round's visit order, frontier, device arrays and lane count.  The path
+    (``run()``) is run once more (its launches are not counted) with
     ``speculative._detect_conflicts_frontier`` replaced by a stand-in that
     records its arguments and ends the run."""
     from repro_torch.core import speculative
     seen = {}
 
     def first_repair(view, arrs, order_pad, n_steps, n_need, superstep,
-                     **_):
+                     lanes=1, **_):
         seen.update(view=view, arrs=arrs, order_pad=order_pad,
-                    n_steps=n_steps, n_need=n_need, superstep=superstep)
+                    n_steps=n_steps, n_need=n_need, superstep=superstep,
+                    lanes=lanes)
         raise _FirstRepair
 
     real = speculative._detect_conflicts_frontier
     speculative._detect_conflicts_frontier = first_repair
     try:
-        core.pipeline_sim(pg, order, cfg, device=dev)
+        run()
     except _FirstRepair:
         pass
     finally:
@@ -647,50 +672,64 @@ def capture_first_repair(core, pg, order, cfg, dev) -> dict:
 def phase_frontier(ops, seen: dict, d2: bool) -> dict:
     """The frontier kernel of this path against its plain version on the
     path's own round-0 repair (``capture_first_repair``).  Bitwise (view,
-    count, boundary flag), and the unfused sequence too; returns the
-    kernel's device time per launch, the entry point's (its view copy and
-    count buffer included), the plain version's and the unfused
-    sequence's (gathers + tile kernel + scatter per superstep chunk), and
-    the bound."""
+    counts and boundary flags, per lane on a batch of lanes), and the
+    unfused sequence too (its totals); returns the kernel's time per
+    launch by CUDA events with the L2 flushed (the kernel alone:
+    ``ops.launch_frontier`` into a prepared copy of the view), its
+    profiler reading, the entry point's (its view copy and count buffer
+    included), the plain version's and the unfused sequence's device time
+    (gathers + tile kernel + scatter per superstep chunk), and the
+    bound."""
     name = "conflict_frontier_d2" if d2 else "conflict_frontier"
     arrs, view, order_pad, n_need = (seen[k] for k in (
         "arrs", "view", "order_pad", "n_need"))
+    L = seen.get("lanes", 1)
     nbrs = (arrs["nbr"], arrs["nbr2"]) if d2 else (arrs["nbr"],)
     P = view.shape[0]
     fn = ops.detect_conflicts_frontier_d2 if d2 else (
         ops.detect_conflicts_frontier)
     args = (view, arrs["prio"], arrs["is_internal"], order_pad, *nbrs, n_need)
     kw = dict(n_steps=seen["n_steps"], superstep=seen["superstep"])
-    run = lambda backend: fn(*args, backend=backend, **kw)
+    run = lambda backend: fn(*args, backend=backend, lanes=L, **kw)
     unfused = lambda: unfused_conflict_frontier(
         ops, view, arrs["prio"], arrs["is_internal"], order_pad, nbrs, n_need,
         **kw)
     got, want, old = run("cuda"), run("torch"), unfused()
     err = int((got[0] - want[0]).abs().max())
-    n_losers = int(want[1])
-    check(err == 0 and int(got[1]) == n_losers
-          and bool(got[2]) == bool(want[2]),
+    n_losers = int(want[1].sum())
+    check(err == 0 and torch.equal(got[1], want[1])
+          and torch.equal(got[2], want[2]),
           f"{name}: kernel and plain repairs differ")
     check(torch.equal(old[0], want[0]) and int(old[1]) == n_losers
-          and bool(old[2]) == bool(want[2]),
+          and bool(old[2]) == bool(want[2].any()),
           f"{name}: unfused repair differs")
     b, by, n_act, n_live, n_lose = frontier_bound(
         view, arrs["prio"], order_pad, nbrs, n_need, **kw)
     check(n_lose == n_losers, f"{name}: the bound counted {n_lose} losers, "
           f"the repair {n_losers}")
-    t = dict(ms=device_ms(lambda: run("cuda"), 20, name),
+    counts = torch.zeros((L, 2), dtype=torch.int64, device=view.device)
+    ms = run_readings(view, lambda new_view: ops.launch_frontier(
+        *args[:4], nbrs, n_need, kw["n_steps"] * kw["superstep"], new_view,
+        counts), reset=counts.zero_)
+    t = dict(ms=statistics.median(ms),
+             profiler_ms=device_ms(lambda: run("cuda"), 20, name),
              call_ms=device_ms(lambda: run("cuda"), 20, skip="Memcpy"),
              plain_ms=device_ms(lambda: run("torch"), 3, skip="Memcpy"),
              unfused_ms=device_ms(unfused, 3, skip="Memcpy"),
              bound=b, by=by, err=err)
-    print(f"  {name} round 0 ({P} shards x {kw['n_steps']} superstep chunks "
+    lanes = f"{L} lanes of {P // L} shards" if L > 1 else f"{P} shards"
+    per_lane = (f", losers per lane {want[1].tolist()}, boundary loser per "
+                f"lane {want[2].tolist()}" if L > 1 else "")
+    print(f"  {name} round 0 ({lanes} x {kw['n_steps']} superstep chunks "
           f"of {kw['superstep']} rows, the path's own pre-repair view): "
-          f"kernel {t['ms']:.4f} ms device per launch (entry point "
-          f"{t['call_ms']:.4f} ms, its view copy included), unfused "
-          f"{t['unfused_ms']:.4f} ms device, plain {t['plain_ms']:.4f} ms "
-          f"device, bound {b:.4f} ms ({by}), {n_act} active rows, {n_live} "
-          f"live, {n_losers} losers ({n_losers / max(n_live, 1):.4f} of the "
-          f"live rows), boundary loser {bool(want[2])}")
+          f"kernel {t['ms']:.4f} ms per launch by CUDA events, L2 flushed "
+          f"({spread_note(ms)}; profiler {t['profiler_ms']:.4f} ms; entry "
+          f"point {t['call_ms']:.4f} ms device, its view copy included), "
+          f"unfused {t['unfused_ms']:.4f} ms device, plain "
+          f"{t['plain_ms']:.4f} ms device, bound {b:.4f} ms ({by}), {n_act} "
+          f"active rows, {n_live} live, {n_losers} losers "
+          f"({n_losers / max(n_live, 1):.4f} of the live rows), boundary "
+          f"loser {bool(want[2].any())}{per_lane}")
     return {name: t}
 
 
@@ -717,7 +756,8 @@ def phase_runs(core, ops, dev, pg, order, cfg, view_final) -> dict:
     tile_fn = ops.select_colors_d2 if d2 else ops.select_colors
     lines = []
 
-    def timed(what, run, unfused, before, **bound_kw):
+    def timed(what, call, base, unfused, before, **bound_kw):
+        run = lambda backend: call(base.clone(), backend)
         got, want = run("cuda"), run("torch")
         err = int((got - want).abs().max())
         check(err == 0, f"{name} {what}: kernel and plain views differ")
@@ -725,15 +765,19 @@ def phase_runs(core, ops, dev, pg, order, cfg, view_final) -> dict:
               f"{name} {what}: unfused sequence differs")
         b, by, n_act = run_bound(before, want, nbrs, sentinel=sentinel,
                                  **bound_kw)
-        t = dict(ms=device_ms(lambda: run("cuda"), 20, name),
+        ms = run_readings(base, lambda v: call(v, "cuda"))
+        t = dict(ms=statistics.median(ms),
+                 profiler_ms=device_ms(lambda: run("cuda"), 20, name),
                  plain_ms=device_ms(lambda: run("torch"), 3, skip="Memcpy"),
                  unfused_ms=device_ms(unfused, 5, skip="Memcpy"),
                  bound=b, by=by, err=err)
         lines.append(
-            f"{name} {what}: kernel {t['ms']:.4f} ms device per launch, "
-            f"unfused {t['unfused_ms']:.4f} ms device, plain "
-            f"{t['plain_ms']:.4f} ms device, bound {b:.4f} ms ({by}; the "
-            f"tile-to-tile dependence is not in it), {n_act} active rows")
+            f"{name} {what}: kernel {t['ms']:.4f} ms per launch by CUDA "
+            f"events, L2 flushed ({spread_note(ms)}; profiler "
+            f"{t['profiler_ms']:.4f} ms), unfused {t['unfused_ms']:.4f} ms "
+            f"device, plain {t['plain_ms']:.4f} ms device, bound {b:.4f} ms "
+            f"({by}; the tile-to-tile dependence is not in it), {n_act} "
+            "active rows")
         return t
 
     # speculative: the middle superstep of round 0
@@ -758,9 +802,9 @@ def phase_runs(core, ops, dev, pg, order, cfg, view_final) -> dict:
     out = timed(
         f"speculative superstep ({P} shards x {-(-S // tile)} "
         f"{ccfg.selection} tiles of {tile} rows)",
-        lambda backend: run_fn(view0.clone(), order_pad, *nbrs, rand, None,
-                               first_step=mid, n_steps=1, backend=backend,
-                               **spec),
+        lambda v, backend: run_fn(v, order_pad, *nbrs, rand, None,
+                                  first_step=mid, n_steps=1, backend=backend,
+                                  **spec), view0,
         lambda: unfused_select_run(tile_fn, view0.clone(), order_pad, nbrs,
                                    rand, first_step=mid, n_steps=1,
                                    superstep=S, tile=tile, **spec_tile),
@@ -786,10 +830,10 @@ def phase_runs(core, ops, dev, pg, order, cfg, view_final) -> dict:
     n_chunks = int(sched.class_chunks[t_last])
     timed(f"recolor class ({P} shards x {n_chunks} first_fit chunks of "
           f"{chunk} rows)",
-          lambda backend: recolor_fn(view0.clone(), *nbrs, *sched_args,
-                                     first_class=t_last, last_class=t_last,
-                                     chunk=chunk, max_colors=mc,
-                                     backend=backend),
+          lambda v, backend: recolor_fn(v, *nbrs, *sched_args,
+                                        first_class=t_last, last_class=t_last,
+                                        chunk=chunk, max_colors=mc,
+                                        backend=backend), view0,
           lambda: unfused_recolor_run(tile_fn, view0.clone(), nbrs,
                                       *sched_args, first_class=t_last,
                                       last_class=t_last, chunk=chunk,
@@ -847,8 +891,9 @@ def drive_path(core, ops, dev, g, pg, order, cfg, kernels) -> dict:
               f"the tile kernel {name} launched on the path")
     t = time.perf_counter()
     measured = phase_runs(core, ops, dev, pg, order, cfg, view)
-    measured.update(phase_frontier(
-        ops, capture_first_repair(core, pg, order, cfg, dev), distance == 2))
+    measured.update(phase_frontier(ops, capture_first_repair(
+        lambda: core.pipeline_sim(pg, order, cfg, device=dev)),
+        distance == 2))
     phase(f"{'5b' if distance == 2 else '3b'} run and frontier kernels vs "
           "plain (bitwise) on this path's arrays", t)
     profile_path(core, pg, order, cfg, dev, res, kernels)
@@ -1225,6 +1270,27 @@ def event_ms(prepare, launch, reps: int) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
+def run_readings(base, launch, reset=None) -> list[float]:
+    """``GREEDY_READINGS`` readings of one launch's time (the mean of
+    ``GREEDY_LAUNCHES`` launches each, by CUDA events: ``event_ms``), each
+    on a fresh copy of ``base`` (``launch(copy)``), after ``reset()`` and
+    with the L2 cache flushed, outside the events — rows 5/5b's method."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                        device=base.device)
+    held = {}
+
+    def prepare():
+        held["view"] = base.clone()
+        if reset is not None:
+            reset()
+        flush.fill_(next(_FILLS))
+
+    prepare()
+    launch(held["view"])  # warm
+    return [event_ms(prepare, lambda: launch(held["view"]), GREEDY_LAUNCHES)
+            for _ in range(GREEDY_READINGS)]
+
+
 def greedy_readings(ops, seen: dict, d2: bool, flush) -> list[float]:
     """``GREEDY_READINGS`` readings of the kernel's time per launch (the
     mean of ``GREEDY_LAUNCHES`` launches each, by CUDA events:
@@ -1480,6 +1546,224 @@ def phase_variants(core, ops, dev, main, d2_cross):
     return launches, measured
 
 
+# -- phase 8: batched multi-graph coloring ------------------------------------
+
+def capture_largest_recolor(ops, run, d2: bool) -> dict:
+    """The recolor-mode run launch of ``run()`` with the most chunks (its
+    launches not counted): its arguments and a copy of the view it
+    started from."""
+    name = "recolor_run_d2" if d2 else "recolor_run"
+    real = getattr(ops, name)
+    best = {}
+
+    def note(view, *args, **kw):
+        chunks = args[-1][:, kw["first_class"]:kw["last_class"] + 1]
+        n = int(chunks.sum())
+        if n > best.get("n", -1):
+            best.update(n=n, view=view.clone(), args=args, kw=kw)
+        return real(view, *args, **kw)
+
+    setattr(ops, name, note)
+    try:
+        run()
+    finally:
+        setattr(ops, name, real)
+    check(bool(best), f"the batch made no {name} call")
+    return best
+
+
+def check_recolor_lanes(ops, best: dict, d2: bool, label: str) -> dict:
+    """The recolor-mode run kernel with per-lane ``class_chunks`` ``(L,
+    n_cls)`` against its plain version on the batch's own largest run
+    (``capture_largest_recolor``), bitwise; its time per launch by CUDA
+    events with the L2 flushed, and the plain version's device time."""
+    name = "select_run_d2" if d2 else "select_run"
+    fn = ops.recolor_run_d2 if d2 else ops.recolor_run
+    kw = {k: v for k, v in best["kw"].items() if k != "backend"}
+    call = lambda v, backend: fn(v, *best["args"], backend=backend, **kw)
+    base = best["view"]
+    got, want = call(base.clone(), "cuda"), call(base.clone(), "torch")
+    err = int((got - want).abs().max())
+    check(err == 0, f"{label} {name} (recolor, per-lane chunks): kernel and "
+          "plain views differ")
+    ms = run_readings(base, lambda v: call(v, "cuda"))
+    plain = device_ms(lambda: call(base.clone(), "torch"), 1, skip="Memcpy")
+    chunks = best["args"][-1][:, kw["first_class"]:kw["last_class"] + 1]
+    L = chunks.shape[0]
+    print(f"  {label} {name} recolor run, classes {kw['first_class']}-"
+          f"{kw['last_class']} ({L} lanes of {base.shape[0] // L} shards; "
+          f"chunks of {kw['chunk']} rows per lane "
+          f"{chunks.sum(dim=1).tolist()}): bitwise equal to the plain "
+          f"version; kernel {statistics.median(ms):.4f} ms per launch by CUDA "
+          f"events, L2 flushed ({spread_note(ms)}), plain {plain:.4f} ms "
+          "device", flush=True)
+    return dict(ms=statistics.median(ms), plain_ms=plain, err=err)
+
+
+def drive_bucket(core, ops, dev, graphs, pgs, bucket, cfg, label) -> None:
+    """One bucket of ``color_many`` at full size: a counted cold run (every
+    launch count set to 0 just before it and read just after); each lane
+    valid at the config's distance and bitwise its solo ``pipeline_sim``
+    on the card (padded member, the bucket's resolved config, the lane's
+    folded keys), each solo run counted too; with ``B >= 2`` lanes, fewer
+    launches of the path's kernels than the solo runs together.  Then the
+    warm runs (median wall), one profiled run (device time, idle share),
+    and the lane forms of the frontier and recolor-run kernels against
+    their plain versions on the bucket's own first repair and largest
+    recolor run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import rng
+    d2 = cfg.color.distance == 2
+    kernels = (("select_run_d2", "conflict_frontier_d2") if d2
+               else ("select_run", "conflict_frontier"))
+    sig = core.bucket_signature(bucket, cfg)
+    bcfg = sig.cfg
+    m0 = bucket.members[0]
+    rounds = len(bucket.plan_static[0])
+    print(f"  {label} bucket: {bucket.B} graphs (inputs {list(bucket.indices)})"
+          f" in {sig.batch} lanes x P={bucket.P}; n_local_max "
+          f"{m0.n_local_max}, maxd {m0.maxd}, maxd2 {m0.maxd2}, max_ghost "
+          f"{m0.max_ghost}; scheme {bcfg.recolor.scheme}, union schedule "
+          f"{rounds} rounds", flush=True)
+    run = lambda: core.color_many(pgs, cfg, buckets=[bucket], pad_batch=True,
+                                  device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, launches, cold = counted(ops, run)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for name in kernels:
+        check(launches[name] > 0, f"{label}: {name} never launched")
+    for name in ("color_select", "color_select_d2", "conflict",
+                 "conflict_d2"):
+        check(launches[name] == 0, f"{label}: the tile kernel {name} "
+              "launched on the path")
+    solo = {name: 0 for name in launches}
+    solo_cold = solo_warm = 0.0
+    colors = []
+    for j, gi in enumerate(bucket.indices):
+        lane = res[gi]
+        st = core.check_coloring(graphs[gi], lane["colors"],
+                                 distance=bcfg.color.distance)
+        check(st["valid"], f"{label}: graph {gi} invalid: {st}")
+        m = bucket.members[j]
+        order = core.compute_order(m, core.ordering.INTERNAL_FIRST)
+        keys = dict(color_key=rng.fold_in(rng.key(bcfg.color.seed), gi),
+                    recolor_key=rng.fold_in(rng.key(bcfg.seed), gi))
+        solo_run = lambda: core.pipeline_sim(m, order, bcfg, device=dev,
+                                             **keys)
+        (view, r), ln, wall = counted(ops, solo_run)
+        check(torch.equal(view, lane["view"]) and r["color"] == lane["color"]
+              and r["history"] == lane["history"]
+              and r["n_iters_run"] == lane["n_iters_run"],
+              f"{label}: graph {gi} differs from its solo run")
+        for name, n in ln.items():
+            solo[name] += n
+        solo_cold += wall
+        warm = solo_run()[1]["seconds"]
+        solo_warm += warm["color"] + warm["recolor"]
+        colors.append(r["history"][-1]["n_colors_distinct"] if r["history"]
+                      else r["color"]["n_colors_distinct"])
+        del view
+    mine = {k: (launches[k], solo[k]) for k in kernels}
+    if bucket.B >= 2:
+        for name, (n, n_solo) in mine.items():
+            check(n < n_solo, f"{label}: {name} launched {n} times batched, "
+                  f"{n_solo} solo")
+    walls = []
+    for _ in range(WARM_RUNS):
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t)
+    warm = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize(dev)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    h2d = sum(e.self_device_time_total for e in events
+              if "Memcpy" in e.key) / 1e6
+    ours = {k: sum(e.self_device_time_total for e in events
+                   if k + "_kernel" in e.key) / 1e6 for k in kernels}
+    loop = busy - h2d
+    print(f"  {label} colors per lane {colors}, every lane valid and bitwise "
+          f"its solo run on the card")
+    print(f"  {label} walls: color_many cold {cold:.4f} s (arrays to the "
+          f"device included) against {solo_cold:.4f} s for the "
+          f"{bucket.B} solo pipeline_sim runs together (each its to_device "
+          f"included); warm median of {WARM_RUNS} {warm:.4f} s "
+          f"({', '.join(f'{w:.4f}' for w in walls)}) against "
+          f"{solo_warm:.4f} s of solo color+recolor stages (warm); peak "
+          f"device memory {peak / 2**30:.3f} GiB")
+    print(f"  {label} launches batched / solo together: "
+          + ", ".join(f"{k} {n} / {n_solo}" for k, (n, n_solo) in mine.items())
+          + f"; all kernels {launches}")
+    print(f"  {label} profiled warm run: device busy {busy:.4f} s, of it "
+          f"host->device copies {h2d:.4f} s, "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in ours.items())
+          + f"; device idle {1 - loop / warm:.3f} of the warm median wall",
+          flush=True)
+    phase_frontier(ops, capture_first_repair(run), d2)
+    check_recolor_lanes(ops, capture_largest_recolor(ops, run, d2), d2, label)
+    del res
+    bucket.__dict__.pop("_device_arrays", None)
+    torch.cuda.empty_cache()
+
+
+def phase_many(core, ops, dev, d2_cross) -> None:
+    """Phase 8: ``color_many`` at full size — a D1 bucket pair (8 x
+    ``rmat_good(17, 8)`` and 4 x ``rmat_bad(17, 8)`` on P=16, the quality
+    preset, K=8, ``pad_batch=True``) and a D2 bucket (phase 6's
+    ``grid3d(32, 32, 32)`` halo-2 partition and ``grid3d(32, 32, 24)``, the
+    D2 preset, K=8), each bucket driven by ``drive_bucket``."""
+    from repro_torch.core import presets
+    t = time.perf_counter()
+    graphs = ([core.rmat.rmat_good(MANY_SCALE, 8, seed=s) for s in MANY_GOOD]
+              + [core.rmat.rmat_bad(MANY_SCALE, 8, seed=s)
+                 for s in MANY_BAD])
+    t_gen = time.perf_counter() - t
+    pgs = [core.partition_graph(g, MANY_P) for g in graphs]
+    buckets = core.bucket_graphs(pgs)
+    t_part = time.perf_counter() - t - t_gen
+    print(f"  {len(graphs)} graphs rmat_good/rmat_bad({MANY_SCALE}, 8): "
+          f"{sum(g.m for g in graphs)} edges in all, P={MANY_P}; generate "
+          f"{t_gen:.3f} s, partition and bucket {t_part:.3f} s; "
+          f"{len(buckets)} buckets of {[b.B for b in buckets]}", flush=True)
+    check(len(buckets) >= 2, f"the batch spans {len(buckets)} bucket(s)")
+    cfg = presets.pipeline_config(presets.quality(x=10), n_iters=MANY_K)
+    # the padded members stand in for their originals (same local slots),
+    # and a bucket's host arrays go once it is done: host memory holds
+    # one copy of one bucket at a time
+    for bucket in buckets:
+        for gi, m in zip(bucket.indices, bucket.members):
+            pgs[gi] = m
+    for bi in range(len(buckets)):
+        bucket, buckets[bi] = buckets[bi], None
+        t0 = time.perf_counter()
+        drive_bucket(core, ops, dev, graphs, pgs, bucket, cfg, f"8a.{bi}")
+        phase(f"8a D1 bucket {bi} ({bucket.B} graphs)", t0)
+        for gi in bucket.indices:
+            pgs[gi] = None
+        del bucket
+    t0 = time.perf_counter()
+    g6, pg6, _ = d2_cross
+    g2 = core.rmat.grid3d(*D2_MANY_GRID)
+    pgs = [pg6, core.partition_graph(g2, D2_P, halo=2)]
+    buckets = core.bucket_graphs(pgs)
+    check([b.B for b in buckets] == [2], f"the D2 graphs bucket as "
+          f"{[b.B for b in buckets]}")
+    print(f"  D2 graphs grid3d{D2_CROSS_GRID} (phase 6's partition) and "
+          f"grid3d{D2_MANY_GRID}, halo 2, P={D2_P}; partition "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    drive_bucket(core, ops, dev, [g6, g2], pgs, buckets[0],
+                 d2_config(presets, MANY_K), "8b")
+    phase("8b D2 bucket (2 graphs)", t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1541,6 +1825,11 @@ def main() -> int:
     launches.update(launches_v)
     phase(f"7 variant paths rmat_good({MAIN_SCALE}) P={MAIN_P} and "
           f"grid3d{D2_CROSS_GRID} P={D2_P}", t)
+
+    t = time.perf_counter()
+    phase_many(core, ops, dev, d2_cross)
+    phase(f"8 color_many: rmat({MANY_SCALE}) buckets P={MANY_P} and a D2 "
+          "bucket", t)
 
     kernels = []
     # launches: each kernel on its own path (the tile-form select and

@@ -3,7 +3,11 @@
 All P shards run on one device as ``(P, …)`` tensors.  Public API:
 
   Graph, PartitionedGraph, partition_graph      — graph substrate (numpy)
+  pad_partition, bucket_graphs, GraphBucket      — batched shape buckets
+  plan_fits, remap_plan_arrays                   — union round schedules
+  IdPolicy, id_policy, check_int32_limits        — id-width policy
   to_device, arrays_from_numpy, view_from_numpy — host -> device state
+  bucket_to_device                               — a bucket's lane batch
   compute_order                                  — vertex-visit orderings
   ColorConfig, color_graph_sim, color_shards     — speculative coloring
   RecolorConfig, recolor_sim, recolor_shards     — iterative recoloring
@@ -11,9 +15,16 @@ All P shards run on one device as ``(P, …)`` tensors.  Public API:
   arc_sim, arc_shards                            — asynchronous recoloring
   PipelineConfig, pipeline_sim                   — color→recolor pipeline
   recolor_loop_sim                               — recolor-only loop
+  color_many                                     — batched multi-graph
+                                                   pipeline (lanes)
+  PlanSignature, plan_signature,                 — dispatch identity and
+  bucket_signature, program_cache_*                the per-signature cache
   selection                                      — the strategy names and
                                                    their row-wise forms
-  check_coloring, colors_from_views              — validation
+  check_coloring, colors_from_views,             — validation
+  assert_valid
+  message_stats, MessageStats                    — piggybacking accounting
+  stats_to_host                                  — device stats -> ints
   presets.speed / presets.quality                — the paper's parameter sets
   select_colors, detect_conflicts                — the kernel entry points
   select_colors_d2, detect_conflicts_d2          — their distance-2 forms
@@ -26,33 +37,46 @@ from repro_torch.kernels.ops import (detect_conflicts, detect_conflicts_d2,
 
 from . import ordering, presets, rmat, selection
 from .comm import (ALLGATHER, AUTO, SCHEME_CHOICES, SCHEMES, SPARSE,
-                   CommConfig, resolve_scheme)
-from .graph import (CommPlan, Graph, PartitionedGraph, arrays_from_numpy,
-                    build_comm_plan, id_policy, partition_graph, to_device,
-                    view_from_numpy)
+                   AxisComm, CommConfig, allgather_bytes_per_exchange,
+                   resolve_scheme, stats_to_host)
+from .graph import (CommPlan, Graph, GraphBucket, IdPolicy, PartitionedGraph,
+                    arrays_from_numpy, bucket_graphs, bucket_to_device,
+                    build_comm_plan, check_int32_limits, id_policy,
+                    pad_partition, partition_graph, plan_fits,
+                    remap_plan_arrays, to_device, view_from_numpy)
 from .ordering import compute_order
-from .pipeline import (HISTORY_STATS, PipelineConfig, color_then_recolor,
-                       pipeline_sim, recolor_loop, recolor_loop_sim,
+from .piggyback import MessageStats, message_stats
+from .pipeline import (HISTORY_STATS, PipelineConfig, PlanSignature,
+                       bucket_signature, color_many, color_then_recolor,
+                       pipeline_sim, plan_signature, program_cache_clear,
+                       program_cache_contains, program_cache_stats,
+                       recolor_lanes, recolor_loop, recolor_loop_sim,
                        resolve_pipeline_cfg)
 from .recolor import (ND, NI, RAND, RV, RecolorConfig, arc_shards, arc_sim,
                       recolor_iterations, recolor_shards, recolor_sim,
                       schedule_for_iteration)
-from .speculative import (ColorConfig, color_graph_sim, color_shards,
-                          resolve_cfg)
-from .validate import check_coloring, colors_from_views
+from .speculative import (ColorConfig, color_graph_sim, color_lanes,
+                          color_shards, resolve_cfg)
+from .validate import assert_valid, check_coloring, colors_from_views
 
 __all__ = [
-    "ALLGATHER", "AUTO", "ColorConfig", "CommConfig", "CommPlan", "Graph",
-    "HISTORY_STATS", "ND", "NI", "PartitionedGraph", "PipelineConfig",
+    "ALLGATHER", "AUTO", "AxisComm", "ColorConfig", "CommConfig", "CommPlan",
+    "Graph", "GraphBucket", "HISTORY_STATS", "IdPolicy", "MessageStats",
+    "ND", "NI", "PartitionedGraph", "PipelineConfig", "PlanSignature",
     "RAND", "RV", "RecolorConfig", "SCHEMES", "SCHEME_CHOICES", "SPARSE",
-    "arc_shards", "arc_sim", "arrays_from_numpy", "build_comm_plan",
-    "check_coloring",
-    "color_graph_sim", "color_shards", "color_then_recolor",
+    "allgather_bytes_per_exchange", "arc_shards", "arc_sim",
+    "arrays_from_numpy", "assert_valid", "bucket_graphs",
+    "bucket_signature", "bucket_to_device", "build_comm_plan",
+    "check_coloring", "check_int32_limits", "color_graph_sim",
+    "color_lanes", "color_many", "color_shards", "color_then_recolor",
     "colors_from_views", "compute_order", "detect_conflicts",
-    "detect_conflicts_d2", "id_policy",
-    "ordering", "partition_graph", "pipeline_sim", "presets",
-    "recolor_iterations", "recolor_loop", "recolor_loop_sim",
-    "recolor_shards", "recolor_sim", "resolve_cfg", "resolve_pipeline_cfg",
-    "resolve_scheme", "rmat", "schedule_for_iteration", "select_colors",
-    "select_colors_d2", "selection", "to_device", "view_from_numpy",
+    "detect_conflicts_d2", "id_policy", "message_stats", "ordering",
+    "pad_partition", "partition_graph", "pipeline_sim", "plan_fits",
+    "plan_signature", "presets", "program_cache_clear",
+    "program_cache_contains", "program_cache_stats", "recolor_iterations",
+    "recolor_lanes", "recolor_loop", "recolor_loop_sim", "recolor_shards",
+    "recolor_sim", "remap_plan_arrays", "resolve_cfg",
+    "resolve_pipeline_cfg", "resolve_scheme", "rmat",
+    "schedule_for_iteration", "select_colors", "select_colors_d2",
+    "selection", "stats_to_host", "to_device", "view_from_numpy",
 ]

@@ -80,23 +80,51 @@ class IdPolicy:
     id_dtype: object         # numpy dtype for global vertex ids
     ell_dtype: object        # numpy dtype for flattened ELL indices
 
+    @property
+    def promoted(self) -> bool:
+        """Either verdict is int64 (the giant-graph regime)."""
+        return (np.dtype(self.id_dtype) == np.int64
+                or np.dtype(self.ell_dtype) == np.int64)
 
-def id_policy(n_global: int, n_local_max: int, maxd: int,
-              maxd2: int = 0) -> IdPolicy:
+    @property
+    def id_itemsize(self) -> int:
+        return np.dtype(self.id_dtype).itemsize
+
+
+def id_policy(n_global: int, n_local_max: int, maxd: int, maxd2: int = 0,
+              *, allow_int64: bool = True) -> IdPolicy:
     """Decide the id widths for a (partitioned) graph's device layout.
 
-    Crossing either int32 bound promotes the affected dtype to int64;
-    int64 itself overflowing is an error.
+    Crossing either int32 bound promotes the affected dtype to int64
+    (``allow_int64=False`` raises there instead, the hard int32 guard of
+    ``check_int32_limits``); int64 itself overflowing is an error.
     """
     ell = n_local_max * max(maxd, maxd2, 1)
     if n_global >= INT64_LIMIT or ell >= INT64_LIMIT:
         raise ValueError(
             f"graph exceeds the int64 id range: n_global={n_global}, "
             f"n_local_max * maxd = {ell} (>= {INT64_LIMIT})")
+    if not allow_int64:
+        if n_global >= INT32_LIMIT:
+            raise ValueError(
+                f"graph has {n_global} vertices but device vertex ids are "
+                f"int32 (< {INT32_LIMIT}); this exceeds the supported size")
+        if ell >= INT32_LIMIT:
+            raise ValueError(
+                f"int32 ELL overflow: n_local_max * maxd = {n_local_max} * "
+                f"{max(maxd, maxd2, 1)} = {ell} >= {INT32_LIMIT}; partition "
+                f"over more workers (larger P) to shrink the per-shard tile")
     return IdPolicy(
         n_global=n_global, ell=ell,
         id_dtype=np.int64 if n_global >= INT32_LIMIT else np.int32,
         ell_dtype=np.int64 if ell >= INT32_LIMIT else np.int32)
+
+
+def check_int32_limits(n_global: int, n_local_max: int, maxd: int,
+                       maxd2: int = 0) -> None:
+    """The hard int32 guard: raises where an int32-only layout would
+    overflow (``id_policy(..., allow_int64=False)``)."""
+    id_policy(n_global, n_local_max, maxd, maxd2, allow_int64=False)
 
 
 def _pad2(rows: list[np.ndarray], width: int, fill: int) -> np.ndarray:
@@ -201,6 +229,12 @@ class CommPlan:
     ghost_shift: np.ndarray  # (P, max_ghost) ring shift of each ghost, pad=-1
     ghost_pos: np.ndarray    # (P, max_ghost) position in owner's send row
     shift_to_round: np.ndarray  # (P, P) shift value -> round index, -1 unused
+
+    @property
+    def static(self) -> tuple:
+        """Hashable ``(shifts, padded widths)``: the round schedule's shape,
+        part of a ``PlanSignature``."""
+        return (self.shifts, self.widths)
 
     def arrays(self) -> dict[str, np.ndarray]:
         P = self.send_slot.shape[0]
@@ -544,6 +578,224 @@ def build_comm_plan(pg: PartitionedGraph, *,
     )
 
 
+# ------------------------------------------------------------ shape buckets --
+
+def pad_partition(pg: PartitionedGraph, *, n_local_max: int | None = None,
+                  max_ghost: int | None = None, max_boundary: int | None = None,
+                  m_local_max: int | None = None, maxd: int | None = None,
+                  maxd2: int | None = None) -> PartitionedGraph:
+    """Re-pad a partition to larger target maxima (same graph, same blocks).
+
+    The batched pipeline (``color_many``) stacks several partitions on a
+    leading lane axis, so every padded dimension must agree across the
+    batch.  Local slots keep their ids, ghost slots shift by ``n_local_max
+    - pg.n_local_max`` and the sentinel moves to the new ``n_slots - 1``;
+    new padding is inert (ELL pads point at the sentinel, ``gvid``/``prio``
+    pads are -1, padded local rows have no neighbours).  Random-X draws
+    depend on ``n_local_max``, so a padded run reproduces runs at the same
+    padded shape, not the unpadded one.
+    """
+    new_nlm = pg.n_local_max if n_local_max is None else int(n_local_max)
+    new_mg = pg.max_ghost if max_ghost is None else int(max_ghost)
+    new_mb = pg.max_boundary if max_boundary is None else int(max_boundary)
+    new_ml = pg.m_local_max if m_local_max is None else int(m_local_max)
+    new_maxd = pg.maxd if maxd is None else int(maxd)
+    new_maxd2 = pg.maxd2 if maxd2 is None else int(maxd2)
+    if (new_nlm < pg.n_local_max or new_mg < pg.max_ghost
+            or new_mb < pg.max_boundary or new_ml < pg.m_local_max
+            or new_maxd < pg.maxd or new_maxd2 < pg.maxd2):
+        raise ValueError("pad_partition only widens a partition")
+    if (new_nlm, new_mg, new_mb, new_ml, new_maxd, new_maxd2) == (
+            pg.n_local_max, pg.max_ghost, pg.max_boundary, pg.m_local_max,
+            pg.maxd, pg.maxd2):
+        return pg
+
+    P = pg.P
+    old_nlm, old_sent = pg.n_local_max, pg.sentinel
+    new_sent = new_nlm + new_mg
+    d_ghost = new_nlm - old_nlm
+
+    def remap(a: np.ndarray) -> np.ndarray:
+        """Old-layout slot ids -> new layout (locals keep, ghosts shift)."""
+        out = np.where(a >= old_nlm, a + d_ghost, a)
+        return np.where(a == old_sent, new_sent, out).astype(np.int32)
+
+    def pad_axis(a: np.ndarray, axis: int, width: int, fill) -> np.ndarray:
+        pad = [(0, 0)] * a.ndim
+        pad[axis] = (0, width - a.shape[axis])
+        return np.pad(a, pad, constant_values=fill)
+
+    indptr = pad_axis(pg.indptr, 1, new_nlm + 1, 0)
+    indptr[:, old_nlm + 1:] = indptr[:, old_nlm:old_nlm + 1]
+    indices = pad_axis(remap(pg.indices), 1, new_ml, new_sent)
+    edge_src = np.where(pg.edge_src == old_nlm, new_nlm, pg.edge_src)
+    edge_src = pad_axis(edge_src.astype(np.int32), 1, new_ml, new_nlm)
+    nbr = pad_axis(pad_axis(remap(pg.nbr), 2, new_maxd, new_sent),
+                   1, new_nlm, new_sent)
+    boundary = pad_axis(remap(pg.boundary), 1, new_mb, new_sent)
+    ghost_owner = pad_axis(pg.ghost_owner, 1, new_mg, 0)
+    ghost_slot = pad_axis(pg.ghost_slot, 1, new_mg, 0)
+    gvid = np.full((P, new_sent + 1), -1, dtype=pg.gvid.dtype)
+    prio = np.full((P, new_sent + 1), -1, dtype=pg.prio.dtype)
+    gvid[:, :old_nlm] = pg.gvid[:, :old_nlm]
+    gvid[:, new_nlm:new_nlm + pg.max_ghost] = pg.gvid[:, old_nlm:old_sent]
+    prio[:, :old_nlm] = pg.prio[:, :old_nlm]
+    prio[:, new_nlm:new_nlm + pg.max_ghost] = pg.prio[:, old_nlm:old_sent]
+    is_internal = pad_axis(pg.is_internal, 1, new_nlm, False)
+    degree = pad_axis(pg.degree, 1, new_nlm, 0)
+    nbr2 = None
+    if pg.nbr2 is not None:
+        nbr2 = pad_axis(pad_axis(remap(pg.nbr2), 2, max(new_maxd2, 1),
+                                 new_sent), 1, new_nlm, new_sent)
+
+    return dataclasses.replace(
+        pg, n_local_max=new_nlm, max_ghost=new_mg, max_boundary=new_mb,
+        m_local_max=new_ml, maxd=new_maxd, maxd2=new_maxd2,
+        indptr=indptr, indices=indices, nbr=nbr, edge_src=edge_src,
+        boundary=boundary, ghost_owner=ghost_owner, ghost_slot=ghost_slot,
+        gvid=gvid, prio=prio, is_internal=is_internal, degree=degree,
+        nbr2=nbr2)
+
+
+def plan_fits(plan: CommPlan, static: tuple) -> bool:
+    """True iff ``plan`` embeds into the target ``(shifts, widths)``
+    schedule: each of its ring shifts exists there with a buffer at least
+    as wide."""
+    shifts, widths = static
+    w = dict(zip(shifts, widths))
+    return all(k in w and pw <= w[k]
+               for k, pw in zip(plan.shifts, plan.widths))
+
+
+def remap_plan_arrays(pg, static: tuple) -> dict[str, np.ndarray]:
+    """``pg``'s sparse-plan arrays re-laid onto a target static schedule.
+
+    Rounds ``pg`` has no traffic on get an all-sentinel send row and a
+    zero in ``round_widths``, so the round moves nothing of this graph and
+    its wire bytes stay those of ``pg``'s own exact plan.  Raises
+    ``ValueError`` when ``plan_fits`` is False.
+    """
+    shifts, widths = static
+    pl = pg.comm_plan
+    if not plan_fits(pl, static):
+        raise ValueError(f"comm plan {pl.static} does not fit the target "
+                         f"schedule {static}")
+    P = pg.P
+    max_send = max(widths, default=0)
+    n_rounds = max(len(shifts), 1)
+    s2r = np.full((P,), -1, dtype=np.int32)
+    for r, k in enumerate(shifts):
+        s2r[k] = r
+    w = dict(zip(pl.shifts, pl.widths))
+    ex = dict(zip(pl.shifts, pl.exact_widths))
+    send = np.full((P, n_rounds, max(max_send, 1)), pg.sentinel, np.int32)
+    rw = np.zeros((n_rounds,), np.int32)
+    for r, k in enumerate(shifts):
+        if k in w:
+            rm = pl.shifts.index(k)
+            send[:, r, :pl.send_slot.shape[2]] = pl.send_slot[:, rm]
+            rw[r] = ex[k]
+    return dict(
+        send_slot=send, ghost_shift=pl.ghost_shift, ghost_pos=pl.ghost_pos,
+        shift_to_round=np.broadcast_to(s2r, (P, P)).copy(),
+        round_widths=np.broadcast_to(rw, (P, n_rounds)).copy())
+
+
+def _union_comm_arrays(members) -> tuple[tuple, list[dict[str, np.ndarray]]]:
+    """One shared sparse round schedule for a bucket of padded partitions:
+    the union of the members' ring shifts, each at the widest member's
+    buffer width, and every member's plan arrays re-laid onto it
+    (``remap_plan_arrays``).  Returns ``((shifts, widths), per-member
+    array dicts)``."""
+    plans = [m.comm_plan for m in members]
+    width_of = [dict(zip(pl.shifts, pl.widths)) for pl in plans]
+    shifts = tuple(sorted({k for pl in plans for k in pl.shifts}))
+    widths = tuple(max(w.get(k, 0) for w in width_of) for k in shifts)
+    static = (shifts, widths)
+    return static, [remap_plan_arrays(m, static) for m in members]
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphBucket:
+    """Same-shape padded partitions, stackable on a leading lane axis.
+
+    Built by ``bucket_graphs``.  ``members[j]`` is the padded partition of
+    input graph ``indices[j]``; every padded dimension agrees across
+    members, so ``stacked_arrays`` returns ``(B, P, …)`` arrays.  The
+    sparse schedule is the members' union (``plan_static``), with
+    per-member ``round_widths`` keeping each graph's wire bytes exact.
+    """
+
+    indices: tuple   # positions of the members in the bucket_graphs() input
+    members: tuple   # PartitionedGraph instances, padded to shared dims
+
+    @property
+    def B(self) -> int:
+        return len(self.members)
+
+    @property
+    def P(self) -> int:
+        return self.members[0].P
+
+    @functools.cached_property
+    def _union_plan(self) -> tuple[tuple, list[dict[str, np.ndarray]]]:
+        return _union_comm_arrays(self.members)
+
+    @property
+    def plan_static(self) -> tuple:
+        """The shared ``(shifts, widths)`` schedule."""
+        return self._union_plan[0]
+
+    def member_arrays(self, j: int, *, sparse: bool = True) -> dict:
+        """Host dict of member ``j`` under the shared comm schedule."""
+        out = self.members[j].arrays(sparse=False)
+        if sparse:
+            out = dict(out, **self._union_plan[1][j])
+        return out
+
+    def stacked_arrays(self, *, sparse: bool = True) -> dict[str, np.ndarray]:
+        """All members stacked on a leading lane axis: ``(B, P, …)``,
+        cached per ``sparse`` flag."""
+        cache = self.__dict__.setdefault("_stacked", {})
+        if sparse not in cache:
+            per = [self.member_arrays(j, sparse=sparse)
+                   for j in range(self.B)]
+            cache[sparse] = {k: np.stack([d[k] for d in per])
+                             for k in per[0]}
+        return cache[sparse]
+
+
+def bucket_graphs(pgs, *, round_pow2: bool = True) -> list:
+    """Group partitioned graphs into shape buckets for batched execution.
+
+    Bucket key: ``(P, halo, n_local_max, maxd, maxd2)``, the size-like
+    dims rounded up to the next power of two (``round_pow2=True``) so
+    near-sized graphs share a bucket; ``round_pow2=False`` groups only
+    exactly matching dims.  Every member is re-padded (``pad_partition``)
+    to the bucket's dims; ``max_ghost``/``max_boundary``/``m_local_max``
+    take the member max (pow2-rounded by default).  Returns ``GraphBucket``
+    objects covering the input exactly, in key order.
+    """
+    rnd = _ceil_pow2 if round_pow2 else int
+    groups: dict[tuple, list[int]] = {}
+    for i, pg in enumerate(pgs):
+        key = (pg.P, pg.halo, rnd(pg.n_local_max), rnd(pg.maxd),
+               rnd(pg.maxd2) if pg.halo == 2 else 0)
+        groups.setdefault(key, []).append(i)
+    buckets = []
+    for key in sorted(groups):
+        idx = groups[key]
+        mem = [pgs[i] for i in idx]
+        members = tuple(pad_partition(
+            m, n_local_max=key[2], maxd=key[3],
+            maxd2=key[4] if key[1] == 2 else 0,
+            max_ghost=rnd(max(x.max_ghost for x in mem)),
+            max_boundary=rnd(max(x.max_boundary for x in mem)),
+            m_local_max=rnd(max(x.m_local_max for x in mem))) for m in mem)
+        buckets.append(GraphBucket(indices=tuple(idx), members=members))
+    return buckets
+
+
 # --------------------------------------------------------- host -> device --
 
 def arrays_from_numpy(arrs: dict, device) -> dict[str, torch.Tensor]:
@@ -561,6 +813,37 @@ def to_device(pg: PartitionedGraph, device, *,
               sparse: bool = True) -> dict[str, torch.Tensor]:
     """The device dict of ``pg`` (``sparse=False`` skips the comm plan)."""
     return arrays_from_numpy(pg.arrays(sparse=sparse), device)
+
+
+def bucket_to_device(bucket: GraphBucket, device, *, sparse: bool = True,
+                     n_lanes: int | None = None) -> dict[str, torch.Tensor]:
+    """The lane-batched device dict of ``bucket``: every array ``(L·P, …)``,
+    lane ``l`` holding member ``l``'s shards (lanes past ``bucket.B`` repeat
+    member 0; ``n_lanes`` defaults to ``B``).  Each member's arrays are
+    copied straight into their lane's rows (no stacked host copy), and
+    the dict is cached on the bucket instance per ``(sparse, n_lanes,
+    device)``: a bucket colored again does not copy its arrays again."""
+    n_lanes = bucket.B if n_lanes is None else int(n_lanes)
+    if n_lanes < bucket.B:
+        raise ValueError(f"{n_lanes} lanes cannot hold {bucket.B} members")
+    device = torch.device(device)
+    cache = bucket.__dict__.setdefault("_device_arrays", {})
+    key = (sparse, n_lanes, str(device))
+    if key not in cache:
+        P = bucket.P
+        out = {}
+        for j in range(bucket.B):
+            for k, v in bucket.member_arrays(j, sparse=sparse).items():
+                v = torch.from_numpy(np.ascontiguousarray(v))
+                if k not in out:
+                    out[k] = torch.empty((n_lanes * P,) + v.shape[1:],
+                                         dtype=v.dtype, device=device)
+                out[k][j * P:(j + 1) * P].copy_(v)
+        for t in out.values():
+            for j in range(bucket.B, n_lanes):
+                t[j * P:(j + 1) * P].copy_(t[:P])
+        cache[key] = out
+    return cache[key]
 
 
 def view_from_numpy(view, device) -> torch.Tensor:

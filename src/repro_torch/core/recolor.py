@@ -16,7 +16,14 @@ schedule is refined per ring-shift round.
 
 The schedule (the class count, chunks per class and exchange events) is
 computed on the device and read to the host once per iteration; the chunk
-loop then runs with host-known bounds and exchange decisions.  Class
+loop then runs with host-known bounds and exchange decisions.
+
+A batch of L same-shape graphs (lanes, laid end to end on the shard axis:
+``color_many``'s buckets) runs one iteration together: each lane has its
+own class sizes, rank, class count, chunk counts (``class_chunks`` ``(L,
+n_cls)``) and exchange events; the launches split at the union of the
+lanes' events, and each event exchanges only its own lanes.  Classes past
+a lane's class count, and chunks past a shard's class size, color nothing.  Class
 permutations: RV, NI, ND and RAND (``rng.permutation``), and the
 ND-RAND%x / ND-RAND%2^i schedules of ``recolor_iterations``.
 
@@ -37,14 +44,15 @@ from __future__ import annotations
 import dataclasses
 import itertools
 
+import numpy as np
 import torch
 
 from repro_torch import rng
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import take_rows
 
 from .comm import (AUTO, DEFAULT_SCHEME, SCHEME_CHOICES, SPARSE, AxisComm,
-                   CommConfig, make_exchange, sparse_rounds, stats_to_host,
-                   take_rows)
+                   CommConfig, make_exchange, sparse_rounds)
 from .graph import PartitionedGraph, to_device
 from .speculative import (ColorConfig, color_shards, require_halo,
                           resolve_cfg, resolve_device, validate_color_bounds)
@@ -101,34 +109,42 @@ class RecolorConfig:
         return CommConfig(scheme=self.scheme, wire16=self.wire16)
 
 
-def class_sizes(view, n_local, n_local_max: int, max_colors: int):
+def class_sizes(view, n_local, n_local_max: int, max_colors: int,
+                lanes: int | None = None):
     """Global color-class sizes ``(max_colors,)`` and the count of local
     colors outside ``[0, max_colors)`` (masked out of the sizes), both on
-    the device.  Class 0 (uncolored) counts 0."""
+    the device.  Class 0 (uncolored) counts 0.  With ``lanes=L`` the view
+    holds L graphs of ``P / L`` shards each, and the results are ``(L,
+    max_colors)`` and ``(L,)``: one row per graph."""
+    L = 1 if lanes is None else lanes
+    comm = AxisComm(view.shape[0] // L, L)
+    mc = max_colors
     raw = view[:, :n_local_max]
     valid = (torch.arange(n_local_max, device=view.device)
              < n_local[:, None])
-    in_range = (raw >= 0) & (raw < max_colors)
-    oor = AxisComm.psum((valid & ~in_range).sum(dim=1))
+    in_range = (raw >= 0) & (raw < mc)
+    oor = comm.psum((valid & ~in_range).sum(dim=1))
     counted = valid & in_range
-    sizes = torch.zeros(max_colors, dtype=torch.int64, device=view.device)
-    sizes.scatter_add_(0, torch.where(counted, raw, 0).reshape(-1).long(),
-                       counted.reshape(-1).long())
-    sizes[0] = 0
-    return sizes, oor
+    idx = comm.lane(view.device)[:, None] * mc + torch.where(counted, raw, 0)
+    sizes = torch.zeros(L * mc, dtype=torch.int64, device=view.device)
+    sizes.scatter_add_(0, idx.reshape(-1), counted.reshape(-1).long())
+    sizes = sizes.view(L, mc)
+    sizes[:, 0] = 0
+    return (sizes[0], oor[0]) if lanes is None else (sizes, oor)
 
 
 def permutation_rank(sizes, kind: str, key=None) -> torch.Tensor:
     """rank[c] = recoloring step (1-based) of color class c; 0 for absent
     classes and class 0.  Ties break by color id; empty classes sort last.
     RAND ranks by ``rng.permutation(key, max_colors)`` (one key for all
-    shards: the rank is global).
+    shards: the rank is global).  ``sizes`` ``(..., max_colors)`` with keys
+    ``(..., 2)``: one rank per graph of a batch.
     """
-    mc = sizes.shape[0]
+    mc = sizes.shape[-1]
     colors = torch.arange(mc, device=sizes.device)
     present = (sizes > 0) & (colors > 0)
     if kind == RV:
-        key_v = -colors
+        key_v = (-colors).expand(sizes.shape)
     elif kind == NI:
         key_v = -sizes
     elif kind == ND:
@@ -140,9 +156,10 @@ def permutation_rank(sizes, kind: str, key=None) -> torch.Tensor:
     else:
         raise ValueError(f"unknown permutation {kind!r}")
     key_v = torch.where(present, key_v, INT32_MAX)
-    order = torch.argsort(key_v, stable=True)      # stable: color tie-break
-    rank = torch.zeros(mc, dtype=torch.int64, device=sizes.device)
-    rank[order] = torch.arange(1, mc + 1, device=sizes.device)
+    order = torch.argsort(key_v, dim=-1, stable=True)  # stable: color tie-break
+    rank = torch.zeros(sizes.shape, dtype=torch.int64, device=sizes.device)
+    rank.scatter_(-1, order, torch.arange(
+        1, mc + 1, device=sizes.device).expand(sizes.shape))
     return torch.where(present, rank, 0)
 
 
@@ -193,146 +210,191 @@ def _dep_sources(step_of, arrs, n_local_max: int, distance: int):
 
 
 def _needed_exchanges(step_of, arrs, n_local_max: int, n_classes,
-                      max_colors: int, piggyback: bool, distance: int = 1):
-    """The piggybacking schedule: needed[t] = exchange event after step t.
-    Entry ``max_colors`` is the end-of-iteration exchange (always on)."""
+                      max_colors: int, piggyback: bool, comm: AxisComm,
+                      distance: int = 1):
+    """The piggybacking schedule per lane: needed[l, t] = exchange event
+    after step t.  Entry ``max_colors`` is the end-of-iteration exchange
+    (always on)."""
     dev = step_of.device
+    L = comm.L
     if piggyback:
-        # OR over all shards' dependencies; non-dependencies write to a
+        # OR over each lane's dependencies; non-dependencies write to a
         # spare last entry (no mask indexing: it would sync the device)
-        needed = torch.zeros(max_colors + 2, dtype=torch.bool, device=dev)
+        needed = torch.zeros((L, max_colors + 2), dtype=torch.bool,
+                             device=dev)
+        lane = comm.lane(dev)[:, None]
         for dep, s_v, _ in _dep_sources(step_of, arrs, n_local_max,
                                         distance):
-            needed[torch.where(dep, s_v - 1, max_colors + 1)] = True
-        needed = needed[:max_colors + 1]
-        needed[0] = False
+            needed[lane.expand(dep.shape),
+                   torch.where(dep, s_v - 1, max_colors + 1)] = True
+        needed = needed[:, :max_colors + 1]
+        needed[:, 0] = False
     else:
-        needed = torch.arange(max_colors + 1, device=dev) <= n_classes
-    needed[max_colors] = True
+        needed = (torch.arange(max_colors + 1, device=dev)[None]
+                  <= n_classes[:, None])
+    needed[:, max_colors] = True
     return needed
 
 
 def _needed_exchange_rounds(step_of, arrs, n_local_max: int, n_classes,
                             max_colors: int, piggyback: bool,
-                            n_rounds: int, distance: int = 1):
-    """Sparse piggybacking: needed[t, r] = ring-shift round r after step t
-    (each dependency marks only its writer's round).  Row ``max_colors``
-    runs every round."""
+                            n_rounds: int, comm: AxisComm,
+                            distance: int = 1):
+    """Sparse piggybacking per lane: needed[l, t, r] = ring-shift round r
+    after step t (each dependency marks only its writer's round).  Row
+    ``max_colors`` runs every round."""
     dev = step_of.device
-    P = step_of.shape[0]
+    P, L = comm.P, comm.L
     if piggyback:
-        needed = torch.zeros((max_colors + 2, max(n_rounds, 1)),
+        needed = torch.zeros((L, max_colors + 2, max(n_rounds, 1)),
                              dtype=torch.bool, device=dev)
-        p = torch.arange(P, device=dev)[:, None]
+        p = comm.index(dev)[:, None]
+        lane = comm.lane(dev)[:, None]
         for dep, s_v, gi in _dep_sources(step_of, arrs, n_local_max,
                                          distance):
             shift = (p - take_rows(arrs["ghost_owner"], gi).long()) % P
             rnd = take_rows(arrs["shift_to_round"], shift)
-            needed[torch.where(dep, s_v - 1, max_colors + 1),
+            needed[lane.expand(dep.shape),
+                   torch.where(dep, s_v - 1, max_colors + 1),
                    torch.where(dep, rnd, 0).long()] = True
-        needed = needed[:max_colors + 1, :n_rounds]
-        needed[0] = False
+        needed = needed[:, :max_colors + 1, :n_rounds]
+        needed[:, 0] = False
     else:
-        needed = (torch.arange(max_colors + 1, device=dev)
-                  <= n_classes)[:, None].expand(max_colors + 1,
-                                                n_rounds).clone()
-    needed[max_colors] = True
+        needed = (torch.arange(max_colors + 1, device=dev)[None]
+                  <= n_classes[:, None])[:, :, None].expand(
+                      L, max_colors + 1, n_rounds).clone()
+    needed[:, max_colors] = True
     return needed
 
 
 @dataclasses.dataclass
 class _Schedule:
-    """One iteration's chunk schedule: the host part (class count and
-    exchange events) and the device part (int32) the chunk runs read."""
+    """One iteration's chunk schedule for L lanes: the host part (class
+    counts and exchange events) and the device part (int32) the chunk runs
+    read."""
 
-    n_classes: int
-    needed: list         # exchange event after step t (entry mc = end)
-    needed_rounds: list | None   # sparse: rounds of each event
-    sorted_pad: torch.Tensor     # (P, n_local_max + chunk) step-sorted rows
-    start_local: torch.Tensor    # (P, mc + 1) first sorted position of t
-    local_sizes: torch.Tensor    # (P, mc + 1) rows of class t per shard
-    class_chunks: torch.Tensor   # (mc + 1,) chunks of class t (all shards)
+    n_classes: list              # per lane
+    needed: np.ndarray           # (L, mc + 1) event after step t (mc = end)
+    needed_rounds: np.ndarray | None  # (L, mc + 1, R) sparse: its rounds
+    sorted_pad: torch.Tensor     # (L·P, n_local_max + chunk) step-sorted rows
+    start_local: torch.Tensor    # (L·P, mc + 1) first sorted position of t
+    local_sizes: torch.Tensor    # (L·P, mc + 1) rows of class t per shard
+    class_chunks: torch.Tensor   # (L, mc + 1) chunks of class t per lane
+
+    def events(self, lane: int) -> list:
+        """The steps after which ``lane`` exchanges: its needed events up to
+        its class count, and its last class."""
+        n = self.n_classes[lane]
+        ts = (np.flatnonzero(self.needed[lane, 1:n + 1]) + 1).tolist()
+        return ts if not n or ts[-1:] == [n] else ts + [n]
 
 
 def recolor_schedule(arrs, view, rank, n_classes, cfg: RecolorConfig,
                      n_rounds: int) -> _Schedule:
     """Step map, piggyback events and per-class chunk schedule of one
-    iteration; ends with its one device->host read."""
+    iteration; ends with its one device->host read.
+
+    ``rank`` ``(L, max_colors)`` and ``n_classes`` ``(L,)`` give L lanes
+    (the view holds their ``L·P`` shards).  A one-graph call passes
+    ``(max_colors,)`` and a scalar, and gets a schedule with a python-int
+    class count, ``(mc + 1,)`` event rows and ``(mc + 1,)`` chunk counts.
+    """
+    sched = _lane_schedule(arrs, view, rank.reshape(-1, rank.shape[-1]),
+                           n_classes.reshape(-1), cfg, n_rounds)
+    return sched if rank.dim() == 2 else dataclasses.replace(
+        sched, n_classes=sched.n_classes[0], needed=sched.needed[0],
+        needed_rounds=(None if sched.needed_rounds is None
+                       else sched.needed_rounds[0]),
+        class_chunks=sched.class_chunks[0])
+
+
+def _lane_schedule(arrs, view, rank, n_classes, cfg: RecolorConfig,
+                   n_rounds: int) -> _Schedule:
+    """``recolor_schedule`` of ``(L, max_colors)`` ranks."""
     require_halo(arrs, cfg.distance)
-    P, n_slots = view.shape
+    L = rank.shape[0]
+    LP, n_slots = view.shape
+    comm = AxisComm(LP // L, L)
     n_local_max = arrs["indptr"].shape[1] - 1
     mc = cfg.max_colors
     chunk = min(cfg.chunk, n_local_max)
     dev = view.device
-    step_of = rank[view.long().clamp(0, mc - 1)]
+    step_of = comm.per_shard(rank).gather(1, view.long().clamp(0, mc - 1))
     step_of[:, n_slots - 1] = 0                        # sentinel
     if cfg.scheme == SPARSE:
         needed_rounds = _needed_exchange_rounds(
             step_of, arrs, n_local_max, n_classes, mc, cfg.piggyback,
-            n_rounds, cfg.distance)
-        needed = needed_rounds.any(dim=1)
-        needed[mc] = True
+            n_rounds, comm, cfg.distance)
+        needed = needed_rounds.any(dim=2)
+        needed[:, mc] = True
     else:
         needed_rounds = None
         needed = _needed_exchanges(step_of, arrs, n_local_max, n_classes, mc,
-                                   cfg.piggyback, cfg.distance)
+                                   cfg.piggyback, comm, cfg.distance)
 
     valid_local = (torch.arange(n_local_max, device=dev)
                    < arrs["n_local"][:, None])
     sort_key = torch.where(valid_local, step_of[:, :n_local_max], mc + 1)
     sorted_rows = torch.argsort(sort_key, dim=1, stable=True)
     sorted_pad = torch.cat(
-        [sorted_rows, torch.zeros((P, chunk), dtype=torch.int64, device=dev)],
-        dim=1)
-    local_sizes = torch.zeros((P, mc + 2), dtype=torch.int64, device=dev)
+        [sorted_rows, torch.zeros((LP, chunk), dtype=torch.int64,
+                                  device=dev)], dim=1)
+    local_sizes = torch.zeros((LP, mc + 2), dtype=torch.int64, device=dev)
     local_sizes.scatter_add_(1, sort_key, torch.ones_like(sort_key))
     local_sizes = local_sizes[:, :mc + 1]
     start_local = local_sizes.cumsum(dim=1) - local_sizes
-    max_sizes = AxisComm.pmax(local_sizes)
+    max_sizes = comm.pmax(local_sizes)
     t = torch.arange(mc + 1, device=dev)
-    per_class = torch.where((t >= 1) & (t <= n_classes),
+    per_class = torch.where((t >= 1) & (t <= n_classes[:, None]),
                             (-(-max_sizes // chunk)).clamp(min=1), 0)
 
-    parts = [n_classes.reshape(1).long(), needed.long()]
+    parts = [n_classes.reshape(-1).long(), needed.reshape(-1).long()]
     if needed_rounds is not None:
         parts.append(needed_rounds.reshape(-1).long())
-    host = torch.cat(parts).tolist()                   # the one read
+    host = torch.cat(parts).cpu().numpy()              # the one read
     k = mc + 1
     rounds = None
     if needed_rounds is not None:
-        flat = host[1 + k:]
-        rounds = [flat[i * n_rounds:(i + 1) * n_rounds] for i in range(k)]
+        rounds = host[L + L * k:].reshape(L, k, n_rounds).astype(bool)
     i32 = lambda a: a.to(torch.int32)
-    return _Schedule(n_classes=host[0], needed=host[1:1 + k],
+    return _Schedule(n_classes=host[:L].tolist(),
+                     needed=host[L:L + L * k].reshape(L, k).astype(bool),
                      needed_rounds=rounds, sorted_pad=i32(sorted_pad),
                      start_local=i32(start_local),
                      local_sizes=i32(local_sizes),
                      class_chunks=i32(per_class))
 
 
-def recolor_steps(arrs, sched: _Schedule, exchange, cfg: RecolorConfig):
-    """The chunked step loop of one iteration over a host-known schedule.
+def recolor_steps(arrs, sched: _Schedule, exchange, cfg: RecolorConfig,
+                  lanes_on=None):
+    """The chunked step loop of one iteration over a host-known schedule,
+    for the L lanes of ``sched`` (``lanes_on``: host bools, ``None`` =
+    all; a lane that is off takes no exchange and gets no stats — its
+    chunk counts should be 0, so it colors nothing).
 
-    Returns ``(new_view, stats)``: ``n_colors`` as a device scalar,
-    ``n_colors_before``/``n_steps`` (the class count), ``n_exchanges`` and
-    ``wire_bytes`` as python ints.
+    Returns ``(new_view, stats)``: ``n_colors`` as an ``(L,)`` device
+    tensor, and per lane (python-int lists) ``n_colors_before``/``n_steps``
+    (the class count), ``n_exchanges`` and ``wire_bytes``.
     """
-    P, n_slots = arrs["prio"].shape
+    L = len(sched.n_classes)
+    LP, n_slots = arrs["prio"].shape
+    comm = AxisComm(LP // L, L)
     n_local_max = arrs["indptr"].shape[1] - 1
     mc = cfg.max_colors
     dev = sched.sorted_pad.device
     kw = dict(chunk=min(cfg.chunk, n_local_max), max_colors=mc,
               backend=cfg.backend)
-    new_view = torch.zeros((P, n_slots), dtype=torch.int32, device=dev)
-    n_ex = n_bytes = 0
-    n_classes = sched.n_classes
+    new_view = torch.zeros((LP, n_slots), dtype=torch.int32, device=dev)
+    n_ex, n_bytes = [0] * L, [0] * L
+    events: dict[int, list] = {}
+    for lane in range(L):
+        if lanes_on is None or lanes_on[lane]:
+            for t in sched.events(lane):
+                events.setdefault(t, [False] * L)[lane] = True
     sched_args = (sched.sorted_pad, sched.start_local, sched.local_sizes,
                   sched.class_chunks)
     first = 1
-    for t in range(1, n_classes + 1):
-        is_end = t == n_classes
-        if not (sched.needed[t] or is_end):
-            continue
+    for t, due in sorted(events.items()):
         # classes first … t in one run: no exchange falls between them
         if cfg.distance == 2:
             new_view = ops.recolor_run_d2(
@@ -342,19 +404,24 @@ def recolor_steps(arrs, sched: _Schedule, exchange, cfg: RecolorConfig):
             new_view = ops.recolor_run(new_view, arrs["nbr"], *sched_args,
                                        first_class=first, last_class=t, **kw)
         first = t + 1
-        mask = None
-        if sched.needed_rounds is not None and not is_end:
-            mask = sched.needed_rounds[t]
-        new_view, b = exchange(new_view, mask)
-        n_ex, n_bytes = n_ex + 1, n_bytes + b
+        rounds = None
+        if sched.needed_rounds is not None:
+            rounds = [None if t == sched.n_classes[lane]
+                      else sched.needed_rounds[lane, t] for lane in range(L)]
+        new_view, b = exchange(new_view, lanes=due, rounds=rounds)
+        for lane in range(L):
+            if due[lane]:
+                n_ex[lane] += 1
+                n_bytes[lane] += b[lane]
 
     valid_local = (torch.arange(n_local_max, device=dev)
                    < arrs["n_local"][:, None])
+    local = torch.where(valid_local, new_view[:, :n_local_max], 0)
     stats = dict(
-        n_colors=torch.where(valid_local, new_view[:, :n_local_max], 0).max(),
-        n_colors_before=n_classes,
+        n_colors=comm.pmax(local.amax(dim=1)),
+        n_colors_before=list(sched.n_classes),
         n_exchanges=n_ex,
-        n_steps=n_classes,
+        n_steps=list(sched.n_classes),
         wire_bytes=n_bytes,
     )
     return new_view, stats
@@ -375,18 +442,22 @@ def recolor_shards(arrs: dict, view: torch.Tensor, perm_kind: str,
                          "(resolve_cfg) before the run")
     n_local_max = arrs["indptr"].shape[1] - 1
     sizes, n_oor = class_sizes(view, arrs["n_local"], n_local_max,
-                               cfg.max_colors)
-    n_classes = (sizes > 0).sum()
-    rank = permutation_rank(sizes, perm_kind, key)
+                               cfg.max_colors, lanes=1)
+    n_classes = (sizes > 0).sum(dim=1)
+    rank = permutation_rank(sizes, perm_kind,
+                            None if key is None else key.reshape(1, 2))
     exchange = make_exchange(arrs, cfg.comm_config)
     sched = recolor_schedule(arrs, view, rank, n_classes, cfg,
                              sparse_rounds(arrs))
-    new_view, stats = recolor_steps(arrs, sched, exchange, cfg)
+    new_view, st = recolor_steps(arrs, sched, exchange, cfg)
     sizes_after, _ = class_sizes(new_view, arrs["n_local"], n_local_max,
-                                 cfg.max_colors)
-    stats["n_colors_distinct"] = (sizes_after > 0).sum()
-    stats["n_out_of_range"] = n_oor
-    return new_view, stats_to_host(stats)
+                                 cfg.max_colors, lanes=1)
+    dev = torch.stack([st["n_colors"][0].long(), (sizes_after > 0).sum(),
+                       n_oor[0].long()]).tolist()
+    stats = {k: v[0] for k, v in st.items() if k != "n_colors"}
+    stats.update(n_colors=dev[0], n_colors_distinct=dev[1],
+                 n_out_of_range=dev[2])
+    return new_view, stats
 
 
 def recolor_sim(pg: PartitionedGraph, view, perm_kind: str,

@@ -1,5 +1,6 @@
-"""Graph generators: numpy copies of ``repro.core.rmat``'s RMAT family and
-its 2D/3D stencil grids.
+"""Graph generators: numpy copies of ``repro.core.rmat``'s RMAT family, its
+2D/3D stencil grids, its random and random geometric graphs, and the
+evaluation suites ``SUITE_REAL`` / ``SUITE_RMAT``.
 
 The paper (§4.1) evaluates three RMAT classes: RMAT-ER (0.25,0.25,0.25,0.25),
 RMAT-Good (0.45,0.15,0.15,0.25) and RMAT-Bad (0.55,0.15,0.15,0.15); the
@@ -108,3 +109,81 @@ def grid3d(nx: int, ny: int, nz: int) -> Graph:
                              + nk).ravel()[ok.ravel()])
     return _edges_to_graph(n, np.concatenate(srcs).astype(np.int32),
                            np.concatenate(dsts).astype(np.int32))
+
+
+def random_regular_ish(n: int, deg: int, seed: int = 0) -> Graph:
+    """Erdős–Rényi-flavoured graph with ~deg average degree."""
+    rng = np.random.default_rng(seed)
+    m = n * deg // 2
+    src = rng.integers(0, n, m, dtype=np.int64).astype(np.int32)
+    dst = rng.integers(0, n, m, dtype=np.int64).astype(np.int32)
+    return _edges_to_graph(n, src, dst)
+
+
+def geometric(n: int, avg_deg: float = 24.0, seed: int = 0,
+              dims: int = 2) -> Graph:
+    """Random geometric (unit-disk) graph — the closest synthetic analogue of
+    the paper's FE meshes: local cliques, 30–50 greedy colors, orderings and
+    class permutations matter. Built with cell-binned neighbour join."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, dims))
+    # radius for expected degree: deg = n * V_d * r^d
+    vd = np.pi if dims == 2 else 4.0 / 3.0 * np.pi
+    r = (avg_deg / (n * vd)) ** (1.0 / dims)
+    cell = r
+    grid_n = max(int(1.0 / cell), 1)
+    cid = np.minimum((pts / cell).astype(np.int64), grid_n - 1)
+    # the cell key is packed in int64: it must not wrap int32
+    key = cid[:, 0].astype(np.int64) * grid_n + cid[:, 1] if dims == 2 else (
+        (cid[:, 0].astype(np.int64) * grid_n + cid[:, 1]) * grid_n
+        + cid[:, 2])
+    order = np.argsort(key)
+    srcs, dsts = [], []
+    offsets = ([(i, j) for i in (-1, 0, 1) for j in (-1, 0, 1)] if dims == 2
+               else [(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
+                     for k in (-1, 0, 1)])
+    # bucket index: key -> member ids
+    skey = key[order]
+    starts = np.searchsorted(skey, np.arange(grid_n ** dims))
+    ends = np.searchsorted(skey, np.arange(grid_n ** dims), side="right")
+
+    def members(c):
+        k = int(c[0]) * grid_n + int(c[1]) if dims == 2 else (
+            (int(c[0]) * grid_n + int(c[1])) * grid_n + int(c[2]))
+        return order[starts[k]:ends[k]]
+
+    for cx in range(grid_n):
+        for cy in range(grid_n):
+            cells = [(cx, cy)] if dims == 2 else [
+                (cx, cy, cz) for cz in range(grid_n)]
+            for base in cells:
+                a = members(base)
+                if len(a) == 0:
+                    continue
+                neigh = []
+                for off in offsets:
+                    c2 = tuple(b + o for b, o in zip(base, off))
+                    if all(0 <= v < grid_n for v in c2):
+                        neigh.append(members(c2))
+                b = np.concatenate(neigh)
+                d2 = ((pts[a][:, None, :] - pts[b][None, :, :]) ** 2).sum(-1)
+                ii, jj = np.nonzero(d2 <= r * r)
+                srcs.append(a[ii])
+                dsts.append(b[jj])
+    return _edges_to_graph(n, np.concatenate(srcs).astype(np.int32),
+                           np.concatenate(dsts).astype(np.int32))
+
+
+# The paper's evaluation suite at a reduced scale. Keys mirror its Tables 1/2.
+SUITE_REAL = {
+    # name -> constructor (FE-style stand-ins for the UF/Parasol graphs)
+    "grid2d_9pt": lambda: grid2d(256, 256, 9),
+    "grid3d_27pt": lambda: grid3d(32, 32, 32),
+    "geo2d": lambda: geometric(1 << 15, 28, seed=3),
+    "geo3d": lambda: geometric(1 << 14, 36, seed=4, dims=3),
+}
+SUITE_RMAT = {
+    "rmat_er": lambda: rmat_er(14, 8, seed=1),
+    "rmat_good": lambda: rmat_good(14, 8, seed=1),
+    "rmat_bad": lambda: rmat_bad(14, 8, seed=1),
+}

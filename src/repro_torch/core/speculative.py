@@ -21,6 +21,21 @@ conflict count and final-exchange flag travel together.  Every superstep
 up to the next boundary exchange is one call of ``ops.select_run``, which
 colors its tiles in order (one kernel launch on the card).
 
+A batch of L same-shape graphs (lanes, ``color_lanes``; ``color_many``'s
+buckets) runs as one ``(L·P, …)`` batch of shards, as the reference runs
+``color_spmd`` under a second ``vmap``: the rounds go in lockstep (one
+round index for all lanes), and each lane keeps its own control flow — a
+lane takes part in a round while its previous round found conflicts, and
+has its own frontier, superstep count, boundary flags, exchange points and
+final exchange, all read in the round's one device read.  The launches of
+a round split at the union of the lanes' run boundaries: a run cut at
+another lane's exchange point colors the same, since the kernels color in
+order, and positions past a lane's own frontier hold colored vertices, so
+they color nothing.  A lane stops with an empty frontier (every vertex of
+its order colored) or at the round cap, which all lanes share, so a
+stopped lane is never colored again.  Exchanges refresh only the due
+lanes' ghosts (``comm.FlatExchange``).
+
 Sequential mode (``parallel_chunk=False``, the paper's scalar loop, and
 every Least-Used run): the same rounds, runs and exchanges, but each run
 is one call of ``ops.greedy_run``, which colors one vertex at a time per
@@ -45,10 +60,10 @@ import torch
 
 from repro_torch import rng
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import take_rows
 
 from .comm import (AUTO, DEFAULT_SCHEME, SCHEME_CHOICES, SPARSE, AxisComm,
-                   CommConfig, make_exchange, resolve_scheme, stats_to_host,
-                   take_rows)
+                   CommConfig, make_exchange, resolve_scheme)
 from .graph import PartitionedGraph, to_device
 
 
@@ -156,7 +171,7 @@ def _color_supersteps(view, usage, order_pad, rand, arrs, offset,
 
 def _detect_conflicts_frontier(view, arrs, order_pad, n_steps: int, n_need,
                                superstep: int, backend: str = "auto",
-                               distance: int = 1):
+                               distance: int = 1, lanes: int = 1):
     """Uncolor the lower-priority endpoint of every same-color frontier edge.
 
     Only the ``n_need`` vertices colored this round (the first ``n_steps``
@@ -165,9 +180,10 @@ def _detect_conflicts_frontier(view, arrs, order_pad, n_steps: int, n_need,
     call (one kernel launch on the card).  ``distance=2`` also scans the
     two-hop ELL rows (both endpoints of a distance-2 conflict list each
     other in ``nbr2``).  Returns (new_view, n_conflicts,
-    any_boundary_conflict) — the last two as device scalars.
+    any_boundary_conflict) — the last two as ``(lanes,)`` device tensors.
     """
-    kw = dict(n_steps=n_steps, superstep=superstep, backend=backend)
+    kw = dict(n_steps=n_steps, superstep=superstep, lanes=lanes,
+              backend=backend)
     common = (view, arrs["prio"], arrs["is_internal"], order_pad)
     if distance == 2:
         return ops.detect_conflicts_frontier_d2(
@@ -184,79 +200,176 @@ def _compact_order(order, view):
     return order.gather(1, perm), needs.sum(dim=1)
 
 
-def _speculate(arrs: dict, order: torch.Tensor, key: torch.Tensor,
-               cfg: ColorConfig, exchange):
-    """The speculate/repair round loop; returns (view, n_rounds,
-    n_exchanges, wire_bytes)."""
-    P, n_slots = arrs["prio"].shape
+def _round_plan(n_steps: list, chunk_bnd: list, exchange_every: int):
+    """One round's launches and exchanges for every lane.
+
+    ``n_steps[l]`` is lane l's superstep count (0 when it sits the round
+    out) and ``chunk_bnd[l]`` its per-chunk boundary flags.  Lane l
+    exchanges after superstep si when it is due (every
+    ``exchange_every``-th, and its last) and a boundary vertex was colored
+    since its last exchange.  Returns ``[(si, due lanes)]``: each entry
+    ends a launch after superstep si — the union of every lane's exchange
+    points and last supersteps — and exchanges the lanes marked due.
+    """
+    points: dict[int, list] = {}
+    L = len(n_steps)
+    for lane, (n, flags) in enumerate(zip(n_steps, chunk_bnd)):
+        pending = False
+        for si in range(n):
+            pending = pending or bool(flags[si])
+            due = (si + 1) % exchange_every == 0 or si == n - 1
+            if (due and pending) or si == n - 1:
+                points.setdefault(si, [False] * L)
+            if due and pending:
+                points[si][lane] = True
+                pending = False
+    return sorted(points.items())
+
+
+def _speculate(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
+               cfg: ColorConfig, exchange, comm: AxisComm):
+    """The speculate/repair round loop of ``comm.L`` lanes; returns (view,
+    and per lane: n_rounds, n_exchanges, wire_bytes)."""
+    P, L = comm.P, comm.L
+    n_slots = arrs["prio"].shape[1]
     n_local_max = arrs["indptr"].shape[1] - 1
     dev = order.device
-    comm = AxisComm(P)
     # the superstep clamps to the shard's row count: bitwise-identical, and
     # small graphs stop gathering pure padding
     S = min(cfg.superstep, n_local_max)
     n_chunks_max = -(-n_local_max // S)
-    view = torch.zeros((P, n_slots), dtype=torch.int32, device=dev)
+    view = torch.zeros((L * P, n_slots), dtype=torch.int32, device=dev)
     # colors handed out per shard, never decremented (the sequential mode)
-    usage = (None if cfg.use_parallel_chunk else
-             torch.zeros((P, cfg.max_colors), dtype=torch.int32, device=dev))
+    usage = (None if cfg.use_parallel_chunk else torch.zeros(
+        (L * P, cfg.max_colors), dtype=torch.int32, device=dev))
+    shard_ids = comm.index(dev)
     offset = None
     if cfg.selection == ops.STAGGERED:
-        offset = cfg.stagger_offset(comm.index(dev)).to(torch.int32)[:, None]
-    shard_ids = comm.index(dev)
+        offset = cfg.stagger_offset(shard_ids).to(torch.int32)[:, None]
     pos = torch.arange(n_chunks_max * S, device=dev)
+    # every round's Random-X key of every shard, fold_in(fold_in(key, rnd),
+    # shard), derived at once: (L·P, max_rounds, 2)
+    round_keys = rng.fold_in(
+        rng.fold_in(keys[:, None, :],
+                    torch.arange(cfg.max_rounds, device=dev))[:, None],
+        shard_ids.view(L, P, 1)).reshape(L * P, cfg.max_rounds, 2)
 
-    rnd = n_rounds = n_ex = n_bytes = 0
-    n_conf = torch.ones((), dtype=torch.int64, device=dev)   # round 0 runs
-    do_final = torch.zeros((), dtype=torch.int64, device=dev)
+    rnd = 0
+    n_rounds, n_ex, n_bytes = [0] * L, [0] * L, [0] * L
+    n_conf = torch.ones(L, dtype=torch.int64, device=dev)   # round 0 runs
+    do_final = torch.zeros(L, dtype=torch.bool, device=dev)
+
+    def run_exchange(due):
+        nonlocal view
+        view, b = exchange(view, lanes=due)
+        for lane in range(L):
+            if due[lane]:
+                n_ex[lane] += 1
+                n_bytes[lane] += b[lane]
+
     while True:
         order_r, n_need = _compact_order(order, view)
         order_pad = torch.cat(
-            [order_r, torch.full((P, S), -1, dtype=order_r.dtype, device=dev)],
-            dim=1)
-        # which superstep chunks color a boundary vertex on any shard: the
-        # exchanges the others would trigger are elided (ghosts cannot move)
+            [order_r, torch.full((L * P, S), -1, dtype=order_r.dtype,
+                                 device=dev)], dim=1)
+        # which superstep chunks color a boundary vertex on any shard of
+        # the lane: the exchanges the others would trigger are elided
+        # (ghosts cannot move)
         opad = order_pad[:, :n_chunks_max * S]
         bnd = ((opad >= 0) & (pos < n_need[:, None])
                & ~take_rows(arrs["is_internal"], opad.clamp(min=0)))
-        chunk_bnd = comm.pmax(bnd.reshape(P, n_chunks_max, S).any(dim=2))
-        # the round's one device->host read
-        head = torch.stack([n_conf, do_final.long(), comm.pmax(n_need).long()])
-        host = torch.cat([head, chunk_bnd.long()]).tolist()
-        conf_prev, final_prev, n_need_max = host[:3]
-        chunk_bnd_h = host[3:]
-        if final_prev:     # publish the previous round's uncolorings
-            view, b = exchange(view)
-            n_ex, n_bytes = n_ex + 1, n_bytes + b
-        if not (conf_prev > 0 and rnd < cfg.max_rounds):
+        chunk_bnd = comm.pmax(bnd.reshape(L * P, n_chunks_max, S).any(dim=2))
+        # the round's one device->host read, one row per lane
+        head = torch.stack([n_conf, do_final.long(),
+                            comm.pmax(n_need).long()], dim=1)
+        host = torch.cat([head, chunk_bnd.long()], dim=1).tolist()
+        final = [bool(h[1]) for h in host]
+        if any(final):     # publish the previous round's uncolorings
+            run_exchange(final)
+        active = [h[0] > 0 and rnd < cfg.max_rounds for h in host]
+        if not any(active):
             break
-        n_rounds += 1
-        n_steps = -(-n_need_max // S)
-        rkeys = rng.fold_in(rng.fold_in(key, rnd), shard_ids)
-        rand = rng.as_int32_bits(rng.bits(rkeys, n_local_max))
-        pending, first = False, 0
-        for si in range(n_steps):
-            pending = pending or bool(chunk_bnd_h[si])
-            due = (si + 1) % cfg.exchange_every == 0 or si == n_steps - 1
-            if (due and pending) or si == n_steps - 1:
-                view = _color_supersteps(view, usage, order_pad, rand,
-                                         arrs, offset, cfg, S, first,
-                                         si + 1 - first)
-                first = si + 1
-            if due and pending:
-                view, b = exchange(view)
-                n_ex, n_bytes, pending = n_ex + 1, n_bytes + b, False
+        steps = [-(-h[2] // S) if on else 0 for h, on in zip(host, active)]
+        for lane in range(L):
+            n_rounds[lane] += active[lane]
+        rand = rng.as_int32_bits(rng.bits(round_keys[:, rnd], n_local_max))
+        first = 0
+        for si, due in _round_plan(steps, [h[3:] for h in host],
+                                   cfg.exchange_every):
+            view = _color_supersteps(view, usage, order_pad, rand, arrs,
+                                     offset, cfg, S, first, si + 1 - first)
+            first = si + 1
+            if any(due):
+                run_exchange(due)
         view, n_conf, do_final = _detect_conflicts_frontier(
-            view, arrs, order_pad, n_steps, n_need, S, backend=cfg.backend,
-            distance=cfg.distance)
+            view, arrs, order_pad, max(steps), n_need, S, backend=cfg.backend,
+            distance=cfg.distance, lanes=L)
         rnd += 1
     return view, n_rounds, n_ex, n_bytes
+
+
+def color_lanes(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
+                cfg: ColorConfig, lanes: int = 1,
+                comm: AxisComm | None = None):
+    """Speculative coloring of a batch of ``lanes`` same-shape graphs laid
+    end to end on the shard axis (one lane: ``color_shards``).
+
+    ``arrs`` is the ``(L·P, …)`` device dict (``graph.to_device`` or
+    ``graph.bucket_to_device``); ``order`` the ``(L·P, n_local_max)``
+    visit order of local slots, -1 = skip; ``keys`` ``(L, 2)`` ``rng``
+    keys, one per lane; ``comm`` (optional) the lanes' ``AxisComm``, whose
+    index maps it reuses.  Returns ``(view, stats)``: the ``(L·P,
+    n_slots)`` int32 view and one dict of python-int stats per lane
+    (``n_colors`` the max id, ``n_colors_distinct``, ``n_rounds``,
+    ``n_exchanges``, ``wire_bytes`` per shard), each bitwise what the lane
+    would give alone.
+    """
+    if cfg.scheme == AUTO:
+        raise ValueError("scheme='auto' must be resolved by an entry point "
+                         "(resolve_cfg) before the run")
+    require_halo(arrs, cfg.distance)
+    comm = lane_comm(arrs, lanes, comm)
+    keys = keys.reshape(lanes, 2).to(order.device)
+    view, n_rounds, n_ex, n_bytes = _speculate(
+        arrs, order, keys, cfg,
+        make_exchange(arrs, cfg.comm_config, lanes=lanes), comm)
+    # distinct classes in use — the quality metric (the max id alone can
+    # overstate the color count)
+    n_local_max = arrs["indptr"].shape[1] - 1
+    mc = cfg.max_colors
+    local = view[:, :n_local_max]
+    dev = view.device
+    valid = torch.arange(n_local_max, device=dev) < arrs["n_local"][:, None]
+    flat = comm.lane(dev)[:, None] * mc + local.long()
+    in_use = torch.zeros(lanes * mc + 1, dtype=torch.bool, device=dev)
+    in_use[torch.where(valid, flat, lanes * mc)] = True
+    in_use = in_use[:-1].view(lanes, mc)
+    dev_stats = torch.stack([comm.pmax(local.amax(dim=1)).long(),
+                             in_use[:, 1:].sum(dim=1)], dim=1).tolist()
+    return view, [dict(n_colors=nc, n_colors_distinct=nd,
+                       n_rounds=n_rounds[lane], n_exchanges=n_ex[lane],
+                       wire_bytes=n_bytes[lane])
+                  for lane, (nc, nd) in enumerate(dev_stats)]
+
+
+def lane_comm(arrs: dict, lanes: int, comm: AxisComm | None = None):
+    """The ``AxisComm`` of ``lanes`` graphs laid end to end in ``arrs``
+    (``comm`` itself when given, after a shape check)."""
+    LP = arrs["prio"].shape[0]
+    if lanes <= 0 or LP % lanes:
+        raise ValueError(f"{lanes} lanes do not divide the {LP} shards")
+    if comm is None:
+        return AxisComm(LP // lanes, lanes)
+    if (comm.P * comm.L, comm.L) != (LP, lanes):
+        raise ValueError(f"comm {comm.L} x {comm.P} does not match "
+                         f"{lanes} lanes of {LP} shards")
+    return comm
 
 
 def color_shards(arrs: dict, order: torch.Tensor, key: torch.Tensor,
                  cfg: ColorConfig):
     """Speculative coloring of all P shards (the reference's ``color_spmd``
-    under ``run_sim``).
+    under ``run_sim``): ``color_lanes`` with one lane.
 
     ``arrs`` is the device dict (``graph.to_device``); ``order`` the ``(P,
     n_local_max)`` visit order of local slots, -1 = skip; ``key`` an
@@ -264,27 +377,8 @@ def color_shards(arrs: dict, order: torch.Tensor, key: torch.Tensor,
     view and python-int stats ``n_colors`` (max id), ``n_colors_distinct``,
     ``n_rounds``, ``n_exchanges``, ``wire_bytes`` (per shard).
     """
-    if cfg.scheme == AUTO:
-        raise ValueError("scheme='auto' must be resolved by an entry point "
-                         "(resolve_cfg) before the run")
-    require_halo(arrs, cfg.distance)
-    view, n_rounds, n_ex, n_bytes = _speculate(
-        arrs, order, key, cfg, make_exchange(arrs, cfg.comm_config))
-    # distinct classes in use — the quality metric (the max id alone can
-    # overstate the color count)
-    n_local_max = arrs["indptr"].shape[1] - 1
-    local = view[:, :n_local_max]
-    valid = (torch.arange(n_local_max, device=view.device)
-             < arrs["n_local"][:, None])
-    in_use = torch.bincount(local[valid].long(), minlength=cfg.max_colors)
-    stats = dict(
-        n_colors=local.max(),
-        n_colors_distinct=(in_use[1:] > 0).sum(),
-        n_rounds=n_rounds,
-        n_exchanges=n_ex,
-        wire_bytes=n_bytes,
-    )
-    return view, stats_to_host(stats)
+    view, stats = color_lanes(arrs, order, key, cfg)
+    return view, stats[0]
 
 
 def require_halo(arrs: dict, distance: int) -> None:

@@ -91,3 +91,15 @@ def check_coloring(g: Graph, colors: np.ndarray, *, distance: int = 1,
         out["n_d2_conflicting_pairs"] = n_d2
         out["valid"] = out["valid"] and n_d2 == 0
     return out
+
+
+def assert_valid(g: Graph, colors: np.ndarray, what: str = "coloring", *,
+                 distance: int = 1, marked: np.ndarray | None = None):
+    """``check_coloring``, raising ``AssertionError`` with the counts when
+    the coloring is not valid; returns the stats."""
+    st = check_coloring(g, colors, distance=distance, marked=marked)
+    assert st["valid"], (
+        f"invalid {what}: {st['n_conflicting_edges']} conflicting edges, "
+        f"{st.get('n_d2_conflicting_pairs', 0)} d2 pairs, "
+        f"{st['n_uncolored']} uncolored, min color {colors.min(initial=0)}")
+    return st

@@ -36,16 +36,17 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 }  // namespace
 
 // Launch on `stream` (PyTorch's current stream).  Allocates nothing;
-// returns the cudaError_t of the launch (0 = launched).  `nbr2`/`maxd2`
-// are ignored (distance 1).
+// returns the cudaError_t of the launch (0 = launched).  `counts` is
+// (n_shards / lane_shards, 2): per lane, losers and boundary loser.
+// `nbr2`/`maxd2` are ignored (distance 1).
 extern "C" int repro_conflict_frontier(
     const void* view, const void* prio, const void* is_internal,
     const void* rows, const void* nbr, const void* nbr2, const void* n_need,
     void* new_view, void* counts, int n_shards, long long n_slots,
     int rows_len, int n_pos, int n_local_max, int maxd, int maxd2,
-    int device, void* stream) {
+    int lane_shards, int device, void* stream) {
   return launch_frontier(conflict_frontier_kernel, view, prio, is_internal,
                          rows, nbr, nbr2, n_need, new_view, counts, n_shards,
                          n_slots, rows_len, n_pos, n_local_max, maxd, maxd2,
-                         device, stream);
+                         lane_shards, device, stream);
 }

@@ -11,9 +11,11 @@
 // its nbr row (and, at distance 2, of its nbr2 row) has view[p, k] ==
 // view[p, r] and prio[p, k] > prio[p, r].  Every row reads the view as it
 // stood before the repair: losers are set to 0 in new_view (the caller's
-// copy of view), and view is only read.  counts[0] gets the number of
-// losers added, counts[1] is ORed with 1 iff some loser has
-// is_internal[p, r] false.
+// copy of view), and view is only read.  The shards form lanes of
+// lane_shards each (the graphs of a batch; one lane for one graph), and
+// the counts are per lane: for shard p of lane l = p / lane_shards,
+// counts[l, 0] gets the number of its losers added, counts[l, 1] is ORed
+// with 1 iff one of them has is_internal[p, r] false.
 //
 // Design: one warp per frontier position, over a grid that fills the
 // card's SMs and strides over the positions of all shards (the rows need
@@ -28,9 +30,11 @@
 // 27-point stencil's two ELL rows) are read in that round as one
 // sequence; wider rows (the ELL of a heavy-tailed graph) only up to their
 // first sentinel, in rounds as select_run.cuh reads them, and a row that
-// has lost stops there.  Each warp counts its losers in a register, each
-// block sums its warps in shared memory and makes one atomicAdd into
-// counts[0] and one atomicOr into counts[1].  view, prio and the index
+// has lost stops there.  Each warp counts its losers in registers, for
+// one lane at a time (a warp's positions run up the shard axis, so its
+// lane only grows), and adds them into the block's per-lane counts in
+// shared memory when its lane changes and at the end; then the block
+// makes one atomicAdd and one atomicOr per lane it counted into.  view, prio and the index
 // arrays do not change during the launch and are read through __ldg.
 #pragma once
 
@@ -51,9 +55,10 @@ struct FrontierArgs {
   const int* nbr2;                   // (P, n_local_max, maxd2), distance 2
   const long long* n_need;           // (P,) rows to rescan per shard
   int* new_view;                     // (P, n_slots), losers set to 0
-  unsigned long long* counts;        // [losers, boundary loser]
+  unsigned long long* counts;        // (n_lanes, 2): losers, boundary loser
   long long n_slots;
   int n_shards, rows_len, n_pos, n_local_max, maxd, maxd2;
+  int lane_shards, n_lanes;
 };
 
 // Whether one of the ids u[] (sentinel entries skipped) holds color myc
@@ -129,15 +134,29 @@ __device__ __forceinline__ bool row_loses(const int* view, const int* prio,
   return false;
 }
 
+// Adds one warp's loser count and boundary flag of lane `l` into the
+// block's per-lane counts (lane 0 of the warp; warp-uniform call).
+__device__ __forceinline__ void flush_lane(int* block_counts, int l,
+                                           int losers, bool bnd, int lane) {
+  if (l >= 0 && lane == 0) {
+    if (losers) atomicAdd(block_counts + 2 * l, losers);
+    if (bnd) atomicOr(block_counts + 2 * l + 1, 1);
+  }
+}
+
 template <bool kD2>
 __device__ __forceinline__ void frontier_body(const FrontierArgs& a) {
-  __shared__ int warp_losers[kWarpsPerBlock];
-  __shared__ int warp_bnd[kWarpsPerBlock];
+  extern __shared__ int block_counts[];  // (n_lanes, 2)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int sentinel = static_cast<int>(a.n_slots) - 1;
   const long long n_warps = static_cast<long long>(a.n_shards) * a.n_pos;
   const long long stride = static_cast<long long>(gridDim.x) * kWarpsPerBlock;
+  for (int k = threadIdx.x; k < 2 * a.n_lanes; k += blockDim.x) {
+    block_counts[k] = 0;
+  }
+  __syncthreads();
+  int cur = -1;  // the lane the registers count for
   int losers = 0;
   bool bnd = false;
   for (long long w = static_cast<long long>(blockIdx.x) * kWarpsPerBlock +
@@ -158,45 +177,50 @@ __device__ __forceinline__ void frontier_body(const FrontierArgs& a) {
                   a.maxd, kD2 ? a.nbr2 + rr * a.maxd2 : nullptr,
                   kD2 ? a.maxd2 : 0, sentinel, myc, myp, lane);
     if (lose) {
+      const int l = p / a.lane_shards;
+      if (l != cur) {
+        flush_lane(block_counts, cur, losers, bnd, lane);
+        cur = l;
+        losers = 0;
+        bnd = false;
+      }
       ++losers;
       bnd = bnd || __ldg(a.is_internal + rr) == 0;
       if (lane == 0) a.new_view[vbase + r] = 0;
     }
   }
-  if (lane == 0) {
-    warp_losers[warp] = losers;
-    warp_bnd[warp] = bnd ? 1 : 0;
-  }
+  flush_lane(block_counts, cur, losers, bnd, lane);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int n = 0, b = 0;
-#pragma unroll
-    for (int k = 0; k < kWarpsPerBlock; ++k) {
-      n += warp_losers[k];
-      b |= warp_bnd[k];
-    }
-    if (n) atomicAdd(a.counts, static_cast<unsigned long long>(n));
-    if (b) atomicOr(a.counts + 1, 1ull);
+  for (int l = threadIdx.x; l < a.n_lanes; l += blockDim.x) {
+    const int n = block_counts[2 * l];
+    if (n) atomicAdd(a.counts + 2 * l, static_cast<unsigned long long>(n));
+    if (block_counts[2 * l + 1]) atomicOr(a.counts + 2 * l + 1, 1ull);
   }
 }
 
 // Builds the arguments and launches `kernel` over at most as many blocks
-// as the card holds at once (fewer when the frontier is smaller).
+// as the card holds at once (fewer when the frontier is smaller), each
+// with 8 B of shared memory per lane for its counts.
 template <typename Kernel>
 int launch_frontier(Kernel kernel, const void* view, const void* prio,
                     const void* is_internal, const void* rows,
                     const void* nbr, const void* nbr2, const void* n_need,
                     void* new_view, void* counts, int n_shards,
                     long long n_slots, int rows_len, int n_pos,
-                    int n_local_max, int maxd, int maxd2, int device,
-                    void* stream) {
+                    int n_local_max, int maxd, int maxd2, int lane_shards,
+                    int device, void* stream) {
+  if (lane_shards <= 0 || n_shards % lane_shards) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_lanes = n_shards / lane_shards;
+  const size_t smem = static_cast<size_t>(2 * n_lanes) * sizeof(int);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   int n_sm = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kWarpsPerBlock * 32, 0);
+      &per_sm, kernel, kWarpsPerBlock * 32, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long need =
       (static_cast<long long>(n_shards) * n_pos + kWarpsPerBlock - 1) /
@@ -220,8 +244,16 @@ int launch_frontier(Kernel kernel, const void* view, const void* prio,
   a.n_local_max = n_local_max;
   a.maxd = maxd;
   a.maxd2 = maxd2;
-  kernel<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      a);
+  a.lane_shards = lane_shards;
+  a.n_lanes = n_lanes;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<blocks, kWarpsPerBlock * 32, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,18 +39,20 @@ __global__ void __launch_bounds__(kRunMaxWarps * 32)
 }  // namespace
 
 // Launch on `stream` (PyTorch's current stream).  Allocates nothing;
-// returns the cudaError_t of the launch (0 = launched).  `nbr2`/`maxd2`
+// returns the cudaError_t of the launch (0 = launched).  `lane_shards` is
+// the shards per lane of `class_chunks` (recolor mode).  `nbr2`/`maxd2`
 // are ignored (distance 1).
 extern "C" int repro_select_run(
     void* view, const void* rows, const void* nbr, const void* nbr2,
     const void* rand_bits, const void* offset, const void* start,
     const void* sizes, const void* class_chunks, void* scratch, int n_shards,
     long long n_slots, int rows_len, int n_local_max, int maxd, int maxd2,
-    int n_cls, int first, int last, int superstep, int tile, int recolor,
-    int n_words, int x, int staggered, int device, void* stream) {
+    int n_cls, int lane_shards, int first, int last, int superstep,
+    int tile, int recolor, int n_words, int x, int staggered, int device,
+    void* stream) {
   return launch_run(select_run_kernel, view, rows, nbr, nbr2, rand_bits,
                     offset, start, sizes, class_chunks, scratch, n_shards,
-                    n_slots, rows_len, n_local_max, maxd, maxd2, n_cls, first,
-                    last, superstep, tile, recolor, n_words, x, staggered,
-                    device, stream);
+                    n_slots, rows_len, n_local_max, maxd, maxd2, n_cls,
+                    lane_shards, first, last, superstep, tile, recolor,
+                    n_words, x, staggered, device, stream);
 }

@@ -15,9 +15,11 @@
 // `rows` (order_pad), each as ceil(superstep / tile) tiles starting at
 // min(si * superstep + ti * tile, rows_len - tile); a row is active iff its
 // entry is >= 0 and its color is 0.  Recolor mode walks classes [first,
-// last], class t as class_chunks[t] chunks of `tile` rows of the
+// last], class t as class_chunks[l, t] chunks of `tile` rows of the
 // step-sorted rows (sorted_pad) from min(start[p, t] + j * tile,
-// n_local_max); a row is active iff j * tile + i < sizes[p, t].
+// n_local_max), where l = p / lane_shards is the shard's lane (the graph
+// of a batch it belongs to: each lane has its own chunk counts); a row is
+// active iff j * tile + i < sizes[p, t].
 //
 // Design: one block per shard and a loop over the run's tiles inside it (a
 // shard's local rows change only through its own writes, and its ghosts
@@ -54,10 +56,11 @@ struct RunArgs {
   const int* offset;        // (P,) Staggered start colors, or null
   const int* start;         // recolor: (P, n_cls) first sorted row of t
   const int* sizes;         // recolor: (P, n_cls) rows of class t
-  const int* class_chunks;  // recolor: (n_cls,) chunks of class t
+  const int* class_chunks;  // recolor: (P / lane_shards, n_cls) chunks of
+                            // class t per lane
   int* scratch;             // (P, tile) colors of the current tile
   long long n_slots;
-  int rows_len, n_local_max, maxd, maxd2, n_cls;
+  int rows_len, n_local_max, maxd, maxd2, n_cls, lane_shards;
   int first, last;          // supersteps or classes, both inclusive
   int superstep, tile, recolor, n_words, x, staggered;
 };
@@ -203,8 +206,10 @@ __device__ __forceinline__ void select_run_body(const RunArgs& a) {
   int* scratch = a.scratch + static_cast<long long>(p) * a.tile;
   if (a.recolor) {
     const long long sched = static_cast<long long>(p) * a.n_cls;
+    const int* chunks =
+        a.class_chunks + static_cast<long long>(p / a.lane_shards) * a.n_cls;
     for (int t = a.first; t <= a.last; ++t) {
-      const int n_chunks = __ldg(a.class_chunks + t);
+      const int n_chunks = __ldg(chunks + t);
       const int start = __ldg(a.start + sched + t);
       const int size = __ldg(a.sizes + sched + t);
       for (int j = 0; j < n_chunks; ++j) {
@@ -233,7 +238,8 @@ int launch_run(Kernel kernel, void* view, const void* rows, const void* nbr,
                const void* start, const void* sizes,
                const void* class_chunks, void* scratch, int n_shards,
                long long n_slots, int rows_len, int n_local_max, int maxd,
-               int maxd2, int n_cls, int first, int last, int superstep,
+               int maxd2, int n_cls, int lane_shards, int first, int last,
+               int superstep,
                int tile, int recolor, int n_words, int x, int staggered,
                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -259,6 +265,7 @@ int launch_run(Kernel kernel, void* view, const void* rows, const void* nbr,
   a.maxd = maxd;
   a.maxd2 = maxd2;
   a.n_cls = n_cls;
+  a.lane_shards = lane_shards > 0 ? lane_shards : n_shards;
   a.first = first;
   a.last = last;
   a.superstep = superstep;

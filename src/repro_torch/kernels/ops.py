@@ -130,11 +130,11 @@ CONFLICT_D2 = Kernel(
     [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, _P])
 _RUN_ARGS = [_P] * 10 + [ctypes.c_int, ctypes.c_longlong] + (
-    [ctypes.c_int] * 14) + [_P]
+    [ctypes.c_int] * 15) + [_P]
 SELECT_RUN = Kernel("select_run", "repro_select_run", _RUN_ARGS)
 SELECT_RUN_D2 = Kernel("select_run_d2", "repro_select_run_d2", _RUN_ARGS)
 _FRONTIER_ARGS = [_P] * 9 + [ctypes.c_int, ctypes.c_longlong] + (
-    [ctypes.c_int] * 6) + [_P]
+    [ctypes.c_int] * 7) + [_P]
 CONFLICT_FRONTIER = Kernel("conflict_frontier", "repro_conflict_frontier",
                            _FRONTIER_ARGS)
 CONFLICT_FRONTIER_D2 = Kernel(
@@ -336,7 +336,9 @@ def recolor_run(view: torch.Tensor, nbr: torch.Tensor,
     ``sorted_pad`` ``(P, n_local_max + chunk)`` step-sorted local rows;
     ``start``/``sizes`` ``(P, n_cls)`` first sorted position and rows of
     class t per shard; ``class_chunks`` ``(n_cls,)`` chunks of class t
-    (the same on every shard).  ``view`` as in ``select_run``.
+    (the same on every shard), or ``(L, n_cls)`` for a batch of L graphs
+    (lanes) of ``P / L`` shards each, which shard p reads at row ``p //
+    (P / L)``.  ``view`` as in ``select_run``.
     """
     return _recolor_run(view, (nbr,), sorted_pad, start, sizes, class_chunks,
                         first_class=first_class, last_class=last_class,
@@ -403,18 +405,23 @@ def _recolor_run(view, nbrs, sorted_pad, start, sizes, class_chunks, *,
         raise ValueError(f"sorted_pad {tuple(sorted_pad.shape)} must have "
                          f"n_local_max + chunk = {nbrs[0].shape[1] + chunk} "
                          "columns")
-    if first_class < 0 or last_class >= class_chunks.shape[0]:
+    chunks2 = class_chunks.reshape(-1, class_chunks.shape[-1])
+    if class_chunks.dim() > 2 or view.shape[0] % chunks2.shape[0]:
+        raise ValueError(f"class_chunks {tuple(class_chunks.shape)} must be "
+                         f"(n_cls,) or (L, n_cls) with L dividing the "
+                         f"{view.shape[0]} shards")
+    if first_class < 0 or last_class >= chunks2.shape[1]:
         raise ValueError(f"classes [{first_class}, {last_class}] out of "
-                         f"range of {class_chunks.shape[0]}")
+                         f"range of {chunks2.shape[1]}")
     backend = resolve_backend(backend, view)
     if last_class < first_class:
         return view
     if backend == "torch":
         return ref.recolor_run(view, nbrs, sorted_pad, start, sizes,
-                               class_chunks, first_class=first_class,
+                               chunks2, first_class=first_class,
                                last_class=last_class, chunk=chunk,
                                max_colors=max_colors)
-    sched = (_int32(start), _int32(sizes), _int32(class_chunks))
+    sched = (_int32(start), _int32(sizes), _int32(chunks2))
     return _launch_run(view, nbrs, _int32(sorted_pad), None, None, sched,
                        first_class, last_class, 0, chunk, max_colors, 0,
                        False)
@@ -450,7 +457,8 @@ def _int32(t: torch.Tensor) -> torch.Tensor:
 def _launch_run(view, nbrs, rows, rand, off, sched, first, last, superstep,
                 tile, max_colors, x, staggered):
     """One launch of SELECT_RUN[_D2]: ``sched`` is (start, sizes,
-    class_chunks) in recolor mode and None in speculative mode."""
+    class_chunks ``(L, n_cls)``) in recolor mode and None in speculative
+    mode."""
     nbrs = tuple(n.contiguous() for n in nbrs)
     live = [t for t in (view, rows, rand, off, *nbrs, *(sched or ()))
             if t is not None]
@@ -460,6 +468,7 @@ def _launch_run(view, nbrs, rows, rand, off, sched, first, last, superstep,
     scratch = torch.empty((P, tile), dtype=torch.int32, device=view.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     start, sizes, chunks = sched or (None, None, None)
+    lane_shards = P if chunks is None else P // chunks.shape[0]
     kernel = SELECT_RUN if len(nbrs) == 1 else SELECT_RUN_D2
     kernel.launch(
         view.data_ptr(), rows.data_ptr(), nbrs[0].data_ptr(),
@@ -467,7 +476,8 @@ def _launch_run(view, nbrs, rows, rand, off, sched, first, last, superstep,
         ptr(start), ptr(sizes), ptr(chunks), scratch.data_ptr(), P, n_slots,
         rows.shape[1], nbrs[0].shape[1], nbrs[0].shape[2],
         nbrs[1].shape[2] if len(nbrs) > 1 else 0,
-        0 if start is None else start.shape[1], first, last, superstep, tile,
+        0 if start is None else start.shape[1], lane_shards, first, last,
+        superstep, tile,
         int(sched is not None), n_words, x, int(staggered), view.device.index,
         _stream(view))
     return view
@@ -546,7 +556,8 @@ def detect_conflicts_frontier(view: torch.Tensor, prio: torch.Tensor,
                               is_internal: torch.Tensor,
                               order_pad: torch.Tensor, nbr: torch.Tensor,
                               n_need: torch.Tensor, *, n_steps: int,
-                              superstep: int, backend: str = "auto"):
+                              superstep: int, lanes: int | None = None,
+                              backend: str = "auto"):
     """The repair of one speculative round in one call: over the first
     ``n_steps * superstep`` positions of the visit order on every shard,
     uncolor each active row that loses (``ref.detect_conflicts_frontier``).
@@ -560,11 +571,13 @@ def detect_conflicts_frontier(view: torch.Tensor, prio: torch.Tensor,
     rescan per shard (position i is active iff ``i < n_need[p]`` and its
     entry is ``>= 0``).  Returns ``(new_view, n_conflicts,
     any_boundary_conflict)``: a new view with the losers at 0, an int64
-    and a bool device scalar.
+    and a bool device scalar.  With ``lanes=L`` the P shards are L graphs
+    of ``P / L`` shards each (a batch laid end to end), and the two counts
+    are ``(L,)`` tensors, one per graph.
     """
     return _conflicts_frontier(view, prio, is_internal, order_pad, (nbr,),
                                n_need, n_steps=n_steps, superstep=superstep,
-                               backend=backend)
+                               lanes=lanes, backend=backend)
 
 
 def detect_conflicts_frontier_d2(view: torch.Tensor, prio: torch.Tensor,
@@ -572,19 +585,24 @@ def detect_conflicts_frontier_d2(view: torch.Tensor, prio: torch.Tensor,
                                  order_pad: torch.Tensor, nbr: torch.Tensor,
                                  nbr2: torch.Tensor, n_need: torch.Tensor, *,
                                  n_steps: int, superstep: int,
+                                 lanes: int | None = None,
                                  backend: str = "auto"):
     """``detect_conflicts_frontier`` at distance 2: a row also loses
     against its strict two-hop ELL row ``nbr2`` ``(P, n_local_max,
     MAXD2)``."""
     return _conflicts_frontier(view, prio, is_internal, order_pad,
                                (nbr, nbr2), n_need, n_steps=n_steps,
-                               superstep=superstep, backend=backend)
+                               superstep=superstep, lanes=lanes,
+                               backend=backend)
 
 
 def _conflicts_frontier(view, prio, is_internal, order_pad, nbrs, n_need, *,
-                        n_steps, superstep, backend):
+                        n_steps, superstep, lanes, backend):
     _check_ell(view, nbrs)
     P, n_slots = view.shape
+    L = 1 if lanes is None else lanes
+    if L <= 0 or P % L:
+        raise ValueError(f"{L} lanes do not divide the {P} shards")
     if superstep <= 0 or n_steps < 0:
         raise ValueError(f"bad superstep {superstep} / n_steps {n_steps}")
     n_pos = n_steps * superstep
@@ -601,31 +619,45 @@ def _conflicts_frontier(view, prio, is_internal, order_pad, nbrs, n_need, *,
                          f"{tuple(nbrs[0].shape)}")
     backend = resolve_backend(backend, view)
     if backend == "torch":
-        return ref.detect_conflicts_frontier(
+        new_view, n_conf, bnd = ref.detect_conflicts_frontier(
             view, prio, is_internal, order_pad, nbrs, n_need,
-            n_steps=n_steps, superstep=superstep)
+            n_steps=n_steps, superstep=superstep, lanes=L)
+        return (new_view, n_conf, bnd) if lanes else (new_view, n_conf[0],
+                                                      bnd[0])
     if prio.dtype != torch.int32:
         raise TypeError("the CUDA conflict kernels take int32 priorities "
                         "(int64 ids, past 2**31 vertices, are not supported)")
     new_view = view.clone()
-    counts = torch.zeros(2, dtype=torch.int64, device=view.device)
+    counts = torch.zeros((L, 2), dtype=torch.int64, device=view.device)
     if P and n_pos:
-        nbrs = tuple(n.contiguous() for n in nbrs)
-        rows = _int32(order_pad)
-        internal = is_internal.to(torch.bool).contiguous()
-        need = n_need.to(torch.int64).contiguous()
-        _check_cuda(view, prio, internal, rows, need, new_view, counts,
-                    *nbrs)
-        kernel = CONFLICT_FRONTIER if len(nbrs) == 1 else CONFLICT_FRONTIER_D2
-        kernel.launch(
-            view.data_ptr(), prio.data_ptr(), internal.data_ptr(),
-            rows.data_ptr(), nbrs[0].data_ptr(),
-            nbrs[1].data_ptr() if len(nbrs) > 1 else None, need.data_ptr(),
-            new_view.data_ptr(), counts.data_ptr(), P, n_slots,
-            rows.shape[1], n_pos, nbrs[0].shape[1], nbrs[0].shape[2],
-            nbrs[1].shape[2] if len(nbrs) > 1 else 0, view.device.index,
-            _stream(view))
-    return new_view, counts[0], counts[1] != 0
+        launch_frontier(view, prio, is_internal, order_pad, nbrs, n_need,
+                        n_pos, new_view, counts)
+    if lanes:
+        return new_view, counts[:, 0], counts[:, 1] != 0
+    return new_view, counts[0, 0], counts[0, 1] != 0
+
+
+def launch_frontier(view, prio, is_internal, order_pad, nbrs, n_need,
+                    n_pos: int, new_view, counts) -> None:
+    """One launch of CONFLICT_FRONTIER[_D2] over the first ``n_pos``
+    positions, into the caller's ``new_view`` (a copy of ``view``) and
+    zeroed ``counts`` ``(L, 2)`` int64: the kernel alone, without the
+    entry point's copy and count buffer (``detect_conflicts_frontier``)."""
+    P, n_slots = view.shape
+    nbrs = tuple(n.contiguous() for n in nbrs)
+    rows = _int32(order_pad)
+    internal = is_internal.to(torch.bool).contiguous()
+    need = n_need.to(torch.int64).contiguous()
+    _check_cuda(view, prio, internal, rows, need, new_view, counts, *nbrs)
+    kernel = CONFLICT_FRONTIER if len(nbrs) == 1 else CONFLICT_FRONTIER_D2
+    kernel.launch(
+        view.data_ptr(), prio.data_ptr(), internal.data_ptr(),
+        rows.data_ptr(), nbrs[0].data_ptr(),
+        nbrs[1].data_ptr() if len(nbrs) > 1 else None, need.data_ptr(),
+        new_view.data_ptr(), counts.data_ptr(), P, n_slots,
+        rows.shape[1], n_pos, nbrs[0].shape[1], nbrs[0].shape[2],
+        nbrs[1].shape[2] if len(nbrs) > 1 else 0, P // counts.shape[0],
+        view.device.index, _stream(view))
 
 
 def greedy_run(view: torch.Tensor, usage: torch.Tensor,

@@ -215,23 +215,28 @@ def recolor_run(view, nbrs: tuple, sorted_pad, start, sizes, class_chunks,
                 *, first_class: int, last_class: int, chunk: int,
                 max_colors: int):
     """First Fit of recolor classes ``first_class … last_class`` in
-    order, class t as ``class_chunks[t]`` chunks of ``chunk`` rows of the
-    step-sorted rows ``sorted_pad`` ``(P, n_local_max + chunk)``, against
-    ``view``, which is updated in place and returned.
+    order, class t as ``class_chunks[l, t]`` chunks of ``chunk`` rows of
+    the step-sorted rows ``sorted_pad`` ``(P, n_local_max + chunk)``,
+    against ``view``, which is updated in place and returned.
+    ``class_chunks`` is ``(L, n_cls)``: the P shards are L lanes (graphs)
+    of ``P / L`` shards, shard p in lane ``l = p // (P / L)``.
 
     Chunk j of class t starts at ``min(start[p, t] + j * chunk,
-    n_local_max)``; its row i is active iff ``j * chunk + i < sizes[p,
-    t]``; the whole chunk reads the view before any of its colors is
-    written.  ``nbrs`` as in ``select_run``.
+    n_local_max)``; its row i is active iff ``j < class_chunks[l, t]`` and
+    ``j * chunk + i < sizes[p, t]``; the whole chunk reads the view before
+    any of its colors is written.  ``nbrs`` as in ``select_run``.
     """
     n_slots = view.shape[1]
     n_local_max = nbrs[0].shape[1]
     lane = torch.arange(chunk, device=view.device)
-    counts = class_chunks[first_class:last_class + 1].tolist()
+    per_shard = class_chunks.repeat_interleave(
+        view.shape[0] // class_chunks.shape[0], dim=0)
+    counts = class_chunks[:, first_class:last_class + 1].amax(0).tolist()
     for t, n_chunks in enumerate(counts, start=first_class):
         for j in range(n_chunks):
             pos = (start[:, t] + j * chunk).clamp(max=n_local_max)
-            active = lane < (sizes[:, t] - j * chunk)[:, None]
+            active = ((lane < (sizes[:, t] - j * chunk)[:, None])
+                      & (j < per_shard[:, t])[:, None])
             rows = sorted_pad.gather(1, pos[:, None] + lane)
             rows = torch.where(active, rows, 0)
             tiles = [take_rows(view, take_rows(n, rows)) for n in nbrs]
@@ -246,11 +251,13 @@ def recolor_run(view, nbrs: tuple, sorted_pad, start, sizes, class_chunks,
 
 def detect_conflicts_frontier(view, prio, is_internal, order_pad,
                               nbrs: tuple, n_need, *, n_steps: int,
-                              superstep: int):
+                              superstep: int, lanes: int = 1):
     """The repair of one speculative round over the first ``n_steps *
     superstep`` positions of the visit order ``order_pad`` ``(P, L)``,
     chunk by chunk; returns ``(new_view, n_conflicts,
-    any_boundary_conflict)``, the last two as int64 and bool scalars.
+    any_boundary_conflict)``, the last two ``(lanes,)`` int64 and bool
+    tensors: the P shards are ``lanes`` graphs of ``P / lanes`` shards
+    each, counted apart.
 
     Position i of shard p is active iff its entry is ``>= 0`` and ``i <
     n_need[p]``; every chunk reads the same pre-detection ``view`` and
@@ -259,11 +266,12 @@ def detect_conflicts_frontier(view, prio, is_internal, order_pad,
     """
     n_slots = view.shape[1]
     new_view = view.clone()
-    n_conf = torch.zeros((), dtype=torch.int64, device=view.device)
-    bnd = torch.zeros((), dtype=torch.bool, device=view.device)
+    n_conf = torch.zeros(lanes, dtype=torch.int64, device=view.device)
+    bnd = torch.zeros(lanes, dtype=torch.bool, device=view.device)
     offs = torch.arange(superstep, device=view.device)
     test = detect_conflicts if len(nbrs) == 1 else detect_conflicts_d2
     flat = lambda t: t.reshape(-1, t.shape[-1])
+    per_lane = lambda t: t.reshape(lanes, -1)
     for si in range(n_steps):
         rows = order_pad[:, si * superstep:(si + 1) * superstep]
         active = (rows >= 0) & (si * superstep + offs < n_need[:, None])
@@ -278,8 +286,8 @@ def detect_conflicts_frontier(view, prio, is_internal, order_pad,
                     active.reshape(-1)).reshape(rows.shape)
         idx = torch.where(conf, r_safe, n_slots - 1)   # sentinel stays 0
         new_view.scatter_(1, idx.long(), 0)
-        n_conf = n_conf + conf.sum()
-        bnd = bnd | (conf & ~take_rows(is_internal, r_safe)).any()
+        n_conf = n_conf + per_lane(conf).sum(dim=1)
+        bnd = bnd | per_lane(conf & ~take_rows(is_internal, r_safe)).any(1)
     return new_view, n_conf, bnd
 
 

@@ -17,7 +17,8 @@ reference targets):
 - ``permutation(key, n)`` — jax's sort-based shuffle of ``arange(n)``.
 
 A key is an int64 tensor of shape ``(..., 2)``; leading dims are a batch
-of keys (one per shard).  Words are carried as int64 masked to 32 bits:
+of keys (one per shard, or per lane of a batch of graphs), and every
+operation maps over them.  Words are carried as int64 masked to 32 bits:
 ``torch.uint32`` lacks the shifts, additions and modulo the hash needs.
 """
 from __future__ import annotations
@@ -79,9 +80,13 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: a new key per element of ``data``.
 
     ``data`` is a python int or an integer tensor (e.g. ``arange(P)`` on
-    the device, one key per shard); returns ``data.shape + (2,)``.
+    the device, one key per shard); the key's batch dims broadcast against
+    ``data``'s, and the result is their broadcast shape ``+ (2,)``.  A
+    python int is placed on the key's device.
     """
-    data = torch.as_tensor(data, dtype=torch.int64)
+    data = torch.as_tensor(
+        data, dtype=torch.int64,
+        device=None if isinstance(data, torch.Tensor) else k.device)
     k1, k2 = _words(k, data)
     a, b = threefry2x32(k1, k2, torch.zeros_like(data), data & MASK32)
     return torch.stack([a, b], dim=-1)
@@ -103,17 +108,18 @@ def as_int32_bits(words: torch.Tensor) -> torch.Tensor:
 
 
 def split(k: torch.Tensor, n: int = 2) -> torch.Tensor:
-    """``jax.random.split(k, n)``: ``(n, 2)`` keys on ``k``'s device.
+    """``jax.random.split(k, n)``: ``(..., n, 2)`` keys on ``k``'s device.
 
     Under partitionable threefry key ``i`` hashes the counter ``(0, i)``,
     which is exactly ``fold_in(k, i)``.
     """
-    return fold_in(k, torch.arange(n, dtype=torch.int64, device=k.device))
+    return fold_in(k[..., None, :],
+                   torch.arange(n, dtype=torch.int64, device=k.device))
 
 
 def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.permutation(k, n)``: a shuffle of ``arange(n)`` (int64,
-    on ``k``'s device).
+    on ``k``'s device), ``(..., n)`` for a batch of keys.
 
     jax's ``_shuffle``: ``ceil(3 ln(max(1, n)) / ln(2**32 - 1))`` rounds
     (one up to n = 1625, two beyond), each splitting ``k, sub = split(k)``
@@ -123,9 +129,10 @@ def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
     """
     uint32max = np.iinfo(np.uint32).max
     n_rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(uint32max)))
-    x = torch.arange(n, dtype=torch.int64, device=k.device)
+    x = torch.arange(n, dtype=torch.int64, device=k.device).expand(
+        k.shape[:-1] + (n,))
     for _ in range(n_rounds):
-        k, sub = split(k)
+        k, sub = split(k).unbind(-2)
         perm = torch.sort(bits(sub, n), stable=True).indices
-        x = x[perm]
+        x = x.gather(-1, perm)
     return x
