@@ -96,7 +96,24 @@ before the final line):
    counts) and of the recolor mode of ``select_run[_d2]`` (per-lane
    ``class_chunks``) against their plain versions on the bucket's own
    first repair and its largest recolor run, bitwise, timed by CUDA
-   events.
+   events;
+9. the continuous-batching service (``repro_torch.launch.serve_coloring``,
+   its ``default_config()``: Random-X X=10, ND, K=8, patience 2,
+   max_colors 1024; P=16) on the traffic mix of its ``_traffic`` (RMAT-ER,
+   Good and Bad in turn, edge factor 8, scales 15-17): (a) 12 requests in
+   continuous mode (4 lanes, 2 iterations per step) on a ``FakeClock``,
+   one arrival per tick — every result valid and bitwise its solo
+   ``pipeline_sim`` of its engine-padded member on the card with the
+   request-folded keys, a request admitted beside a running lane, and
+   the recolor-mode lane form of ``select_run`` held bitwise against its
+   plain version on the engine's largest step run with a frozen or empty
+   lane (timed by CUDA events, L2 flushed); (b) 24 requests on a hybrid
+   clock (scripted Poisson arrivals, each poll costing its measured wall
+   seconds) in continuous and in flush mode: latency p50/p99, graphs/s,
+   polls, engines, routes, launches against the solo runs together, the
+   device idle share of the polls, peak device memory; (c) 4 ``grid3d``
+   stencils at distance 2 (halo 2, K=4, 2 lanes): valid at distance 2 and
+   bitwise their solo runs.  Phase 9's launches print on their own lines.
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
 result line.
@@ -143,6 +160,15 @@ HOST_COVER_CYCLES = 1_000_000  # about 0.5 ms of device wait per launch
 MANY_SCALE, MANY_P, MANY_K = 17, 16, 8
 MANY_GOOD, MANY_BAD = range(1, 9), range(1, 5)
 D2_MANY_GRID = (32, 32, 24)
+# the service (phase 9): the default config on P=16, engines of 4 lanes
+# stepping 2 iterations; the traffic mix at scales 15-17
+SERVE_P, SERVE_LANES, SERVE_CHUNK = 16, 4, 2
+SERVE_SCALES, SERVE_SEED = (15, 17), 0
+SERVE_BITWISE, SERVE_OPEN_LOOP = 12, 24
+SERVE_D2_GRIDS = ((32, 32, 32), (32, 32, 24), (24, 24, 24), (32, 24, 24))
+SERVE_D2_K, SERVE_D2_LANES = 4, 2
+SERVE_KERNELS = ("select_run", "conflict_frontier")
+SERVE_D2_KERNELS = ("select_run_d2", "conflict_frontier_d2")
 
 
 def phase(name: str, t0: float, detail: str = "") -> None:
@@ -1548,10 +1574,11 @@ def phase_variants(core, ops, dev, main, d2_cross):
 
 # -- phase 8: batched multi-graph coloring ------------------------------------
 
-def capture_largest_recolor(ops, run, d2: bool) -> dict:
-    """The recolor-mode run launch of ``run()`` with the most chunks (its
-    launches not counted): its arguments and a copy of the view it
-    started from."""
+def capture_largest_recolor(ops, run, d2: bool, frozen: bool = False) -> dict:
+    """The recolor-mode run launch of ``run()`` with the most chunks: its
+    arguments and a copy of the view it started from.  ``frozen=True``
+    takes only launches in which some lane is frozen or empty (an
+    all-zero ``class_chunks`` row) while another colors."""
     name = "recolor_run_d2" if d2 else "recolor_run"
     real = getattr(ops, name)
     best = {}
@@ -1559,7 +1586,8 @@ def capture_largest_recolor(ops, run, d2: bool) -> dict:
     def note(view, *args, **kw):
         chunks = args[-1][:, kw["first_class"]:kw["last_class"] + 1]
         n = int(chunks.sum())
-        if n > best.get("n", -1):
+        idle = bool((args[-1].sum(dim=1) == 0).any()) if frozen else True
+        if idle and n > best.get("n", -1):
             best.update(n=n, view=view.clone(), args=args, kw=kw)
         return real(view, *args, **kw)
 
@@ -1764,6 +1792,266 @@ def phase_many(core, ops, dev, d2_cross) -> None:
     phase("8b D2 bucket (2 graphs)", t0)
 
 
+# -- phase 9: the continuous-batching service --------------------------------
+
+def serve_solo(core, ops, r: dict, jid: int, dev) -> dict:
+    """An engine result against the counted solo ``pipeline_sim`` of its
+    engine-padded member on the card, with the request-folded keys: colors,
+    history and iteration count bitwise.  Returns the solo run's
+    launches."""
+    from repro_torch import rng
+    m, cfg = r["member"], r["cfg"]
+    (view, solo), launches, _ = counted(ops, lambda: core.pipeline_sim(
+        m, core.compute_order(m, core.ordering.INTERNAL_FIRST), cfg,
+        color_key=rng.fold_in(rng.key(cfg.color.seed), jid),
+        recolor_key=rng.fold_in(rng.key(cfg.seed), jid), device=dev))
+    colors = m.gather_global_colors(view.cpu().numpy()[:, :m.n_local_max])
+    check(np.array_equal(colors, r["colors"])
+          and solo["history"] == r["history"]
+          and solo["n_iters_run"] == r["n_iters_run"],
+          f"request {jid} differs from its solo run on the card")
+    return launches
+
+
+def check_served(core, ops, out, n: int, label: str, dev) -> dict:
+    """Every request of a scripted run completed, valid (``validate=True``
+    checked it on the host) and, on the engine route, bitwise its solo
+    run on the card.  Returns the solo runs' launches together."""
+    check(not out.shed and not out.failed and len(out.results) == n,
+          f"{label}: {len(out.results)} of {n} results, shed {out.shed}, "
+          f"failed {out.failed}")
+    solo = {}
+    for jid, r in sorted(out.results.items()):
+        check("error" not in r and r["check"]["valid"],
+              f"{label}: request {jid} invalid: {r.get('check')}")
+        if r["route"] == "engine":
+            for k, v in serve_solo(core, ops, r, jid, dev).items():
+                solo[k] = solo.get(k, 0) + v
+    return solo
+
+
+def serve_launches(launches: dict, names) -> str:
+    return ", ".join(f"{k} {launches[k]}" for k in names)
+
+
+def serve_leg_bitwise(core, ops, S, H, dev, graphs) -> None:
+    """Leg (a): 12 requests, one arrival per tick on a ``FakeClock``,
+    continuous mode: the mix's first 6 graphs, each requested twice in a
+    row (a request lives 1-2 polls at this config, and the mix turns class
+    at every request, so only a repeat shares an engine with a running
+    lane); every result valid and bitwise its solo run, a request admitted
+    beside a running lane of its engine, and the recolor-mode lane form of
+    ``select_run`` held bitwise against its plain version on the engine's
+    largest step run with a frozen or empty lane."""
+    import gc
+    graphs = [g for g in graphs[:SERVE_BITWISE // 2] for _ in range(2)]
+    svc = S.ColoringService(
+        P=SERVE_P, cfg=S.default_config(), validate=True, device=dev,
+        clock=S.FakeClock(), serve=S.ServeConfig(
+            lanes=SERVE_LANES, chunk_iters=SERVE_CHUNK, solo_warm=False))
+    script = [H.Arrival(float(t), g) for t, g in enumerate(graphs)]
+    held = {}
+
+    def drive():
+        held["out"] = H.run_script(svc, script)
+
+    best, launches, wall = counted(
+        ops, lambda: capture_largest_recolor(ops, drive, False, frozen=True))
+    out = held["out"]
+    mid = H.mid_flight_admissions(out.poll_log)
+    st = svc.stats()
+    print(f"  9a {len(graphs)} requests (6 graphs, each twice in a row), one "
+          f"per tick, lanes {SERVE_LANES}, chunk {SERVE_CHUNK}: {out.polls} "
+          f"polls, {mid} admissions beside a running lane of the engine, "
+          f"{svc._engine_seq} engines made ({st['engines']} kept), routes "
+          f"lane {st['lane']}; (engine, lane, request) per poll "
+          f"{out.poll_log}; wall {wall:.3f} s (with the capture's reads)",
+          flush=True)
+    for name in ("select_run", "conflict_frontier"):
+        check(launches[name] > 0, f"9a: {name} never launched")
+    for name in ("color_select", "conflict", "color_select_d2",
+                 "conflict_d2"):
+        check(launches[name] == 0, f"9a: the tile kernel {name} launched")
+    check(mid > 0, "9a: no request was admitted beside a running lane")
+    solo = check_served(core, ops, out, len(graphs), "9a", dev)
+    print(f"  9a colors {[out.results[j]['n_colors'] for j in sorted(out.results)]}"
+          f", iterations "
+          f"{[out.results[j]['n_iters_run'] for j in sorted(out.results)]}; "
+          f"every result valid and bitwise its solo pipeline_sim on the card")
+    print(f"  9a launches: service {serve_launches(launches, SERVE_KERNELS)};"
+          f" solo runs together {serve_launches(solo, SERVE_KERNELS)}")
+    check_recolor_lanes(ops, best, False, "9a engine step,")
+    del svc, out, best
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def serve_timers(S):
+    """Host wall seconds spent in the service's parts (partition memo
+    ``_entry``, engine ``admit``, ``step`` and ``drain``, flush mode's
+    ``_dispatch`` and ``_finish``), summed while the block runs; each part
+    ends in a device read or runs on the host, so its wall holds its
+    device work too."""
+    owners = {"_entry": S.ColoringService, "admit": S._Engine,
+              "step": S._Engine, "drain": S._Engine,
+              "_dispatch": S.ColoringService, "_finish": S.ColoringService}
+    spent = dict.fromkeys(owners, 0.0)
+    real = {k: getattr(owners[k], k) for k in spent}
+
+    def timed(name):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return real[name](*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t
+        return run
+
+    for k in spent:
+        setattr(owners[k], k, timed(k))
+    try:
+        yield spent
+    finally:
+        for k in spent:
+            setattr(owners[k], k, real[k])
+
+
+def serve_job_seconds(core, S, dev, graphs) -> float:
+    """The mean service time of a fresh request, alone: the service's
+    host work on a graph it has not seen (partition, bucket, orders:
+    ``_entry``) and a ``pipeline_sim`` of its padded member (arrays to
+    the device included), over the mix's first 6 graphs."""
+    probe = S.ColoringService(P=SERVE_P, cfg=S.default_config(), device=dev)
+    walls = []
+    for g in graphs[:6]:
+        t = time.perf_counter()
+        e = probe._entry(g)
+        core.pipeline_sim(e.member, e.order, probe.cfg, device=dev)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t)
+    print(f"  9b a fresh request alone (partition + pipeline_sim), first 6 "
+          f"graphs: {', '.join(f'{w:.4f}' for w in walls)} s, mean "
+          f"{statistics.mean(walls):.4f} s", flush=True)
+    return statistics.mean(walls)
+
+
+def serve_leg_open_loop(core, ops, S, H, dev, graphs) -> None:
+    """Leg (b): the requests on a hybrid clock (scripted Poisson arrivals
+    whose mean gap is a fresh request's service time alone,
+    ``serve_job_seconds``: load 1; each poll advances the clock by its
+    measured wall seconds), in continuous and in flush mode: latency
+    p50/p99 (arrival to the end of the poll that completed it), graphs/s,
+    polls, engines, routes, launches against the solo runs together,
+    device idle share of the polls (device time from a trace of the
+    device alone), peak device memory."""
+    import gc
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gap = serve_job_seconds(core, S, dev, graphs)
+    t_arr = np.cumsum(np.random.default_rng(SERVE_SEED + 1).exponential(
+        gap, size=len(graphs)))
+    script = [H.Arrival(float(t), g) for t, g in zip(t_arr, graphs)]
+    solo = None
+    for mode in ("continuous", "flush"):
+        svc = S.ColoringService(
+            P=SERVE_P, cfg=S.default_config(), validate=True, device=dev,
+            clock=S.FakeClock(), serve=S.ServeConfig(
+                mode=mode, lanes=SERVE_LANES, chunk_iters=SERVE_CHUNK,
+                solo_warm=False))
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                serve_timers(S) as spent:
+            out, launches, wall = counted(
+                ops, lambda: H.run_script(svc, script, poll_cost=None))
+        peak = torch.cuda.max_memory_allocated(dev)
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e6
+        # the flush mode's batch results carry no member: they are
+        # checked valid; the engine results also bitwise their solo runs
+        served = check_served(core, ops, out, len(graphs), f"9b {mode}", dev)
+        solo = solo or served
+        lats = sorted(out.done_t[j] - out.submit_t[j] for j in out.results)
+        span = max(out.done_t.values()) - min(out.submit_t.values())
+        polls_s = sum(out.poll_s)
+        st = svc.stats()
+        print(f"  9b {mode}: {len(graphs)} requests, Poisson arrivals of "
+              f"mean gap {gap:.4f} s, latency p50 "
+              f"{lats[len(lats) // 2]:.4f} s, p99 "
+              f"{lats[min(len(lats) - 1, int(len(lats) * 0.99))]:.4f} s, "
+              f"{len(lats) / span:.3f} graphs/s over {span:.3f} s; "
+              f"{out.polls} polls ({polls_s:.3f} s of poll walls, wall "
+              f"{wall:.3f} s), engines made {svc._engine_seq}, routes solo "
+              f"{st['solo']} lane {st['lane']} batch {st['batch']}; device "
+              f"busy {busy:.4f} s, idle {1 - busy / polls_s:.3f} of the "
+              f"polls; peak device memory {peak / 2**30:.3f} GiB; of the "
+              f"poll walls: partition memo (_entry) {spent['_entry']:.3f} s, "
+              f"admit {spent['admit']:.3f} s, engine steps "
+              f"{spent['step']:.3f} s, drains {spent['drain']:.3f} s, "
+              f"color_many waves {spent['_dispatch']:.3f} s, wave results "
+              f"(_finish) {spent['_finish']:.3f} s, the rest "
+              f"{polls_s - sum(spent.values()):.3f} s", flush=True)
+        print(f"  9b {mode} launches: {serve_launches(launches, SERVE_KERNELS)}"
+              f"; solo runs together {serve_launches(solo, SERVE_KERNELS)}")
+        del svc, out, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def serve_leg_d2(core, ops, S, H, dev) -> None:
+    """Leg (c): 4 stencils at distance 2 (halo 2), K=4, 2 lanes: every
+    result valid at distance 2 and bitwise its solo run on the card."""
+    t = time.perf_counter()
+    graphs = [core.rmat.grid3d(*d) for d in SERVE_D2_GRIDS]
+    svc = S.ColoringService(
+        P=SERVE_P, cfg=S.default_config(distance=2, n_iters=SERVE_D2_K),
+        validate=True, device=dev, clock=S.FakeClock(),
+        serve=S.ServeConfig(lanes=SERVE_D2_LANES, chunk_iters=SERVE_CHUNK,
+                            solo_warm=False))
+    script = [H.Arrival(float(t), g) for t, g in enumerate(graphs)]
+    out, launches, wall = counted(ops, lambda: H.run_script(svc, script))
+    for name in ("select_run_d2", "conflict_frontier_d2"):
+        check(launches[name] > 0, f"9c: {name} never launched")
+    solo = check_served(core, ops, out, len(graphs), "9c", dev)
+    print(f"  9c D2 grid3d {list(SERVE_D2_GRIDS)} halo 2, K={SERVE_D2_K}, "
+          f"lanes {SERVE_D2_LANES}: {out.polls} polls, engines made "
+          f"{svc._engine_seq}, colors "
+          f"{[out.results[j]['n_colors'] for j in sorted(out.results)]}, "
+          f"every result valid at distance 2 and bitwise its solo run on "
+          f"the card; {time.perf_counter() - t:.3f} s (service wall "
+          f"{wall:.3f} s)")
+    print(f"  9c launches: service {serve_launches(launches, SERVE_D2_KERNELS)}"
+          f"; solo runs together {serve_launches(solo, SERVE_D2_KERNELS)}",
+          flush=True)
+    del svc, out
+
+
+def phase_serve(core, ops, dev) -> None:
+    """Phase 9: the continuous-batching service (``ColoringService`` of
+    ``repro_torch.launch.serve_coloring``, default config: Random-X X=10,
+    ND, K=8, patience 2, max_colors 1024; P=16) through its three legs."""
+    from repro_torch.launch import serve_coloring as S
+    from repro_torch.launch import serve_harness as H
+    t = time.perf_counter()
+    graphs = S._traffic(SERVE_OPEN_LOOP, *SERVE_SCALES, SERVE_SEED)
+    print(f"  traffic: {len(graphs)} graphs rmat_er/good/bad in turn, scales "
+          f"{SERVE_SCALES[0]}-{SERVE_SCALES[1]}, edge factor 8 "
+          f"({[g.n for g in graphs]} vertices); generate "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    serve_leg_bitwise(core, ops, S, H, dev, graphs)
+    phase("9a service bitwise (FakeClock)", t0)
+    t0 = time.perf_counter()
+    serve_leg_open_loop(core, ops, S, H, dev, graphs)
+    phase("9b service latency (hybrid clock)", t0)
+    t0 = time.perf_counter()
+    serve_leg_d2(core, ops, S, H, dev)
+    phase("9c service at distance 2", t0)
+    phase("9 service total", t)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1830,6 +2118,8 @@ def main() -> int:
     phase_many(core, ops, dev, d2_cross)
     phase(f"8 color_many: rmat({MANY_SCALE}) buckets P={MANY_P} and a D2 "
           "bucket", t)
+
+    phase_serve(core, ops, dev)
 
     kernels = []
     # launches: each kernel on its own path (the tile-form select and

@@ -17,6 +17,10 @@ All P shards run on one device as ``(P, …)`` tensors.  Public API:
   recolor_loop_sim                               — recolor-only loop
   color_many                                     — batched multi-graph
                                                    pipeline (lanes)
+  RecolorCarry, recolor_carry_init,              — the stepped recolor
+  pipeline_carry, pipeline_step                    loop (serving engines)
+  engine_init/step/put_program                   — the engines' cached
+                                                   programs
   PlanSignature, plan_signature,                 — dispatch identity and
   bucket_signature, program_cache_*                the per-signature cache
   selection                                      — the strategy names and
@@ -47,11 +51,14 @@ from .graph import (CommPlan, Graph, GraphBucket, IdPolicy, PartitionedGraph,
 from .ordering import compute_order
 from .piggyback import MessageStats, message_stats
 from .pipeline import (HISTORY_STATS, PipelineConfig, PlanSignature,
-                       bucket_signature, color_many, color_then_recolor,
-                       pipeline_sim, plan_signature, program_cache_clear,
+                       RecolorCarry, bucket_signature, color_many,
+                       color_then_recolor, engine_init_program,
+                       engine_put_program, engine_step_program,
+                       pipeline_carry, pipeline_sim, pipeline_step,
+                       plan_signature, program_cache_clear,
                        program_cache_contains, program_cache_stats,
-                       recolor_lanes, recolor_loop, recolor_loop_sim,
-                       resolve_pipeline_cfg)
+                       recolor_carry_init, recolor_lanes, recolor_loop,
+                       recolor_loop_sim, resolve_pipeline_cfg)
 from .recolor import (ND, NI, RAND, RV, RecolorConfig, arc_shards, arc_sim,
                       recolor_iterations, recolor_shards, recolor_sim,
                       schedule_for_iteration)
@@ -63,17 +70,21 @@ __all__ = [
     "ALLGATHER", "AUTO", "AxisComm", "ColorConfig", "CommConfig", "CommPlan",
     "Graph", "GraphBucket", "HISTORY_STATS", "IdPolicy", "MessageStats",
     "ND", "NI", "PartitionedGraph", "PipelineConfig", "PlanSignature",
-    "RAND", "RV", "RecolorConfig", "SCHEMES", "SCHEME_CHOICES", "SPARSE",
+    "RAND", "RV", "RecolorCarry", "RecolorConfig", "SCHEMES",
+    "SCHEME_CHOICES", "SPARSE",
     "allgather_bytes_per_exchange", "arc_shards", "arc_sim",
     "arrays_from_numpy", "assert_valid", "bucket_graphs",
     "bucket_signature", "bucket_to_device", "build_comm_plan",
     "check_coloring", "check_int32_limits", "color_graph_sim",
     "color_lanes", "color_many", "color_shards", "color_then_recolor",
     "colors_from_views", "compute_order", "detect_conflicts",
-    "detect_conflicts_d2", "id_policy", "message_stats", "ordering",
-    "pad_partition", "partition_graph", "pipeline_sim", "plan_fits",
+    "detect_conflicts_d2", "engine_init_program", "engine_put_program",
+    "engine_step_program", "id_policy", "message_stats",
+    "ordering", "pad_partition", "partition_graph", "pipeline_carry",
+    "pipeline_sim", "pipeline_step", "plan_fits",
     "plan_signature", "presets", "program_cache_clear",
-    "program_cache_contains", "program_cache_stats", "recolor_iterations",
+    "program_cache_contains", "program_cache_stats", "recolor_carry_init",
+    "recolor_iterations",
     "recolor_lanes", "recolor_loop", "recolor_loop_sim", "recolor_shards",
     "recolor_sim", "remap_plan_arrays", "resolve_cfg",
     "resolve_pipeline_cfg", "resolve_scheme", "rmat",

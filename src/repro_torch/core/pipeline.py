@@ -23,6 +23,15 @@ reference's ``vmap`` of ``lax.while_loop`` select-masks a finished lane.
 Each lane's result is bitwise a solo ``pipeline_sim`` of its padded member
 with the same keys; ``pipeline_sim`` itself is the one-lane case of the
 same loops.
+
+**Stepped form** (the serving engines of ``launch.serve_coloring``): the
+loop's state between iterations is a ``RecolorCarry`` (``pipeline_carry``
+colors one graph into one; ``recolor_carry_init`` makes one from a view),
+and ``pipeline_step`` advances every running lane by a chunk of
+iterations, each lane at its own iteration (its own permutation kind and
+key), reporting ``done`` per lane as the reference does, right after the
+chunk.  ``recolor_lanes`` is the same loop run to the end in one call.
+``engine_init/step/put_program`` are the engines' program-cache entries.
 """
 from __future__ import annotations
 
@@ -37,7 +46,7 @@ from repro_torch import rng
 
 from . import ordering
 from .comm import (ALLGATHER, AUTO, SPARSE, AxisComm,
-                   allgather_bytes_per_exchange, make_exchange, sparse_rounds)
+                   allgather_bytes_per_exchange, make_exchange)
 from .graph import (GraphBucket, PartitionedGraph, _ceil_pow2,
                     bucket_graphs, bucket_to_device, to_device)
 from .ordering import compute_order
@@ -107,102 +116,250 @@ class PipelineConfig:
 
 # ------------------------------------------------------------ the loops --
 
+@dataclasses.dataclass
+class RecolorCarry:
+    """The recolor loop's state between iterations, for L lanes: the
+    reference's carry ``(view, it, best, stall, hist, sizes,
+    n_out_of_range)``.
+
+    ``it`` is 1-based per lane (``it - 1`` iterations have run; a lane
+    past its stop, or an empty engine lane at ``K + 1``, is frozen);
+    ``best`` and ``stall`` are the adaptive stop's state.  They and the
+    history ``hist`` ``(L, max(K, 1), len(HISTORY_STATS))`` (rows the
+    stop never reached stay zero) live on the host; ``view`` ``(L·P,
+    n_slots)``, the class ``sizes`` ``(L, max_colors)`` and the
+    out-of-range counts ``n_oor`` ``(L,)`` on the device.
+    """
+
+    view: torch.Tensor
+    it: list
+    best: list
+    stall: list
+    hist: np.ndarray
+    sizes: torch.Tensor
+    n_oor: torch.Tensor
+
+    @property
+    def lanes(self) -> int:
+        return len(self.it)
+
+    def history(self, lane: int = 0) -> list:
+        """Lane ``lane``'s history: one dict per iteration it ran (the
+        reference's ``_history_to_host``)."""
+        out = []
+        for i, vals in enumerate(self.hist[lane].tolist()):
+            row = dict(zip(HISTORY_STATS, vals))
+            if not row.pop("ran"):
+                break
+            row["perm"] = ALL_PERMS[row.pop("perm_id")]
+            row["iteration"] = i + 1
+            out.append(row)
+        return out
+
+
+def recolor_carry_init(arrs: dict, view: torch.Tensor, cfg: PipelineConfig,
+                       lanes: int = 1) -> RecolorCarry:
+    """The recolor loop's initial carry from the colored ``(L·P, n_slots)``
+    view of ``lanes`` graphs: every lane at iteration 1 with an empty
+    history.  ``pipeline_step`` advances it; ``recolor_lanes`` runs it to
+    the end."""
+    n_local_max = arrs["indptr"].shape[1] - 1
+    sizes, n_oor = class_sizes(view, arrs["n_local"], n_local_max,
+                               cfg.recolor.max_colors, lanes=lanes)
+    hist = np.zeros((lanes, max(cfg.n_iters, 1), len(HISTORY_STATS)),
+                    np.int64)
+    return RecolorCarry(view=view, it=[1] * lanes, best=[INT32_MAX] * lanes,
+                        stall=[0] * lanes, hist=hist, sizes=sizes,
+                        n_oor=n_oor)
+
+
+def _patience(cfg: PipelineConfig) -> int:
+    return cfg.patience if cfg.patience else cfg.n_iters + 1  # never trips
+
+
+def _lane_on(carry: RecolorCarry, cfg: PipelineConfig) -> list:
+    """Per lane: does its adaptive stop still hold (the reference's
+    ``lane_on``)?"""
+    return [it <= cfg.n_iters and stall < _patience(cfg)
+            for it, stall in zip(carry.it, carry.stall)]
+
+
+def _check_resolved(cfg: PipelineConfig) -> None:
+    if cfg.recolor.scheme == AUTO:
+        raise ValueError("scheme='auto' must be resolved by an entry point "
+                         "(resolve_pipeline_cfg) before the run")
+
+
+def _advance(arrs: dict, carry: RecolorCarry, keys: torch.Tensor,
+             cfg: PipelineConfig, n_iters: int, exchange, comm: AxisComm,
+             settle: bool) -> RecolorCarry:
+    """Up to ``n_iters`` recoloring iterations of every running lane of
+    ``carry`` (in place), each lane at its own iteration ``it``.
+
+    Lane l's iteration ``it`` uses kind ``cfg.kind_ids[it - 1]`` and key
+    ``fold_in(keys[l], it)``.  A lane that is not running is frozen: its
+    chunk counts are zeroed (it colors nothing), it takes no exchange,
+    its view is selected back after each iteration (``recolor_steps``
+    builds the new view from zero) and it gets no history row.  Each
+    iteration reads the device once, for its schedule, whose class count
+    is the previous iteration's distinct-color count: the stop of a lane
+    is decided there.  The history rows cross to the host in one read at
+    the end; ``settle=True`` also decides the stop of the last iteration
+    from that read, so the carry's ``best``/``stall`` are current (the
+    stepped form), where the one-shot loop has no use for them.
+    """
+    rcfg = cfg.recolor
+    L, P = comm.L, comm.P
+    dev = carry.view.device
+    n_local_max = arrs["indptr"].shape[1] - 1
+    mc = rcfg.max_colors
+    K = cfg.n_iters
+    patience = _patience(cfg)
+    n_rounds = 0 if exchange.broadcast else exchange.n_rounds
+    view, sizes, n_oor = carry.view, carry.sizes, carry.n_oor
+    schedule = cfg.kind_ids
+    on = _lane_on(carry, cfg)
+    pending = [False] * L    # ran an iteration whose stop is not decided
+    masks = None             # (on, per-lane ints, per-row bools) on device
+    rows = []
+
+    def fold(lane: int, n: int) -> None:
+        """Lane ``lane``'s last iteration left ``n`` distinct colors."""
+        pending[lane] = False
+        carry.stall[lane] = (0 if n < carry.best[lane]
+                             else carry.stall[lane] + 1)
+        carry.best[lane] = min(carry.best[lane], n)
+        if carry.stall[lane] >= patience:
+            on[lane] = False
+
+    for _ in range(n_iters):
+        if not any(on):
+            break
+        kind_ids = [schedule[min(it, K) - 1] for it in carry.it]
+        kinds = [ALL_PERMS[k] for k in kind_ids]
+        live = {kinds[lane] for lane in range(L) if on[lane]}
+        # a frozen lane's rank is never used: it takes a running kind
+        kind = (live.pop() if len(live) == 1 else
+                [k if o else kinds[on.index(True)] for k, o in zip(kinds, on)])
+        rand_key = None
+        if RAND in (kind if isinstance(kind, list) else [kind]):
+            its = carry.it
+            rand_key = rng.fold_in(keys, its[0] if len(set(its)) == 1 else
+                                   torch.tensor(its, device=dev))
+        n_classes = (sizes > 0).sum(dim=1)
+        rank = permutation_rank(sizes, kind, rand_key)
+        sched = recolor_schedule(arrs, view, rank, n_classes, rcfg, n_rounds)
+        for lane in range(L):
+            if pending[lane]:
+                fold(lane, sched.n_classes[lane])
+        if not any(on):
+            break
+        if not all(on) and (masks is None or masks[0] != on):
+            lane_ints = torch.tensor(on, dtype=torch.int32, device=dev)
+            masks = (list(on), lane_ints[:, None],
+                     lane_ints.bool().repeat_interleave(P)[:, None])
+        if masks is not None:
+            sched.class_chunks.mul_(masks[1])
+        new_view, st = recolor_steps(arrs, sched, exchange, rcfg,
+                                     lanes_on=None if all(on) else on)
+        view = new_view if masks is None else torch.where(
+            masks[2], new_view, view)
+        sizes, oor_next = class_sizes(view, arrs["n_local"], n_local_max, mc,
+                                      lanes=L)
+        dev_part = torch.stack([st["n_colors"].long(), (sizes > 0).sum(dim=1),
+                                n_oor.long()])
+        host = [(carry.it[lane], (st["n_colors_before"][lane],
+                                  st["n_exchanges"][lane],
+                                  st["n_steps"][lane],
+                                  st["wire_bytes"][lane], kind_ids[lane]))
+                if on[lane] else None for lane in range(L)]
+        rows.append((dev_part, host))
+        for lane in range(L):
+            if on[lane]:
+                carry.it[lane] += 1
+                pending[lane] = True
+                if carry.it[lane] > K:
+                    on[lane] = False
+        n_oor = oor_next
+    if rows:
+        vals = torch.stack([d for d, _ in rows]).tolist()  # the one read
+        for (n_colors, nd, oor), (_, host) in zip(vals, rows):
+            for lane, h in enumerate(host):
+                if h is not None:
+                    it, (before, n_ex, n_steps, wire, kid) = h
+                    carry.hist[lane, it - 1] = (
+                        n_colors[lane], nd[lane], before, n_ex, n_steps,
+                        wire, oor[lane], kid, 1)
+        if settle:
+            for lane in range(L):
+                if pending[lane]:      # it ran the last iteration
+                    fold(lane, vals[-1][1][lane])
+    carry.view, carry.sizes, carry.n_oor = view, sizes, n_oor
+    return carry
+
+
 def recolor_lanes(arrs: dict, view: torch.Tensor, keys, cfg: PipelineConfig,
                   lanes: int = 1, comm: AxisComm | None = None):
     """K recoloring iterations of ``lanes`` graphs laid end to end on the
     shard axis, each lane with its own adaptive stop.
 
     ``keys`` ``(L, 2)``: lane l's iteration ``it`` uses ``fold_in(keys[l],
-    it)``.  A lane whose ``patience`` stop trips is frozen: its chunk
-    counts are zeroed (it colors nothing), it takes no exchange, its view
-    is selected back after each iteration (``recolor_steps`` builds the
-    new view from zero) and it gets no history row.  Returns ``(view,
-    histories, n_iters_run)``: one history list (of dicts) and one
-    iteration count per lane.
+    it)``.  A lane whose ``patience`` stop trips is frozen (``_advance``).
+    Returns ``(view, histories, n_iters_run)``: one history list (of
+    dicts) and one iteration count per lane.
     """
-    rcfg = cfg.recolor
-    if rcfg.scheme == AUTO:
-        raise ValueError("scheme='auto' must be resolved by an entry point "
-                         "(resolve_pipeline_cfg) before the run")
+    _check_resolved(cfg)
     comm = lane_comm(arrs, lanes, comm)
-    L, P = comm.L, comm.P
-    dev = view.device
-    keys = torch.as_tensor(keys).reshape(L, 2).to(dev)
-    n_local_max = arrs["indptr"].shape[1] - 1
-    mc = rcfg.max_colors
-    K = cfg.n_iters
-    patience = cfg.patience if cfg.patience else K + 1   # K+1 never trips
-    exchange = make_exchange(arrs, rcfg.comm_config, lanes=L)
-    n_rounds = sparse_rounds(arrs)
-    sizes, n_oor = class_sizes(view, arrs["n_local"], n_local_max, mc,
-                               lanes=L)
-    best, stall, on = [INT32_MAX] * L, [0] * L, [True] * L
-    on_lane = on_rows = None        # device masks, once a lane has stopped
-    rows = []
-    for it in range(1, K + 1):
-        kind_id = cfg.kind_ids[it - 1]
-        kind = ALL_PERMS[kind_id]
-        n_classes = (sizes > 0).sum(dim=1)
-        rank = permutation_rank(
-            sizes, kind, rng.fold_in(keys, it) if kind == RAND else None)
-        sched = recolor_schedule(arrs, view, rank, n_classes, rcfg, n_rounds)
-        if it > 1:
-            # this class count is the previous iteration's distinct colors
-            for lane in range(L):
-                if not on[lane]:
-                    continue
-                n = sched.n_classes[lane]
-                stall[lane] = 0 if n < best[lane] else stall[lane] + 1
-                best[lane] = min(best[lane], n)
-                if stall[lane] >= patience:
-                    on[lane] = False
-                    if on_lane is None:
-                        on_lane = torch.ones((L, 1), dtype=torch.int32,
-                                             device=dev)
-                        on_rows = torch.ones((L * P, 1), dtype=torch.bool,
-                                             device=dev)
-                    on_lane[lane] = 0
-                    on_rows[lane * P:(lane + 1) * P] = False
-            if not any(on):
-                break
-        if on_lane is not None:
-            sched.class_chunks.mul_(on_lane)
-        new_view, st = recolor_steps(arrs, sched, exchange, rcfg,
-                                     lanes_on=None if all(on) else on)
-        view = new_view if on_rows is None else torch.where(
-            on_rows, new_view, view)
-        sizes, oor_next = class_sizes(view, arrs["n_local"], n_local_max, mc,
-                                      lanes=L)
-        dev_part = torch.stack([st["n_colors"].long(), (sizes > 0).sum(dim=1),
-                                n_oor.long()])
-        host = [dict(n_colors_before=st["n_colors_before"][lane],
-                     n_exchanges=st["n_exchanges"][lane],
-                     n_steps=st["n_steps"][lane],
-                     wire_bytes=st["wire_bytes"][lane], perm_id=kind_id)
-                for lane in range(L)]
-        rows.append((dev_part, list(on), host))
-        n_oor = oor_next
-    return view, *_histories_to_host(rows, L)
+    L = comm.L
+    keys = torch.as_tensor(keys).reshape(L, 2).to(view.device)
+    carry = recolor_carry_init(arrs, view, cfg, lanes=L)
+    exchange = make_exchange(arrs, cfg.recolor.comm_config, lanes=L)
+    _advance(arrs, carry, keys, cfg, cfg.n_iters, exchange, comm,
+             settle=False)
+    return (carry.view, [carry.history(lane) for lane in range(L)],
+            [it - 1 for it in carry.it])
 
 
-def _histories_to_host(rows, L: int) -> tuple[list, list]:
-    """Per-iteration rows -> (one history list per lane, its iteration
-    count), with one device->host transfer for all device parts."""
-    hists = [[] for _ in range(L)]
-    if rows:
-        dev = torch.stack([d for d, _, _ in rows]).tolist()
-        for (n_colors, nd, oor), (_, on, host) in zip(dev, rows):
-            for lane in range(L):
-                if not on[lane]:
-                    continue
-                vals = dict(host[lane], n_colors=n_colors[lane],
-                            n_colors_distinct=nd[lane],
-                            n_out_of_range=oor[lane])
-                row = {k: vals[k] for k in HISTORY_STATS if k != "ran"}
-                row["perm"] = ALL_PERMS[row.pop("perm_id")]
-                row["iteration"] = len(hists[lane]) + 1
-                hists[lane].append(row)
-    return hists, [len(h) for h in hists]
+def pipeline_carry(arrs: dict, order: torch.Tensor, color_key,
+                   cfg: PipelineConfig, comm: AxisComm | None = None):
+    """The initial coloring of one graph packed into a recolor carry, for
+    stepped execution (the reference's ``pipeline_carry_spmd``): the
+    serving engine's lane admission.  Returns ``(carry, color_stats)``;
+    advance the carry with ``pipeline_step``."""
+    if cfg.color is None:
+        raise ValueError("pipeline_carry needs cfg.color")
+    _check_resolved(cfg)
+    view, cstats = color_lanes(arrs, order, color_key, cfg.color, comm=comm)
+    return recolor_carry_init(arrs, view, cfg), cstats[0]
+
+
+def pipeline_step(arrs: dict, carry: RecolorCarry, keys, cfg: PipelineConfig,
+                  chunk: int, *, exchange=None, comm: AxisComm | None = None):
+    """Advance every running lane of ``carry`` by ``chunk`` recoloring
+    iterations (the reference's ``pipeline_step_spmd`` over the lanes of
+    ``arrs``); returns ``(carry, done)``, ``done`` one bool per lane.
+
+    A lane that is done (its stop tripped, all K ran, or an empty engine
+    lane at ``it = K + 1``) is frozen, so stepping past its stop changes
+    nothing: stepping until every lane is done gives bitwise what
+    ``recolor_lanes`` gives, for any chunk and whatever lanes join
+    between steps.  ``done`` is the reference's, right after the chunk:
+    the last iteration's stop is decided from the step's one read of its
+    history rows.  ``exchange`` — the lanes' ``FlatExchange``, when the
+    caller keeps one (built from ``arrs`` otherwise).  The carry is
+    updated in place.
+    """
+    if chunk < 1:
+        raise ValueError("chunk must be >= 1")
+    _check_resolved(cfg)
+    L = carry.lanes
+    comm = lane_comm(arrs, L, comm)
+    if cfg.n_iters > 0:
+        if exchange is None:
+            exchange = make_exchange(arrs, cfg.recolor.comm_config, lanes=L)
+        keys = torch.as_tensor(keys).reshape(L, 2).to(carry.view.device)
+        _advance(arrs, carry, keys, cfg, chunk, exchange, comm, settle=True)
+    return carry, ~np.array(_lane_on(carry, cfg), dtype=bool)
 
 
 def recolor_loop(arrs: dict, view: torch.Tensor, key, cfg: PipelineConfig):
@@ -336,8 +493,14 @@ def program_cache_contains(sig: PlanSignature) -> bool:
     return sig in _PROGRAMS._fns
 
 
+def _dtype_name(v) -> str:
+    if isinstance(v, torch.Tensor):
+        return str(v.dtype).removeprefix("torch.")
+    return str(np.asarray(v).dtype)
+
+
 def _dims_of(arrs) -> tuple:
-    return tuple(sorted((k, tuple(v.shape), str(np.asarray(v).dtype))
+    return tuple(sorted((k, tuple(v.shape), _dtype_name(v))
                         for k, v in arrs.items()))
 
 
@@ -411,6 +574,75 @@ def bucket_signature(bucket: GraphBucket, cfg: PipelineConfig, *,
 def _program(sig: PlanSignature, lanes: int) -> _Program:
     return _PROGRAMS.get(sig, lambda: _Program(
         cfg=sig.cfg, comm=AxisComm(sig.P, lanes)))
+
+
+# ----------------------------------------------- continuous-engine programs --
+
+def _engine_sig(kind: str, P: int, cfg: PipelineConfig, plan_static, arrs,
+                batch: int, mesh) -> PlanSignature:
+    if mesh is not None:
+        raise NotImplementedError(
+            "the serving engines run on one device (mesh=None); a mesh "
+            "route waits for the multi-GPU port (ROADMAP Queue 1 item 5)")
+    if cfg.has_auto:
+        raise ValueError("the engine programs take a resolved config")
+    return _signature(kind, P, cfg, plan_static, _dims_of(arrs), batch=batch)
+
+
+def engine_init_program(P: int, cfg: PipelineConfig, plan_static, arrs,
+                        mesh=None):
+    """Cached one-lane admission program of a serving engine:
+    ``(arrs, order, color_key) -> (carry, color_stats)`` (``pipeline_carry``).
+
+    ``arrs`` is the lane's input dict (host or device), used for the
+    signature (kind ``engine_init``).  The entry keeps the one-lane
+    ``AxisComm``; an admission runs it once and puts the result into its
+    lane (``engine_put_program``)."""
+    sig = _engine_sig("engine_init", P, cfg, plan_static, arrs, 0, mesh)
+    comm = _program(sig, 1).comm
+    return lambda a, order, ck: pipeline_carry(a, order, ck, cfg, comm=comm)
+
+
+def engine_step_program(P: int, cfg: PipelineConfig, plan_static, arrs,
+                        B: int, chunk: int, mesh=None):
+    """Cached all-lanes step program of a serving engine: ``(arrs, carry,
+    keys, exchange=None) -> (carry, done)``, every running lane of the
+    ``(B·P, …)`` buffers ``arrs`` advanced by ``chunk`` iterations
+    (``pipeline_step``; signature kind ``engine_step{chunk}``).  Empty
+    and finished lanes are frozen, so a partly idle engine steps its
+    running lanes bitwise as they would run alone."""
+    sig = _engine_sig(f"engine_step{chunk}", P, cfg, plan_static, arrs, B,
+                      mesh)
+    comm = _program(sig, B).comm
+    return lambda a, carry, keys, exchange=None: pipeline_step(
+        a, carry, keys, cfg, chunk, exchange=exchange, comm=comm)
+
+
+def engine_put_program(P: int, cfg: PipelineConfig, plan_static, arrs,
+                       B: int, mesh=None):
+    """Cached lane-put program of a serving engine: ``(bufs, vals, b) ->
+    bufs`` writes one admitted lane's arrays, carry and color stats
+    (``vals = (arrs, carry, cstats)``, one lane) into lane ``b`` of the
+    engine's ``(arrs, carry, cstats)`` buffers — rows ``b·P … (b+1)·P``
+    of every ``(B·P, …)`` tensor, row ``b`` of every per-lane one — in
+    place, allocating nothing (signature kind ``engine_put``)."""
+    _program(_engine_sig("engine_put", P, cfg, plan_static, arrs, B, mesh), B)
+    return lambda bufs, vals, b: _put_lane(bufs, vals, b, P)
+
+
+def _put_lane(bufs, vals, b: int, P: int):
+    (arrs, carry, cstats), (a1, c1, s1) = bufs, vals
+    rows = slice(b * P, (b + 1) * P)
+    for k, t in arrs.items():
+        t[rows] = a1[k]
+    carry.view[rows] = c1.view
+    carry.sizes[b] = c1.sizes[0]
+    carry.n_oor[b] = c1.n_oor[0]
+    carry.hist[b] = c1.hist[0]
+    for name in ("it", "best", "stall"):
+        getattr(carry, name)[b] = getattr(c1, name)[0]
+    cstats[b] = dict(s1)
+    return bufs
 
 
 # -------------------------------------------------------- entry points --

@@ -133,13 +133,31 @@ def class_sizes(view, n_local, n_local_max: int, max_colors: int,
     return (sizes[0], oor[0]) if lanes is None else (sizes, oor)
 
 
-def permutation_rank(sizes, kind: str, key=None) -> torch.Tensor:
+def permutation_rank(sizes, kind, key=None) -> torch.Tensor:
     """rank[c] = recoloring step (1-based) of color class c; 0 for absent
     classes and class 0.  Ties break by color id; empty classes sort last.
     RAND ranks by ``rng.permutation(key, max_colors)`` (one key for all
     shards: the rank is global).  ``sizes`` ``(..., max_colors)`` with keys
     ``(..., 2)``: one rank per graph of a batch.
+
+    ``kind`` is one permutation for every graph, or for ``(L,
+    max_colors)`` sizes a sequence of L kinds, one per graph (the lanes
+    of a serving engine sit at their own iterations): each kind present
+    ranks every row, and each row takes its own kind's rank, as the
+    reference's narrowed ``lax.switch`` does under ``vmap``.
     """
+    if not isinstance(kind, str):
+        kinds = list(kind)
+        if len(kinds) != sizes.shape[0]:
+            raise ValueError(f"{len(kinds)} kinds for {sizes.shape[0]} lanes")
+        present = sorted(set(kinds), key=ALL_PERMS.index)
+        rank = permutation_rank(sizes, present[0],
+                                key if present[0] == RAND else None)
+        for k in present[1:]:
+            rows = torch.tensor([x == k for x in kinds], device=sizes.device)
+            rank = torch.where(rows[:, None], permutation_rank(
+                sizes, k, key if k == RAND else None), rank)
+        return rank
     mc = sizes.shape[-1]
     colors = torch.arange(mc, device=sizes.device)
     present = (sizes > 0) & (colors > 0)
