@@ -113,7 +113,19 @@ before the final line):
    polls, engines, routes, launches against the solo runs together, the
    device idle share of the polls, peak device memory; (c) 4 ``grid3d``
    stencils at distance 2 (halo 2, K=4, 2 lanes): valid at distance 2 and
-   bitwise their solo runs.  Phase 9's launches print on their own lines.
+   bitwise their solo runs.  Phase 9's launches print on their own lines;
+10. the sharded entry points on a one-rank NCCL world (``launch.mesh``,
+   ``init_world`` with a ``file://`` store, no network), one shard of P=1
+   per rank: (a) ``pipeline_sharded`` on ``MeshSpec.worker(1)`` on phase
+   3's graph at full width (2^20 vertices, MAXD 678, the quality preset,
+   K=8), against a counted ``pipeline_sim`` of the same partition on the
+   card: view, color stats and history bitwise, valid at distance 1, the
+   same launches of every kernel; the NCCL collectives of a profiled
+   repeat by name and count; (b) ``color_many_sharded`` on
+   ``MeshSpec.coloring(1, batch=1)`` on phase 8's 8 x ``rmat_good(17, 8)``
+   at P=1: every lane bitwise ``color_many``'s, the same launches; (c)
+   ``ColoringService(mesh=MeshSpec.coloring(1, 1))`` on phase 9(a)'s
+   script at P=1: every result bitwise the ``mesh=None`` service's.
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
 result line.
@@ -168,6 +180,8 @@ SERVE_BITWISE, SERVE_OPEN_LOOP = 12, 24
 SERVE_D2_GRIDS = ((32, 32, 32), (32, 32, 24), (24, 24, 24), (32, 24, 24))
 SERVE_D2_K, SERVE_D2_LANES = 4, 2
 SERVE_KERNELS = ("select_run", "conflict_frontier")
+# the sharded entry points (phase 10): one rank, so one shard
+MESH_P = 1
 SERVE_D2_KERNELS = ("select_run_d2", "conflict_frontier_d2")
 
 
@@ -1742,12 +1756,13 @@ def drive_bucket(core, ops, dev, graphs, pgs, bucket, cfg, label) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_many(core, ops, dev, d2_cross) -> None:
+def phase_many(core, ops, dev, d2_cross) -> list:
     """Phase 8: ``color_many`` at full size — a D1 bucket pair (8 x
     ``rmat_good(17, 8)`` and 4 x ``rmat_bad(17, 8)`` on P=16, the quality
     preset, K=8, ``pad_batch=True``) and a D2 bucket (phase 6's
     ``grid3d(32, 32, 32)`` halo-2 partition and ``grid3d(32, 32, 24)``, the
-    D2 preset, K=8), each bucket driven by ``drive_bucket``."""
+    D2 preset, K=8), each bucket driven by ``drive_bucket``.  Returns the
+    8 RMAT-Good graphs (phase 10 colors them again)."""
     from repro_torch.core import presets
     t = time.perf_counter()
     graphs = ([core.rmat.rmat_good(MANY_SCALE, 8, seed=s) for s in MANY_GOOD]
@@ -1790,6 +1805,7 @@ def phase_many(core, ops, dev, d2_cross) -> None:
     drive_bucket(core, ops, dev, [g6, g2], pgs, buckets[0],
                  d2_config(presets, MANY_K), "8b")
     phase("8b D2 bucket (2 graphs)", t0)
+    return graphs[:len(MANY_GOOD)]
 
 
 # -- phase 9: the continuous-batching service --------------------------------
@@ -2028,7 +2044,7 @@ def serve_leg_d2(core, ops, S, H, dev) -> None:
     del svc, out
 
 
-def phase_serve(core, ops, dev) -> None:
+def phase_serve(core, ops, dev) -> list:
     """Phase 9: the continuous-batching service (``ColoringService`` of
     ``repro_torch.launch.serve_coloring``, default config: Random-X X=10,
     ND, K=8, patience 2, max_colors 1024; P=16) through its three legs."""
@@ -2050,6 +2066,183 @@ def phase_serve(core, ops, dev) -> None:
     serve_leg_d2(core, ops, S, H, dev)
     phase("9c service at distance 2", t0)
     phase("9 service total", t)
+    return graphs
+
+
+# -- phase 10: the sharded entry points on a one-rank NCCL world ------------
+
+def nccl_collectives(prof) -> str:
+    """The NCCL work of a profiled run: its host-side collective calls and
+    its device kernels, by name and count."""
+    from torch.autograd import DeviceType
+    host, dev = {}, {}
+    for e in prof.key_averages():
+        if "nccl" in e.key.lower():
+            side = dev if e.device_type == DeviceType.CUDA else host
+            side[e.key] = side.get(e.key, 0) + e.count
+    return f"host calls {host}; device kernels {dev or 'none'}"
+
+
+def mesh_pipeline(core, ops, dev, M, g) -> dict:
+    """10(a): ``pipeline_sharded`` on ``MeshSpec.worker(1)`` against a
+    counted ``pipeline_sim`` of the same P=1 partition of phase 3's graph.
+    Returns the sharded run's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import presets
+    t = time.perf_counter()
+    pg = core.partition_graph(g, MESH_P)
+    order = core.compute_order(pg, core.ordering.INTERNAL_FIRST)
+    cfg = presets.pipeline_config(presets.quality(x=10), n_iters=MAIN_K)
+    print(f"  10a graph rmat_good({MAIN_SCALE}, 8, seed=1) at P={MESH_P}: "
+          f"n_local_max={pg.n_local_max}, maxd={pg.maxd}; partition+order "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    mesh = M.MeshSpec.worker(MESH_P).build()
+    (v_sim, r_sim), l_sim, w_sim = counted(
+        ops, lambda: core.pipeline_sim(pg, order, cfg, device=dev))
+    (v_sh, r_sh), l_sh, w_sh = counted(
+        ops, lambda: core.pipeline_sharded(pg, order, cfg, mesh))
+    check(torch.equal(v_sim, v_sh) and r_sim["color"] == r_sh["color"]
+          and r_sim["history"] == r_sh["history"]
+          and r_sim["n_iters_run"] == r_sh["n_iters_run"],
+          "10a: pipeline_sharded differs from pipeline_sim")
+    st = core.check_coloring(g, core.colors_from_views(pg, v_sh))
+    check(st["valid"], f"10a: coloring invalid: {st}")
+    check(l_sh == l_sim, f"10a: launches {l_sh} sharded, {l_sim} sim")
+    for name in ("select_run", "conflict_frontier"):
+        check(l_sh[name] > 0, f"10a: {name} never launched")
+    del v_sim
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        warm = core.pipeline_sharded(pg, order, cfg, mesh)[1]["seconds"]
+        torch.cuda.synchronize(dev)
+    hist = r_sh["history"]
+    print(f"  10a pipeline_sharded: colors {hist[-1]['n_colors_distinct']} "
+          f"after {r_sh['n_iters_run']} iterations, initial "
+          f"{r_sh['color']}; bitwise pipeline_sim's (view, color stats, "
+          f"history), valid; launches "
+          f"{serve_launches(l_sh, SERVE_KERNELS)} (sim the same); walls "
+          f"sharded {w_sh:.3f} s ({stage_seconds(r_sh)}), sim {w_sim:.3f} "
+          f"s ({stage_seconds(r_sim)}); profiled warm repeat "
+          f"{', '.join(f'{k} {v:.3f} s' for k, v in warm.items())}",
+          flush=True)
+    print(f"  10a NCCL in the profiled repeat: {nccl_collectives(prof)}",
+          flush=True)
+    return l_sh
+
+
+def mesh_many(core, ops, dev, M, goods) -> None:
+    """10(b): ``color_many_sharded`` on ``MeshSpec.coloring(1, batch=1)``
+    against ``color_many`` on phase 8's RMAT-Good graphs at P=1."""
+    from repro_torch.core import presets
+    t = time.perf_counter()
+    pgs = [core.partition_graph(g, MESH_P) for g in goods]
+    buckets = core.bucket_graphs(pgs)
+    check([b.B for b in buckets] == [len(goods)],
+          f"10b: the graphs bucket as {[b.B for b in buckets]}")
+    print(f"  10b {len(goods)} graphs rmat_good({MANY_SCALE}, 8) at "
+          f"P={MESH_P}: one bucket, n_local_max "
+          f"{buckets[0].members[0].n_local_max}, maxd "
+          f"{buckets[0].members[0].maxd}; partition and bucket "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    cfg = presets.pipeline_config(presets.quality(x=10), n_iters=MANY_K)
+    mesh = M.MeshSpec.coloring(MESH_P, batch=1).build()
+    sim, l_sim, w_sim = counted(ops, lambda: core.color_many(
+        pgs, cfg, buckets=buckets, pad_batch=True, device=dev))
+    sh, l_sh, w_sh = counted(ops, lambda: core.color_many_sharded(
+        pgs, cfg, mesh, buckets=buckets, pad_batch=True))
+    for i, (a, b) in enumerate(zip(sim, sh)):
+        check(torch.equal(a["view"], b["view"])
+              and np.array_equal(a["colors"], b["colors"])
+              and a["color"] == b["color"] and a["history"] == b["history"]
+              and a["n_iters_run"] == b["n_iters_run"],
+              f"10b: graph {i} differs between color_many_sharded and "
+              "color_many")
+    check(l_sh == l_sim, f"10b: launches {l_sh} sharded, {l_sim} sim")
+    print(f"  10b every lane bitwise color_many's; colors "
+          f"{[r['history'][-1]['n_colors_distinct'] for r in sh]}; launches "
+          f"{serve_launches(l_sh, SERVE_KERNELS)} (sim the same); walls "
+          f"sharded {w_sh:.3f} s, sim {w_sim:.3f} s", flush=True)
+    buckets[0].__dict__.pop("_device_arrays", None)
+    buckets[0].__dict__.pop("_stacked", None)
+
+
+def mesh_serve(ops, dev, M, graphs) -> None:
+    """10(c): phase 9(a)'s script (the mix's first 6 graphs, each twice in
+    a row, one per tick, continuous mode) at P=1 through
+    ``ColoringService(mesh=MeshSpec.coloring(1, 1))`` and the ``mesh=None``
+    service: every result bitwise the same."""
+    import gc
+
+    from repro_torch.launch import serve_coloring as S
+    from repro_torch.launch import serve_harness as H
+    graphs = [g for g in graphs[:SERVE_BITWISE // 2] for _ in range(2)]
+    script = [H.Arrival(float(t), g) for t, g in enumerate(graphs)]
+    runs = {}
+    for label, mesh in (("mesh=None", None),
+                        ("mesh", M.MeshSpec.coloring(MESH_P, 1))):
+        svc = S.ColoringService(
+            P=MESH_P, cfg=S.default_config(), validate=True, device=dev,
+            mesh=mesh, clock=S.FakeClock(), serve=S.ServeConfig(
+                lanes=SERVE_LANES, chunk_iters=SERVE_CHUNK, solo_warm=False))
+        out, launches, wall = counted(ops, lambda: H.run_script(svc, script))
+        check(not out.shed and not out.failed
+              and len(out.results) == len(graphs),
+              f"10c {label}: {len(out.results)} results, shed {out.shed}, "
+              f"failed {out.failed}")
+        runs[label] = (out.results, launches, wall, out.polls)
+        del svc, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    (ref, l_ref, w_ref, p_ref), (got, l_got, w_got, p_got) = runs.values()
+    for jid, r in ref.items():
+        g = got[jid]
+        check(np.array_equal(r["colors"], g["colors"])
+              and r["check"]["valid"] and g["check"]["valid"]
+              and all(r[k] == g[k] for k in ("color", "history",
+                                             "n_iters_run", "route")),
+              f"10c: request {jid} differs between the mesh route and "
+              "mesh=None")
+    print(f"  10c {len(graphs)} requests at P={MESH_P}, lanes "
+          f"{SERVE_LANES}: every result valid and bitwise the mesh=None "
+          f"service's; colors {[ref[j]['n_colors'] for j in sorted(ref)]}; "
+          f"polls {p_got} (mesh=None {p_ref}); launches mesh "
+          f"{serve_launches(l_got, SERVE_KERNELS)}, mesh=None "
+          f"{serve_launches(l_ref, SERVE_KERNELS)}; walls {w_got:.3f} s, "
+          f"{w_ref:.3f} s", flush=True)
+
+
+def phase_mesh(core, ops, dev, g, goods, serve_graphs) -> None:
+    """Phase 10: the sharded entry points on a one-rank NCCL world on this
+    card (a ``file://`` store in the checkout's build directory)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+    t = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    store = tempfile.mkdtemp(prefix="nccl-store-", dir=root)
+    got = M.init_world(init_method=f"file://{store}/store", rank=0,
+                       world_size=1)
+    check(got == dev, f"init_world put the rank on {got}, not {dev}")
+    try:
+        t0 = time.perf_counter()
+        mesh_pipeline(core, ops, dev, M, g)
+        phase(f"10a pipeline_sharded rmat_good({MAIN_SCALE}) P={MESH_P}", t0)
+        t0 = time.perf_counter()
+        mesh_many(core, ops, dev, M, goods)
+        phase(f"10b color_many_sharded rmat_good({MANY_SCALE}) x "
+              f"{len(goods)} P={MESH_P}", t0)
+        t0 = time.perf_counter()
+        mesh_serve(ops, dev, M, serve_graphs)
+        phase(f"10c ColoringService(mesh) P={MESH_P}", t0)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    phase("10 sharded entry points total (one-rank NCCL world)", t)
 
 
 def main() -> int:
@@ -2115,11 +2308,13 @@ def main() -> int:
           f"grid3d{D2_CROSS_GRID} P={D2_P}", t)
 
     t = time.perf_counter()
-    phase_many(core, ops, dev, d2_cross)
+    goods = phase_many(core, ops, dev, d2_cross)
     phase(f"8 color_many: rmat({MANY_SCALE}) buckets P={MANY_P} and a D2 "
           "bucket", t)
 
-    phase_serve(core, ops, dev)
+    serve_graphs = phase_serve(core, ops, dev)
+
+    phase_mesh(core, ops, dev, main[0], goods, serve_graphs)
 
     kernels = []
     # launches: each kernel on its own path (the tile-form select and

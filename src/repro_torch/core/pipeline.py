@@ -45,8 +45,9 @@ import torch
 from repro_torch import rng
 
 from . import ordering
-from .comm import (ALLGATHER, AUTO, SPARSE, AxisComm,
-                   allgather_bytes_per_exchange, make_exchange)
+from .comm import (ALLGATHER, AUTO, AXIS, SPARSE, AxisComm, MeshComm,
+                   allgather_bytes_per_exchange, batch_axis_size,
+                   make_exchange, mesh_axes, run_sharded, run_sharded_many)
 from .graph import (GraphBucket, PartitionedGraph, _ceil_pow2,
                     bucket_graphs, bucket_to_device, to_device)
 from .ordering import compute_order
@@ -62,7 +63,6 @@ from .speculative import (ColorConfig, apply_partial, color_lanes, lane_comm,
 HISTORY_STATS = ("n_colors", "n_colors_distinct", "n_colors_before",
                  "n_exchanges", "n_steps", "wire_bytes", "n_out_of_range",
                  "perm_id", "ran")
-AXIS = "workers"   # the reference's shard axis name, in the signature's axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,14 +158,14 @@ class RecolorCarry:
 
 
 def recolor_carry_init(arrs: dict, view: torch.Tensor, cfg: PipelineConfig,
-                       lanes: int = 1) -> RecolorCarry:
+                       lanes: int = 1, comm=None) -> RecolorCarry:
     """The recolor loop's initial carry from the colored ``(L·P, n_slots)``
-    view of ``lanes`` graphs: every lane at iteration 1 with an empty
-    history.  ``pipeline_step`` advances it; ``recolor_lanes`` runs it to
-    the end."""
+    view of ``lanes`` graphs (on a mesh: ``(L, n_slots)``, with the rank's
+    ``MeshComm``): every lane at iteration 1 with an empty history.
+    ``pipeline_step`` advances it; ``recolor_lanes`` runs it to the end."""
     n_local_max = arrs["indptr"].shape[1] - 1
     sizes, n_oor = class_sizes(view, arrs["n_local"], n_local_max,
-                               cfg.recolor.max_colors, lanes=lanes)
+                               cfg.recolor.max_colors, lanes=lanes, comm=comm)
     hist = np.zeros((lanes, max(cfg.n_iters, 1), len(HISTORY_STATS)),
                     np.int64)
     return RecolorCarry(view=view, it=[1] * lanes, best=[INT32_MAX] * lanes,
@@ -191,7 +191,7 @@ def _check_resolved(cfg: PipelineConfig) -> None:
 
 
 def _advance(arrs: dict, carry: RecolorCarry, keys: torch.Tensor,
-             cfg: PipelineConfig, n_iters: int, exchange, comm: AxisComm,
+             cfg: PipelineConfig, n_iters: int, exchange, comm,
              settle: bool) -> RecolorCarry:
     """Up to ``n_iters`` recoloring iterations of every running lane of
     ``carry`` (in place), each lane at its own iteration ``it``.
@@ -206,10 +206,12 @@ def _advance(arrs: dict, carry: RecolorCarry, keys: torch.Tensor,
     is decided there.  The history rows cross to the host in one read at
     the end; ``settle=True`` also decides the stop of the last iteration
     from that read, so the carry's ``best``/``stall`` are current (the
-    stepped form), where the one-shot loop has no use for them.
+    stepped form), where the one-shot loop has no use for them.  On a 2D
+    mesh a rank whose lanes are all frozen keeps taking the
+    ``lane_uniform`` decision until every batch row's lanes are.
     """
     rcfg = cfg.recolor
-    L, P = comm.L, comm.P
+    L = comm.L
     dev = carry.view.device
     n_local_max = arrs["indptr"].shape[1] - 1
     mc = rcfg.max_colors
@@ -233,7 +235,10 @@ def _advance(arrs: dict, carry: RecolorCarry, keys: torch.Tensor,
             on[lane] = False
 
     for _ in range(n_iters):
-        if not any(on):
+        if not comm.lane_uniform(any(on)):
+            break
+        if not any(on):      # a lane of another batch row still runs
+            comm.wait_lanes()
             break
         kind_ids = [schedule[min(it, K) - 1] for it in carry.it]
         kinds = [ALL_PERMS[k] for k in kind_ids]
@@ -248,24 +253,26 @@ def _advance(arrs: dict, carry: RecolorCarry, keys: torch.Tensor,
                                    torch.tensor(its, device=dev))
         n_classes = (sizes > 0).sum(dim=1)
         rank = permutation_rank(sizes, kind, rand_key)
-        sched = recolor_schedule(arrs, view, rank, n_classes, rcfg, n_rounds)
+        sched = recolor_schedule(arrs, view, rank, n_classes, rcfg, n_rounds,
+                                 comm)
         for lane in range(L):
             if pending[lane]:
                 fold(lane, sched.n_classes[lane])
         if not any(on):
-            break
+            continue
         if not all(on) and (masks is None or masks[0] != on):
             lane_ints = torch.tensor(on, dtype=torch.int32, device=dev)
             masks = (list(on), lane_ints[:, None],
-                     lane_ints.bool().repeat_interleave(P)[:, None])
+                     comm.per_shard(lane_ints.bool())[:, None])
         if masks is not None:
             sched.class_chunks.mul_(masks[1])
         new_view, st = recolor_steps(arrs, sched, exchange, rcfg,
-                                     lanes_on=None if all(on) else on)
+                                     lanes_on=None if all(on) else on,
+                                     comm=comm)
         view = new_view if masks is None else torch.where(
             masks[2], new_view, view)
         sizes, oor_next = class_sizes(view, arrs["n_local"], n_local_max, mc,
-                                      lanes=L)
+                                      lanes=L, comm=comm)
         dev_part = torch.stack([st["n_colors"].long(), (sizes > 0).sum(dim=1),
                                 n_oor.long()])
         host = [(carry.it[lane], (st["n_colors_before"][lane],
@@ -281,6 +288,8 @@ def _advance(arrs: dict, carry: RecolorCarry, keys: torch.Tensor,
                 if carry.it[lane] > K:
                     on[lane] = False
         n_oor = oor_next
+    else:
+        comm.wait_lanes()    # the batch rows leave the loop together
     if rows:
         vals = torch.stack([d for d, _ in rows]).tolist()  # the one read
         for (n_colors, nd, oor), (_, host) in zip(vals, rows):
@@ -299,21 +308,23 @@ def _advance(arrs: dict, carry: RecolorCarry, keys: torch.Tensor,
 
 
 def recolor_lanes(arrs: dict, view: torch.Tensor, keys, cfg: PipelineConfig,
-                  lanes: int = 1, comm: AxisComm | None = None):
+                  lanes: int = 1, comm=None):
     """K recoloring iterations of ``lanes`` graphs laid end to end on the
     shard axis, each lane with its own adaptive stop.
 
     ``keys`` ``(L, 2)``: lane l's iteration ``it`` uses ``fold_in(keys[l],
     it)``.  A lane whose ``patience`` stop trips is frozen (``_advance``).
-    Returns ``(view, histories, n_iters_run)``: one history list (of
-    dicts) and one iteration count per lane.
+    ``comm``: the lanes' ``AxisComm``, or on a mesh the rank's
+    ``MeshComm``.  Returns ``(view, histories, n_iters_run)``: one history
+    list (of dicts) and one iteration count per lane.
     """
     _check_resolved(cfg)
     comm = lane_comm(arrs, lanes, comm)
     L = comm.L
     keys = torch.as_tensor(keys).reshape(L, 2).to(view.device)
-    carry = recolor_carry_init(arrs, view, cfg, lanes=L)
-    exchange = make_exchange(arrs, cfg.recolor.comm_config, lanes=L)
+    carry = recolor_carry_init(arrs, view, cfg, lanes=L, comm=comm)
+    exchange = make_exchange(arrs, cfg.recolor.comm_config, lanes=L,
+                             comm=comm)
     _advance(arrs, carry, keys, cfg, cfg.n_iters, exchange, comm,
              settle=False)
     return (carry.view, [carry.history(lane) for lane in range(L)],
@@ -321,7 +332,7 @@ def recolor_lanes(arrs: dict, view: torch.Tensor, keys, cfg: PipelineConfig,
 
 
 def pipeline_carry(arrs: dict, order: torch.Tensor, color_key,
-                   cfg: PipelineConfig, comm: AxisComm | None = None):
+                   cfg: PipelineConfig, comm=None):
     """The initial coloring of one graph packed into a recolor carry, for
     stepped execution (the reference's ``pipeline_carry_spmd``): the
     serving engine's lane admission.  Returns ``(carry, color_stats)``;
@@ -330,11 +341,11 @@ def pipeline_carry(arrs: dict, order: torch.Tensor, color_key,
         raise ValueError("pipeline_carry needs cfg.color")
     _check_resolved(cfg)
     view, cstats = color_lanes(arrs, order, color_key, cfg.color, comm=comm)
-    return recolor_carry_init(arrs, view, cfg), cstats[0]
+    return recolor_carry_init(arrs, view, cfg, comm=comm), cstats[0]
 
 
 def pipeline_step(arrs: dict, carry: RecolorCarry, keys, cfg: PipelineConfig,
-                  chunk: int, *, exchange=None, comm: AxisComm | None = None):
+                  chunk: int, *, exchange=None, comm=None):
     """Advance every running lane of ``carry`` by ``chunk`` recoloring
     iterations (the reference's ``pipeline_step_spmd`` over the lanes of
     ``arrs``); returns ``(carry, done)``, ``done`` one bool per lane.
@@ -356,7 +367,8 @@ def pipeline_step(arrs: dict, carry: RecolorCarry, keys, cfg: PipelineConfig,
     comm = lane_comm(arrs, L, comm)
     if cfg.n_iters > 0:
         if exchange is None:
-            exchange = make_exchange(arrs, cfg.recolor.comm_config, lanes=L)
+            exchange = make_exchange(arrs, cfg.recolor.comm_config, lanes=L,
+                                     comm=comm)
         keys = torch.as_tensor(keys).reshape(L, 2).to(carry.view.device)
         _advance(arrs, carry, keys, cfg, chunk, exchange, comm, settle=True)
     return carry, ~np.array(_lane_on(carry, cfg), dtype=bool)
@@ -403,11 +415,12 @@ class PlanSignature:
     ``rungs`` is the comm plan's static ``(shifts, pow2 widths)``,
     ``scheme`` the resolved exchange scheme, ``batch`` the lane count (0 =
     one graph), ``dims`` every input array's ``(name, shape, dtype)``,
-    ``axes`` the implied shard axis ``(("workers", P),)``, ``cfg`` the
-    resolved config; ``extra`` is unused here (the reference's mesh).
+    ``axes`` the mesh's ``((name, size), …)`` or the simulator's implied
+    shard axis ``(("workers", P),)``, ``cfg`` the resolved config;
+    ``extra`` the ``DeviceMesh`` of a sharded program (None in the sim).
     """
 
-    kind: str          # pipe_sim | loop_sim | many_sim
+    kind: str          # pipe_sim | loop_sim | many_sim | *_sharded | engine_*
     P: int
     n_local_max: int
     maxd: int
@@ -434,10 +447,11 @@ class PlanSignature:
 @dataclasses.dataclass
 class _Program:
     """What a signature alone decides: the resolved config and the lanes'
-    ``AxisComm``, whose index maps it keeps per device."""
+    ``AxisComm`` (whose index maps it keeps per device), or on a mesh the
+    rank's ``MeshComm`` (its process groups)."""
 
     cfg: PipelineConfig
-    comm: AxisComm
+    comm: object
 
 
 class _ProgramCache:
@@ -504,8 +518,14 @@ def _dims_of(arrs) -> tuple:
                         for k, v in arrs.items()))
 
 
+def _mesh_axes_or_sim(mesh, P: int) -> tuple:
+    """Signature ``axes``: the mesh's layout, or the simulator's implied
+    shard axis of size P."""
+    return ((AXIS, P),) if mesh is None else mesh_axes(mesh)
+
+
 def _signature(kind: str, P: int, cfg: PipelineConfig, plan_static, dims,
-               batch: int = 0) -> PlanSignature:
+               batch: int = 0, mesh=None) -> PlanSignature:
     mc = (cfg.color.max_colors if cfg.color is not None
           else cfg.recolor.max_colors)
     d = dict((name, shape) for name, shape, _ in dims)
@@ -514,7 +534,8 @@ def _signature(kind: str, P: int, cfg: PipelineConfig, plan_static, dims,
         maxd=int(d["nbr"][-1]), max_colors=mc,
         distance=cfg.recolor.distance, scheme=cfg.recolor.scheme,
         rungs=plan_static if plan_static is not None else (),
-        batch=batch, cfg=cfg, dims=dims, axes=((AXIS, P),))
+        batch=batch, cfg=cfg, dims=dims, axes=_mesh_axes_or_sim(mesh, P),
+        extra=mesh)
 
 
 def _plan_static(pg: PartitionedGraph, cfg: PipelineConfig):
@@ -522,13 +543,17 @@ def _plan_static(pg: PartitionedGraph, cfg: PipelineConfig):
 
 
 def plan_signature(pg: PartitionedGraph, cfg: PipelineConfig, *,
-                   kind: str = "pipe_sim", batch: int = 0) -> PlanSignature:
+                   kind: str | None = None, batch: int = 0,
+                   mesh=None) -> PlanSignature:
     """The signature a ``pipeline_sim``-family dispatch of ``pg`` uses
-    (resolves "auto"; nothing runs)."""
+    (resolves "auto"; nothing runs).  ``mesh`` selects the
+    ``pipeline_sharded`` program (``kind`` defaults accordingly)."""
+    if kind is None:
+        kind = "pipe_sim" if mesh is None else "pipe_sharded"
     cfg = resolve_pipeline_cfg(pg, cfg)
     dims = _dims_of(pg.arrays(sparse=cfg.needs_sparse_plan))
     return _signature(kind, pg.P, cfg, _plan_static(pg, cfg), dims,
-                      batch=batch)
+                      batch=batch, mesh=mesh)
 
 
 def _bucket_scheme(bucket: GraphBucket) -> str:
@@ -553,40 +578,57 @@ def _resolve_bucket_cfg(bucket: GraphBucket,
                                recolor=fix(cfg.recolor))
 
 
-def _lane_target(B: int, pad_batch: bool) -> int:
-    """Padded lane count: the next power of two under ``pad_batch``."""
-    return _ceil_pow2(B) if pad_batch else B
+def _lane_target(B: int, pad_batch: bool, lane_multiple: int = 1) -> int:
+    """Padded lane count: the next power of two under ``pad_batch``, and
+    always a multiple of ``lane_multiple`` (a mesh's batch axis, which
+    splits the lanes)."""
+    t = _ceil_pow2(B) if pad_batch else B
+    return -(-t // lane_multiple) * lane_multiple
 
 
 def bucket_signature(bucket: GraphBucket, cfg: PipelineConfig, *,
-                     pad_batch: bool = True) -> PlanSignature:
-    """The signature a ``color_many`` dispatch of ``bucket`` uses (batch
-    padding applied to shapes only; nothing is stacked or run)."""
+                     pad_batch: bool = True, mesh=None) -> PlanSignature:
+    """The signature a ``color_many`` (``mesh``: ``color_many_sharded``)
+    dispatch of ``bucket`` uses (batch padding and the sharded layout's
+    ``(P, B, …)`` axes applied to shapes only; nothing is stacked or
+    run)."""
     bcfg = _resolve_bucket_cfg(bucket, cfg)
     ma = bucket.member_arrays(0, sparse=bcfg.needs_sparse_plan)
-    B = _lane_target(bucket.B, pad_batch)
-    dims = tuple(sorted((k, (B,) + tuple(v.shape), str(np.asarray(v).dtype))
+    B = _lane_target(bucket.B, pad_batch,
+                     1 if mesh is None else batch_axis_size(mesh))
+
+    def dim(v):
+        s = (B,) + tuple(v.shape)
+        return s if mesh is None else (s[1], s[0]) + s[2:]
+
+    dims = tuple(sorted((k, dim(v), str(np.asarray(v).dtype))
                         for k, v in ma.items()))
     ps = bucket.plan_static if bcfg.needs_sparse_plan else None
-    return _signature("many_sim", bucket.P, bcfg, ps, dims, batch=B)
+    return _signature("many_sim" if mesh is None else "many_sharded",
+                      bucket.P, bcfg, ps, dims, batch=B, mesh=mesh)
 
 
 def _program(sig: PlanSignature, lanes: int) -> _Program:
+    """The cache entry of ``sig``; ``lanes`` is the lane count one device
+    holds (on a mesh: one batch row's)."""
     return _PROGRAMS.get(sig, lambda: _Program(
-        cfg=sig.cfg, comm=AxisComm(sig.P, lanes)))
+        cfg=sig.cfg, comm=AxisComm(sig.P, lanes) if sig.extra is None
+        else MeshComm(sig.extra, lanes)))
 
 
 # ----------------------------------------------- continuous-engine programs --
 
 def _engine_sig(kind: str, P: int, cfg: PipelineConfig, plan_static, arrs,
                 batch: int, mesh) -> PlanSignature:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the serving engines run on one device (mesh=None); a mesh "
-            "route waits for the multi-GPU port (ROADMAP Queue 1 item 5)")
     if cfg.has_auto:
         raise ValueError("the engine programs take a resolved config")
-    return _signature(kind, P, cfg, plan_static, _dims_of(arrs), batch=batch)
+    return _signature(kind, P, cfg, plan_static, _dims_of(arrs), batch=batch,
+                      mesh=mesh)
+
+
+def _local_lanes(B: int, mesh) -> int:
+    """Lanes of a B-lane engine one device holds."""
+    return B if mesh is None else B // batch_axis_size(mesh)
 
 
 def engine_init_program(P: int, cfg: PipelineConfig, plan_static, arrs,
@@ -594,10 +636,12 @@ def engine_init_program(P: int, cfg: PipelineConfig, plan_static, arrs,
     """Cached one-lane admission program of a serving engine:
     ``(arrs, order, color_key) -> (carry, color_stats)`` (``pipeline_carry``).
 
-    ``arrs`` is the lane's input dict (host or device), used for the
-    signature (kind ``engine_init``).  The entry keeps the one-lane
-    ``AxisComm``; an admission runs it once and puts the result into its
-    lane (``engine_put_program``)."""
+    ``arrs`` is the lane's input dict (host or device; on a mesh this
+    rank's one row), used for the signature (kind ``engine_init``).  The
+    entry keeps the one-lane ``AxisComm`` (on a mesh, the rank's
+    ``MeshComm``: the graph is replicated over a batch axis); an
+    admission runs it once and puts the result into its lane
+    (``engine_put_program``)."""
     sig = _engine_sig("engine_init", P, cfg, plan_static, arrs, 0, mesh)
     comm = _program(sig, 1).comm
     return lambda a, order, ck: pipeline_carry(a, order, ck, cfg, comm=comm)
@@ -607,13 +651,15 @@ def engine_step_program(P: int, cfg: PipelineConfig, plan_static, arrs,
                         B: int, chunk: int, mesh=None):
     """Cached all-lanes step program of a serving engine: ``(arrs, carry,
     keys, exchange=None) -> (carry, done)``, every running lane of the
-    ``(B·P, …)`` buffers ``arrs`` advanced by ``chunk`` iterations
-    (``pipeline_step``; signature kind ``engine_step{chunk}``).  Empty
-    and finished lanes are frozen, so a partly idle engine steps its
-    running lanes bitwise as they would run alone."""
+    buffers ``arrs`` advanced by ``chunk`` iterations (``pipeline_step``;
+    signature kind ``engine_step{chunk}``).  The buffers hold ``(B·P,
+    …)`` rows, or on a mesh this rank's ``(B / batch, …)``: one shard of
+    its batch row's lanes, whose ``done`` it returns.  Empty and finished
+    lanes are frozen, so a partly idle engine steps its running lanes
+    bitwise as they would run alone."""
     sig = _engine_sig(f"engine_step{chunk}", P, cfg, plan_static, arrs, B,
                       mesh)
-    comm = _program(sig, B).comm
+    comm = _program(sig, _local_lanes(B, mesh)).comm
     return lambda a, carry, keys, exchange=None: pipeline_step(
         a, carry, keys, cfg, chunk, exchange=exchange, comm=comm)
 
@@ -624,10 +670,12 @@ def engine_put_program(P: int, cfg: PipelineConfig, plan_static, arrs,
     bufs`` writes one admitted lane's arrays, carry and color stats
     (``vals = (arrs, carry, cstats)``, one lane) into lane ``b`` of the
     engine's ``(arrs, carry, cstats)`` buffers — rows ``b·P … (b+1)·P``
-    of every ``(B·P, …)`` tensor, row ``b`` of every per-lane one — in
-    place, allocating nothing (signature kind ``engine_put``)."""
-    _program(_engine_sig("engine_put", P, cfg, plan_static, arrs, B, mesh), B)
-    return lambda bufs, vals, b: _put_lane(bufs, vals, b, P)
+    of every ``(B·P, …)`` tensor (on a mesh: row ``b`` of this rank's
+    lanes), row ``b`` of every per-lane one — in place, allocating
+    nothing (signature kind ``engine_put``)."""
+    sig = _engine_sig("engine_put", P, cfg, plan_static, arrs, B, mesh)
+    rows = _program(sig, _local_lanes(B, mesh)).comm.shards
+    return lambda bufs, vals, b: _put_lane(bufs, vals, b, rows)
 
 
 def _put_lane(bufs, vals, b: int, P: int):
@@ -701,6 +749,41 @@ def pipeline_sim(pg: PartitionedGraph, order, cfg: PipelineConfig, *,
     return view, dict(color=cstats[0], history=hists[0], n_iters_run=n_run[0],
                       seconds=dict(to_device=t1 - t0, color=t2 - t1,
                                    recolor=t3 - t2))
+
+
+def pipeline_sharded(pg: PartitionedGraph, order, cfg: PipelineConfig, mesh,
+                     *, marked=None, color_key=None, recolor_key=None):
+    """``pipeline_sim`` on a mesh (a ``DeviceMesh`` over an initialised
+    world, ``launch.mesh``): one shard of ``pg`` per rank of the shard
+    axis, replicated over a batch axis.  Every rank passes the same
+    arguments; each runs its shard's loops on its device, and returns the
+    ``(P, n_slots)`` view gathered in shard order and the result of
+    ``pipeline_sim`` (``seconds``: this rank's stage walls; the rest is
+    bitwise ``pipeline_sim``'s on every rank)."""
+    if cfg.color is None:
+        raise ValueError("pipeline_sharded needs cfg.color")
+    cfg = resolve_pipeline_cfg(pg, cfg)
+    order = apply_partial(order, cfg.color, marked)
+    ck = rng.key(cfg.color.seed) if color_key is None else color_key
+    rk = rng.key(cfg.seed) if recolor_key is None else recolor_key
+    prog = _program(plan_signature(pg, cfg, mesh=mesh), 1)
+
+    def program(arrs, order, ck, rk, comm):
+        t1 = time.perf_counter()
+        view, cstats = color_lanes(arrs, order, ck, cfg.color, comm=comm)
+        t2 = time.perf_counter()
+        view, hists, n_run = recolor_lanes(arrs, view, rk, cfg, comm=comm)
+        t3 = time.perf_counter()
+        return (view,), [dict(color=cstats[0], history=hists[0],
+                              n_iters_run=n_run[0],
+                              seconds=dict(to_device=t1 - t0, color=t2 - t1,
+                                           recolor=t3 - t2))]
+
+    t0 = time.perf_counter()
+    (view,), res = run_sharded(
+        program, mesh, (pg.arrays(sparse=cfg.needs_sparse_plan),
+                        np.asarray(order)), (ck, rk), comm=prog.comm)
+    return view, res[0]
 
 
 def _keys_many(cfg: PipelineConfig, n: int, color_keys, recolor_keys):
@@ -784,17 +867,16 @@ def _bucket_inputs(bucket: GraphBucket, cfg: PipelineConfig, orders, marked,
     return arrs, order_t, torch.stack(cks_b), torch.stack(rks_b)
 
 
-def _unpack_bucket(view, cstats, hists, n_run, bucket: GraphBucket,
+def _unpack_bucket(views, cstats, hists, n_run, bucket: GraphBucket,
                    bi: int, pgs, results) -> None:
-    """``(L·P, …)`` lane outputs -> per-graph result dicts (input order)."""
-    P = bucket.P
-    host = view.cpu().numpy()          # one device->host copy per bucket
+    """``(L, P, n_slots)`` lane views and per-lane stats -> per-graph
+    result dicts (input order)."""
+    host = views.cpu().numpy()         # one device->host copy per bucket
     for j, gi in enumerate(bucket.indices):
-        rows = slice(j * P, (j + 1) * P)
         results[gi] = dict(
-            view=view[rows],
+            view=views[j],
             colors=pgs[gi].gather_global_colors(
-                host[rows, :bucket.members[j].n_local_max]),
+                host[j, :, :bucket.members[j].n_local_max]),
             color=cstats[j], history=hists[j], n_iters_run=n_run[j],
             bucket=bi)
 
@@ -842,5 +924,56 @@ def color_many(pgs, cfg: PipelineConfig, *, orders=None, marked=None,
                                    comm=prog.comm)
         view, hists, n_run = recolor_lanes(arrs, view, rk, bcfg, lanes=L,
                                            comm=prog.comm)
-        _unpack_bucket(view, cstats, hists, n_run, bucket, bi, pgs, results)
+        _unpack_bucket(view.view((L, bucket.P) + view.shape[1:]), cstats,
+                       hists, n_run, bucket, bi, pgs, results)
+    return results
+
+
+def color_many_sharded(pgs, cfg: PipelineConfig, mesh, *, orders=None,
+                       marked=None, color_keys=None, recolor_keys=None,
+                       buckets=None, pad_batch: bool = False):
+    """``color_many`` on a mesh (a ``DeviceMesh``, ``launch.mesh``): each
+    bucket runs as ``(P, B, …)`` arrays, dim 0 over the shard axis and, on
+    a 2D ``batch × shard`` mesh, dim 1 over the batch axis (each rank
+    holds one shard of ``B / batch`` lanes; the lane count is padded to a
+    multiple of the batch axis).  Every rank passes the same arguments and
+    returns the same per-graph results, bitwise ``color_many``'s (the
+    ``view`` is gathered in shard order)."""
+    if cfg.color is None:
+        raise ValueError("color_many_sharded needs cfg.color")
+    pgs = list(pgs)
+    if buckets is None:
+        buckets = bucket_graphs(pgs)
+    cks, rks = _keys_many(cfg, len(pgs), color_keys, recolor_keys)
+    n_batch = batch_axis_size(mesh)
+    results = [None] * len(pgs)
+    for bi, bucket in enumerate(buckets):
+        sig = bucket_signature(bucket, cfg, pad_batch=pad_batch, mesh=mesh)
+        L = sig.batch
+        prog = _program(sig, L // n_batch)
+        bcfg = prog.cfg
+        order_b, cks_b, rks_b = _pad_batch_lanes(
+            _bucket_order(bucket, bcfg, orders, marked),
+            [cks[i] for i in bucket.indices],
+            [rks[i] for i in bucket.indices], bucket.B, L)
+        st = bucket.stacked_arrays(sparse=bcfg.needs_sparse_plan)
+        ext = L - bucket.B
+        # the sharded layout: (P, L, …), pad lanes copying member 0
+        arrs = {k: np.moveaxis(np.concatenate(
+            [v, np.repeat(v[:1], ext, axis=0)]) if ext else v, 0, 1)
+            for k, v in st.items()}
+
+        def program(arrs, order, ck, rk, comm):
+            view, cstats = color_lanes(arrs, order, ck, bcfg.color,
+                                       lanes=comm.L, comm=comm)
+            view, hists, n_run = recolor_lanes(arrs, view, rk, bcfg,
+                                               lanes=comm.L, comm=comm)
+            return (view,), list(zip(cstats, hists, n_run))
+
+        (view,), lanes = run_sharded_many(
+            program, mesh, (arrs, np.moveaxis(order_b, 0, 1)),
+            (torch.stack(cks_b), torch.stack(rks_b)), comm=prog.comm)
+        cstats, hists, n_run = zip(*lanes)
+        _unpack_bucket(view.transpose(0, 1).contiguous(), cstats, hists,
+                       n_run, bucket, bi, pgs, results)
     return results

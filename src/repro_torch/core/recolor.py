@@ -52,7 +52,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import take_rows
 
 from .comm import (AUTO, DEFAULT_SCHEME, SCHEME_CHOICES, SPARSE, AxisComm,
-                   CommConfig, make_exchange, sparse_rounds)
+                   CommConfig, make_exchange, run_sharded, sparse_rounds)
 from .graph import PartitionedGraph, to_device
 from .speculative import (ColorConfig, color_shards, require_halo,
                           resolve_cfg, resolve_device, validate_color_bounds)
@@ -110,14 +110,16 @@ class RecolorConfig:
 
 
 def class_sizes(view, n_local, n_local_max: int, max_colors: int,
-                lanes: int | None = None):
+                lanes: int | None = None, comm=None):
     """Global color-class sizes ``(max_colors,)`` and the count of local
     colors outside ``[0, max_colors)`` (masked out of the sizes), both on
     the device.  Class 0 (uncolored) counts 0.  With ``lanes=L`` the view
     holds L graphs of ``P / L`` shards each, and the results are ``(L,
-    max_colors)`` and ``(L,)``: one row per graph."""
+    max_colors)`` and ``(L,)``: one row per graph.  ``comm`` (a
+    ``MeshComm`` on a mesh) reduces over the lanes' shards."""
     L = 1 if lanes is None else lanes
-    comm = AxisComm(view.shape[0] // L, L)
+    if comm is None:
+        comm = AxisComm(view.shape[0] // L, L)
     mc = max_colors
     raw = view[:, :n_local_max]
     valid = (torch.arange(n_local_max, device=view.device)
@@ -128,7 +130,7 @@ def class_sizes(view, n_local, n_local_max: int, max_colors: int,
     idx = comm.lane(view.device)[:, None] * mc + torch.where(counted, raw, 0)
     sizes = torch.zeros(L * mc, dtype=torch.int64, device=view.device)
     sizes.scatter_add_(0, idx.reshape(-1), counted.reshape(-1).long())
-    sizes = sizes.view(L, mc)
+    sizes = comm.lane_psum(sizes.view(L, mc))
     sizes[:, 0] = 0
     return (sizes[0], oor[0]) if lanes is None else (sizes, oor)
 
@@ -231,8 +233,8 @@ def _needed_exchanges(step_of, arrs, n_local_max: int, n_classes,
                       max_colors: int, piggyback: bool, comm: AxisComm,
                       distance: int = 1):
     """The piggybacking schedule per lane: needed[l, t] = exchange event
-    after step t.  Entry ``max_colors`` is the end-of-iteration exchange
-    (always on)."""
+    after step t, the OR over the lane's shards.  Entry ``max_colors`` is
+    the end-of-iteration exchange (always on)."""
     dev = step_of.device
     L = comm.L
     if piggyback:
@@ -245,7 +247,7 @@ def _needed_exchanges(step_of, arrs, n_local_max: int, n_classes,
                                         distance):
             needed[lane.expand(dep.shape),
                    torch.where(dep, s_v - 1, max_colors + 1)] = True
-        needed = needed[:, :max_colors + 1]
+        needed = comm.lane_pmax(needed[:, :max_colors + 1])
         needed[:, 0] = False
     else:
         needed = (torch.arange(max_colors + 1, device=dev)[None]
@@ -275,7 +277,7 @@ def _needed_exchange_rounds(step_of, arrs, n_local_max: int, n_classes,
             needed[lane.expand(dep.shape),
                    torch.where(dep, s_v - 1, max_colors + 1),
                    torch.where(dep, rnd, 0).long()] = True
-        needed = needed[:, :max_colors + 1, :n_rounds]
+        needed = comm.lane_pmax(needed[:, :max_colors + 1, :n_rounds])
         needed[:, 0] = False
     else:
         needed = (torch.arange(max_colors + 1, device=dev)[None]
@@ -308,7 +310,7 @@ class _Schedule:
 
 
 def recolor_schedule(arrs, view, rank, n_classes, cfg: RecolorConfig,
-                     n_rounds: int) -> _Schedule:
+                     n_rounds: int, comm=None) -> _Schedule:
     """Step map, piggyback events and per-class chunk schedule of one
     iteration; ends with its one device->host read.
 
@@ -316,9 +318,11 @@ def recolor_schedule(arrs, view, rank, n_classes, cfg: RecolorConfig,
     (the view holds their ``L·P`` shards).  A one-graph call passes
     ``(max_colors,)`` and a scalar, and gets a schedule with a python-int
     class count, ``(mc + 1,)`` event rows and ``(mc + 1,)`` chunk counts.
+    ``comm`` (a ``MeshComm`` on a mesh) reduces over the lanes' shards, so
+    the read is the same on every shard.
     """
     sched = _lane_schedule(arrs, view, rank.reshape(-1, rank.shape[-1]),
-                           n_classes.reshape(-1), cfg, n_rounds)
+                           n_classes.reshape(-1), cfg, n_rounds, comm)
     return sched if rank.dim() == 2 else dataclasses.replace(
         sched, n_classes=sched.n_classes[0], needed=sched.needed[0],
         needed_rounds=(None if sched.needed_rounds is None
@@ -327,12 +331,13 @@ def recolor_schedule(arrs, view, rank, n_classes, cfg: RecolorConfig,
 
 
 def _lane_schedule(arrs, view, rank, n_classes, cfg: RecolorConfig,
-                   n_rounds: int) -> _Schedule:
+                   n_rounds: int, comm=None) -> _Schedule:
     """``recolor_schedule`` of ``(L, max_colors)`` ranks."""
     require_halo(arrs, cfg.distance)
     L = rank.shape[0]
     LP, n_slots = view.shape
-    comm = AxisComm(LP // L, L)
+    if comm is None:
+        comm = AxisComm(LP // L, L)
     n_local_max = arrs["indptr"].shape[1] - 1
     mc = cfg.max_colors
     chunk = min(cfg.chunk, n_local_max)
@@ -384,7 +389,7 @@ def _lane_schedule(arrs, view, rank, n_classes, cfg: RecolorConfig,
 
 
 def recolor_steps(arrs, sched: _Schedule, exchange, cfg: RecolorConfig,
-                  lanes_on=None):
+                  lanes_on=None, comm=None):
     """The chunked step loop of one iteration over a host-known schedule,
     for the L lanes of ``sched`` (``lanes_on``: host bools, ``None`` =
     all; a lane that is off takes no exchange and gets no stats — its
@@ -396,7 +401,8 @@ def recolor_steps(arrs, sched: _Schedule, exchange, cfg: RecolorConfig,
     """
     L = len(sched.n_classes)
     LP, n_slots = arrs["prio"].shape
-    comm = AxisComm(LP // L, L)
+    if comm is None:
+        comm = AxisComm(LP // L, L)
     n_local_max = arrs["indptr"].shape[1] - 1
     mc = cfg.max_colors
     dev = sched.sorted_pad.device
@@ -446,30 +452,31 @@ def recolor_steps(arrs, sched: _Schedule, exchange, cfg: RecolorConfig,
 
 
 def recolor_shards(arrs: dict, view: torch.Tensor, perm_kind: str,
-                   cfg: RecolorConfig, key=None):
+                   cfg: RecolorConfig, key=None, comm=None):
     """One synchronous recoloring iteration of all P shards (the
     reference's ``recolor_spmd`` under ``run_sim``).
 
     ``view`` is a valid ``(P, n_slots)`` coloring with fresh ghosts.
     Returns the new view and python-int stats ``n_colors``,
     ``n_colors_distinct``, ``n_colors_before``, ``n_exchanges``,
-    ``n_steps``, ``wire_bytes``, ``n_out_of_range``.
+    ``n_steps``, ``wire_bytes``, ``n_out_of_range``.  ``comm``: on a mesh,
+    this rank's ``MeshComm`` (``view`` and ``arrs`` its one row).
     """
     if cfg.scheme == AUTO:
         raise ValueError("scheme='auto' must be resolved by an entry point "
                          "(resolve_cfg) before the run")
     n_local_max = arrs["indptr"].shape[1] - 1
     sizes, n_oor = class_sizes(view, arrs["n_local"], n_local_max,
-                               cfg.max_colors, lanes=1)
+                               cfg.max_colors, lanes=1, comm=comm)
     n_classes = (sizes > 0).sum(dim=1)
     rank = permutation_rank(sizes, perm_kind,
                             None if key is None else key.reshape(1, 2))
-    exchange = make_exchange(arrs, cfg.comm_config)
+    exchange = make_exchange(arrs, cfg.comm_config, comm=comm)
     sched = recolor_schedule(arrs, view, rank, n_classes, cfg,
-                             sparse_rounds(arrs))
-    new_view, st = recolor_steps(arrs, sched, exchange, cfg)
+                             sparse_rounds(arrs), comm)
+    new_view, st = recolor_steps(arrs, sched, exchange, cfg, comm=comm)
     sizes_after, _ = class_sizes(new_view, arrs["n_local"], n_local_max,
-                                 cfg.max_colors, lanes=1)
+                                 cfg.max_colors, lanes=1, comm=comm)
     dev = torch.stack([st["n_colors"][0].long(), (sizes_after > 0).sum(),
                        n_oor[0].long()]).tolist()
     stats = {k: v[0] for k, v in st.items() if k != "n_colors"}
@@ -495,6 +502,29 @@ def recolor_sim(pg: PartitionedGraph, view, perm_kind: str,
         key = _default_key(cfg.seed)
     return recolor_shards(arrs, torch.as_tensor(view, device=device),
                           perm_kind, cfg, key)
+
+
+def recolor_sharded(pg: PartitionedGraph, view, perm_kind: str,
+                    cfg: RecolorConfig, mesh, key=None):
+    """``recolor_sim`` on a mesh (``DeviceMesh``, one shard per rank of the
+    shard axis): every rank passes the same global ``(P, n_slots)`` view
+    and gets the same ``(view, stats)``, bitwise ``recolor_sim``'s for the
+    same key."""
+    cfg = resolve_cfg(pg, cfg)
+    if key is None:
+        key = _default_key(cfg.seed)
+
+    def program(arrs, view, key, comm):
+        new_view, stats = recolor_shards(arrs, view, perm_kind, cfg, key,
+                                         comm=comm)
+        return (new_view,), [stats]
+
+    if not isinstance(view, torch.Tensor):
+        view = torch.from_numpy(np.array(view, dtype=np.int32))
+    (new_view,), stats = run_sharded(
+        program, mesh, (pg.arrays(sparse=cfg.scheme == SPARSE), view),
+        (key,))
+    return new_view, stats[0]
 
 
 def schedule_for_iteration(it: int, base: str = ND, rand_every: int = 0,

@@ -63,7 +63,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import take_rows
 
 from .comm import (AUTO, DEFAULT_SCHEME, SCHEME_CHOICES, SPARSE, AxisComm,
-                   CommConfig, make_exchange, resolve_scheme)
+                   CommConfig, make_exchange, resolve_scheme, run_sharded)
 from .graph import PartitionedGraph, to_device
 
 
@@ -227,10 +227,15 @@ def _round_plan(n_steps: list, chunk_bnd: list, exchange_every: int):
 
 
 def _speculate(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
-               cfg: ColorConfig, exchange, comm: AxisComm):
+               cfg: ColorConfig, exchange, comm):
     """The speculate/repair round loop of ``comm.L`` lanes; returns (view,
-    and per lane: n_rounds, n_exchanges, wire_bytes)."""
-    P, L = comm.P, comm.L
+    and per lane: n_rounds, n_exchanges, wire_bytes).
+
+    On a mesh every value the host reads is reduced over the shard group
+    first, so the shards of a lane take the same rounds, launches and
+    exchanges; a rank whose lanes are all done keeps calling
+    ``lane_uniform`` until the batch rows of a 2D mesh are done too."""
+    L, rows = comm.L, comm.rows
     n_slots = arrs["prio"].shape[1]
     n_local_max = arrs["indptr"].shape[1] - 1
     dev = order.device
@@ -238,10 +243,10 @@ def _speculate(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
     # small graphs stop gathering pure padding
     S = min(cfg.superstep, n_local_max)
     n_chunks_max = -(-n_local_max // S)
-    view = torch.zeros((L * P, n_slots), dtype=torch.int32, device=dev)
+    view = torch.zeros((rows, n_slots), dtype=torch.int32, device=dev)
     # colors handed out per shard, never decremented (the sequential mode)
     usage = (None if cfg.use_parallel_chunk else torch.zeros(
-        (L * P, cfg.max_colors), dtype=torch.int32, device=dev))
+        (rows, cfg.max_colors), dtype=torch.int32, device=dev))
     shard_ids = comm.index(dev)
     offset = None
     if cfg.selection == ops.STAGGERED:
@@ -252,12 +257,14 @@ def _speculate(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
     round_keys = rng.fold_in(
         rng.fold_in(keys[:, None, :],
                     torch.arange(cfg.max_rounds, device=dev))[:, None],
-        shard_ids.view(L, P, 1)).reshape(L * P, cfg.max_rounds, 2)
+        shard_ids.view(L, comm.shards, 1)).reshape(rows, cfg.max_rounds, 2)
 
     rnd = 0
     n_rounds, n_ex, n_bytes = [0] * L, [0] * L, [0] * L
     n_conf = torch.ones(L, dtype=torch.int64, device=dev)   # round 0 runs
-    do_final = torch.zeros(L, dtype=torch.bool, device=dev)
+    # boundary losers of the last repair per lane: their uncoloring is
+    # exchanged before the next round
+    do_final = torch.zeros(L, dtype=torch.int64, device=dev)
 
     def run_exchange(due):
         nonlocal view
@@ -270,7 +277,7 @@ def _speculate(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
     while True:
         order_r, n_need = _compact_order(order, view)
         order_pad = torch.cat(
-            [order_r, torch.full((L * P, S), -1, dtype=order_r.dtype,
+            [order_r, torch.full((rows, S), -1, dtype=order_r.dtype,
                                  device=dev)], dim=1)
         # which superstep chunks color a boundary vertex on any shard of
         # the lane: the exchanges the others would trigger are elided
@@ -278,16 +285,20 @@ def _speculate(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
         opad = order_pad[:, :n_chunks_max * S]
         bnd = ((opad >= 0) & (pos < n_need[:, None])
                & ~take_rows(arrs["is_internal"], opad.clamp(min=0)))
-        chunk_bnd = comm.pmax(bnd.reshape(L * P, n_chunks_max, S).any(dim=2))
+        lane_max = comm.pmax(torch.cat(
+            [n_need[:, None],
+             bnd.reshape(rows, n_chunks_max, S).any(dim=2).long()], dim=1))
         # the round's one device->host read, one row per lane
-        head = torch.stack([n_conf, do_final.long(),
-                            comm.pmax(n_need).long()], dim=1)
-        host = torch.cat([head, chunk_bnd.long()], dim=1).tolist()
+        host = torch.cat([torch.stack([n_conf, do_final], dim=1), lane_max],
+                         dim=1).tolist()
         final = [bool(h[1]) for h in host]
         if any(final):     # publish the previous round's uncolorings
             run_exchange(final)
         active = [h[0] > 0 and rnd < cfg.max_rounds for h in host]
-        if not any(active):
+        if not comm.lane_uniform(any(active)):
+            break
+        if not any(active):   # a lane of another batch row still runs
+            comm.wait_lanes()
             break
         steps = [-(-h[2] // S) if on else 0 for h, on in zip(host, active)]
         for lane in range(L):
@@ -301,16 +312,17 @@ def _speculate(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
             first = si + 1
             if any(due):
                 run_exchange(due)
-        view, n_conf, do_final = _detect_conflicts_frontier(
+        view, n_conf, bnd_conf = _detect_conflicts_frontier(
             view, arrs, order_pad, max(steps), n_need, S, backend=cfg.backend,
             distance=cfg.distance, lanes=L)
+        counts = comm.lane_psum(torch.stack([n_conf, bnd_conf.long()], dim=1))
+        n_conf, do_final = counts[:, 0], counts[:, 1]
         rnd += 1
     return view, n_rounds, n_ex, n_bytes
 
 
 def color_lanes(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
-                cfg: ColorConfig, lanes: int = 1,
-                comm: AxisComm | None = None):
+                cfg: ColorConfig, lanes: int = 1, comm=None):
     """Speculative coloring of a batch of ``lanes`` same-shape graphs laid
     end to end on the shard axis (one lane: ``color_shards``).
 
@@ -318,8 +330,10 @@ def color_lanes(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
     ``graph.bucket_to_device``); ``order`` the ``(L·P, n_local_max)``
     visit order of local slots, -1 = skip; ``keys`` ``(L, 2)`` ``rng``
     keys, one per lane; ``comm`` (optional) the lanes' ``AxisComm``, whose
-    index maps it reuses.  Returns ``(view, stats)``: the ``(L·P,
-    n_slots)`` int32 view and one dict of python-int stats per lane
+    index maps it reuses, or on a mesh this rank's ``MeshComm``, with
+    ``(L, …)`` rows: one shard of each lane.  Returns ``(view, stats)``:
+    the ``(L·P, n_slots)`` int32 view and one dict of python-int stats per
+    lane
     (``n_colors`` the max id, ``n_colors_distinct``, ``n_rounds``,
     ``n_exchanges``, ``wire_bytes`` per shard), each bitwise what the lane
     would give alone.
@@ -332,7 +346,7 @@ def color_lanes(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
     keys = keys.reshape(lanes, 2).to(order.device)
     view, n_rounds, n_ex, n_bytes = _speculate(
         arrs, order, keys, cfg,
-        make_exchange(arrs, cfg.comm_config, lanes=lanes), comm)
+        make_exchange(arrs, cfg.comm_config, lanes=lanes, comm=comm), comm)
     # distinct classes in use — the quality metric (the max id alone can
     # overstate the color count)
     n_local_max = arrs["indptr"].shape[1] - 1
@@ -343,7 +357,7 @@ def color_lanes(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
     flat = comm.lane(dev)[:, None] * mc + local.long()
     in_use = torch.zeros(lanes * mc + 1, dtype=torch.bool, device=dev)
     in_use[torch.where(valid, flat, lanes * mc)] = True
-    in_use = in_use[:-1].view(lanes, mc)
+    in_use = comm.lane_pmax(in_use[:-1].view(lanes, mc))
     dev_stats = torch.stack([comm.pmax(local.amax(dim=1)).long(),
                              in_use[:, 1:].sum(dim=1)], dim=1).tolist()
     return view, [dict(n_colors=nc, n_colors_distinct=nd,
@@ -352,17 +366,18 @@ def color_lanes(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
                   for lane, (nc, nd) in enumerate(dev_stats)]
 
 
-def lane_comm(arrs: dict, lanes: int, comm: AxisComm | None = None):
+def lane_comm(arrs: dict, lanes: int, comm=None):
     """The ``AxisComm`` of ``lanes`` graphs laid end to end in ``arrs``
-    (``comm`` itself when given, after a shape check)."""
+    (``comm`` itself when given, ``AxisComm`` or ``MeshComm``, after a
+    shape check)."""
     LP = arrs["prio"].shape[0]
     if lanes <= 0 or LP % lanes:
         raise ValueError(f"{lanes} lanes do not divide the {LP} shards")
     if comm is None:
         return AxisComm(LP // lanes, lanes)
-    if (comm.P * comm.L, comm.L) != (LP, lanes):
-        raise ValueError(f"comm {comm.L} x {comm.P} does not match "
-                         f"{lanes} lanes of {LP} shards")
+    if (comm.rows, comm.L) != (LP, lanes):
+        raise ValueError(f"comm of {comm.L} lanes x {comm.shards} shards "
+                         f"does not match {lanes} lanes of {LP} rows")
     return comm
 
 
@@ -437,3 +452,25 @@ def color_graph_sim(pg: PartitionedGraph, order, cfg: ColorConfig, key=None,
     if key is None:
         key = rng.key(cfg.seed)
     return color_shards(arrs, torch.as_tensor(order, device=device), key, cfg)
+
+
+def color_graph_sharded(pg: PartitionedGraph, order, cfg: ColorConfig, mesh,
+                        key=None, *, marked=None):
+    """``color_graph_sim`` on a mesh (a ``DeviceMesh`` over an initialised
+    world, ``launch.mesh``): one shard of ``pg`` per rank of the shard
+    axis, on the rank's device.  Every rank passes the same arguments and
+    returns the same ``(view, stats)``: the ``(P, n_slots)`` view gathered
+    in shard order, and the stats, bitwise those of ``color_graph_sim``."""
+    cfg = resolve_cfg(pg, cfg)
+    order = apply_partial(order, cfg, marked)
+    if key is None:
+        key = rng.key(cfg.seed)
+
+    def program(arrs, order, key, comm):
+        view, stats = color_lanes(arrs, order, key, cfg, comm=comm)
+        return (view,), stats
+
+    (view,), stats = run_sharded(
+        program, mesh, (pg.arrays(sparse=cfg.scheme == SPARSE),
+                        np.asarray(order)), (key,))
+    return view, stats[0]

@@ -1,3 +1,4 @@
-"""The port's serving entry points: ``serve_coloring`` (the
-continuous-batching ``ColoringService``) and ``serve_harness`` (its
-scripted fake-clock event loop)."""
+"""The port's launch layer: ``mesh`` (``MeshSpec``, ``init_world``: the
+``torch.distributed`` meshes the ``*_sharded`` entry points run on),
+``serve_coloring`` (the continuous-batching ``ColoringService``, one device
+or a mesh) and ``serve_harness`` (its scripted fake-clock event loop)."""

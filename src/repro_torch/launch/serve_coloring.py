@@ -33,6 +33,15 @@ served it.  Time is read through an injectable clock (default
 scripted arrivals (``serve_harness``).  Device work runs on CUDA unless
 the service is built with ``device="cpu"`` (the plain kernels).
 
+**Mesh route** (``mesh=``, a ``launch.mesh.MeshSpec`` or a built
+``DeviceMesh`` spanning the world): every rank runs the same service on
+the same submissions.  Each engine allocates ``engine_lanes(mesh,
+lanes)`` lanes, split over a batch axis, and every rank holds one shard of
+its batch row's lanes; solo dispatches run ``core.pipeline_sharded``,
+flush waves ``core.color_many_sharded``.  The first rank's clock is the
+mesh's: every clock reading is broadcast from it, so the ranks take the
+same admissions, sheds, steps and drains, and so the same collectives.
+
     python -m repro_torch.launch.serve_coloring --device cpu \\
         --graphs 8 --p 2 --iters 2
 """
@@ -46,20 +55,23 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import rng
-from repro_torch.core import (ColorConfig, Graph, PipelineConfig,
+from repro_torch.core import (ColorConfig, Graph, MeshComm, PipelineConfig,
                               RecolorConfig, arrays_from_numpy,
                               bucket_graphs, bucket_signature,
-                              check_coloring, color_many, compute_order,
-                              engine_init_program, engine_put_program,
-                              engine_step_program, ordering,
-                              pad_partition, partition_graph, pipeline_sim,
-                              plan_fits, plan_signature,
-                              program_cache_contains, program_cache_stats,
-                              remap_plan_arrays, resolve_pipeline_cfg, rmat)
+                              check_coloring, color_many, color_many_sharded,
+                              compute_order, engine_init_program,
+                              engine_put_program, engine_step_program,
+                              ordering, pad_partition, partition_graph,
+                              pipeline_sharded, pipeline_sim, plan_fits,
+                              plan_signature, program_cache_contains,
+                              program_cache_stats, remap_plan_arrays,
+                              resolve_pipeline_cfg, rmat)
 from repro_torch.core.comm import make_exchange
 from repro_torch.core.speculative import apply_partial, resolve_device
+from repro_torch.launch.mesh import MeshSpec, engine_lanes
 
 
 def default_config(*, max_colors: int = 1024, n_iters: int = 8,
@@ -77,12 +89,6 @@ def default_config(*, max_colors: int = 1024, n_iters: int = 8,
                           distance=distance, **kw),
         recolor=RecolorConfig(max_colors=max_colors, distance=distance, **kw),
         n_iters=n_iters, base_perm="nd", patience=patience)
-
-
-def _engine_lanes(lanes: int) -> int:
-    """Lanes an engine allocates: the configured count, at least 1 (one
-    device; the reference rounds up to its mesh's batch axis)."""
-    return max(1, int(lanes))
 
 
 # ------------------------------------------------------------------ clocks --
@@ -262,7 +268,10 @@ class _Engine:
 
     Holds ``B`` lanes of ``(B·P, …)`` device buffers for one set of
     engine programs: fixed padded dims, fixed sparse schedule, fixed
-    resolved config.  Lane life: **empty** (no job; its carry frozen at
+    resolved config.  On a mesh the rank holds ``(B / batch, …)``: one
+    shard of lanes ``b0 … b0 + B / batch - 1``, its batch row's; the
+    lanes' done flags and results are gathered to every rank.  Lane
+    life: **empty** (no job; its carry frozen at
     ``it = K+1``, so a step leaves it as it is) → **running** (an admitted
     request's arrays, carry and request-folded key put into its rows) →
     **done** (its stop tripped; drained to a result, empty again).  The
@@ -284,13 +293,20 @@ class _Engine:
         self.id_dtypes = (m.gvid.dtype, m.prio.dtype)
         self.sparse = cfg.needs_sparse_plan
         self.static = m.comm_plan.static if self.sparse else None
-        self.B = _engine_lanes(svc.serve.lanes)
+        self.mesh = svc.mesh
+        self.B = engine_lanes(self.mesh, svc.serve.lanes)
+        comm = svc._comm
+        self.B_local = self.B if comm is None else self.B // comm.n_batch
+        self.b0 = 0 if comm is None else comm.b * self.B_local
+        # the exchanges' collectives over this rank's lanes
+        self._comm = None if comm is None else MeshComm(self.mesh,
+                                                        self.B_local)
         self.lanes: list[_LaneJob | None] = [None] * self.B
         self.n_running = 0
         self._arrs = self._carry = self._cstats = self._exchange = None
         self._lane_rkeys: list = [None] * self.B
         self.ewma_job_s: float | None = None
-        self.last_used = svc._clock.now()
+        self.last_used = svc._now()
 
     # ------------------------------------------------------------ admission --
 
@@ -337,19 +353,26 @@ class _Engine:
             host = member.arrays(sparse=False)
             if self.sparse:
                 host.update(remap_plan_arrays(member, self.static))
-            arrs = arrays_from_numpy(host, svc.device)
+            arrs = arrays_from_numpy(
+                {k: v[svc._rows] for k, v in host.items()}, svc.device)
             cached = entry.engine_members[dims_key] = (member, order, arrs)
         member, order, arrs = cached
         marked = (svc._marked_blocks(member, job.marked)
                   if self.cfg.color.partial else None)
-        order = torch.as_tensor(apply_partial(order, self.cfg.color, marked),
-                                device=svc.device)
+        order = torch.as_tensor(
+            apply_partial(order, self.cfg.color, marked)[svc._rows],
+            device=svc.device)
         cks, rks = svc._keys([job])
-        init = engine_init_program(self.P, self.cfg, self.static, arrs)
+        # on a mesh every batch row colors the graph (replicated, as the
+        # one-lane program runs over the shard axis alone); the row that
+        # holds lane b keeps it
+        init = engine_init_program(self.P, self.cfg, self.static, arrs,
+                                   mesh=self.mesh)
         carry, cstats = init(arrs, order, cks[0])
         if self._arrs is None:
             self._alloc(arrs, carry, cstats)
-        self._put(b, arrs, carry, cstats)
+        if self.b0 <= b < self.b0 + self.B_local:
+            self._put(b - self.b0, arrs, carry, cstats)
         self._lane_rkeys[b] = rks[0]
         # never-admitted lanes need some key to stack; they are frozen
         self._lane_rkeys = [rks[0] if k is None else k
@@ -359,9 +382,10 @@ class _Engine:
         self.last_used = now
 
     def _alloc(self, arrs, carry, cstats) -> None:
-        """First admission: buffers of B lanes, each a copy of this lane,
-        then every lane frozen at ``it = K+1`` until a job is put in."""
-        B = self.B
+        """First admission: buffers of this device's lanes, each a copy of
+        this lane, then every lane frozen at ``it = K+1`` until a job is
+        put in."""
+        B = self.B_local
         self._arrs = {k: v.repeat((B,) + (1,) * (v.dim() - 1))
                       for k, v in arrs.items()}
         self._carry = dataclasses.replace(
@@ -372,7 +396,8 @@ class _Engine:
         self._cstats = [dict(cstats) for _ in range(B)]
 
     def _put(self, b: int, arrs, carry, cstats) -> None:
-        prog = engine_put_program(self.P, self.cfg, self.static, arrs, self.B)
+        prog = engine_put_program(self.P, self.cfg, self.static, arrs, self.B,
+                                  mesh=self.mesh)
         prog((self._arrs, self._carry, self._cstats), (arrs, carry, cstats),
              b)
         self._exchange = None          # lane b's send/receive lists changed
@@ -381,16 +406,33 @@ class _Engine:
 
     def step(self) -> np.ndarray:
         """Advance every running lane by ``chunk_iters`` iterations.
-        Returns the per-lane done mask."""
+        Returns the per-lane done mask (of all B lanes)."""
         prog = engine_step_program(self.P, self.cfg, self.static, self._arrs,
-                                   self.B, self.svc.serve.chunk_iters)
+                                   self.B, self.svc.serve.chunk_iters,
+                                   mesh=self.mesh)
         if self._exchange is None:
             self._exchange = make_exchange(
-                self._arrs, self.cfg.recolor.comm_config, lanes=self.B)
-        keys = torch.stack(self._lane_rkeys).to(self.svc.device)
+                self._arrs, self.cfg.recolor.comm_config, lanes=self.B_local,
+                comm=self._comm)
+        keys = torch.stack(
+            self._lane_rkeys[self.b0:self.b0 + self.B_local]).to(
+                self.svc.device)
         self._carry, done = prog(self._arrs, self._carry, keys,
                                  exchange=self._exchange)
-        return done
+        return done if self._comm is None else np.array(
+            self._comm.gather_objects(done.tolist()), dtype=bool)
+
+    def _lane_results(self):
+        """Every lane's ``(P, n_slots)`` host view, history, iteration
+        count and color stats (on a mesh: gathered from every rank)."""
+        carry, comm = self._carry, self.svc._comm
+        per = [(carry.history(b), carry.it[b], self._cstats[b])
+               for b in range(self.B_local)]
+        if comm is None:
+            views = carry.view.reshape(self.B, self.P, -1).cpu().numpy()
+            return views, per
+        views = comm.gather_lanes(carry.view).transpose(0, 1).cpu().numpy()
+        return views, comm.gather_objects(per)
 
     def drain(self, done: np.ndarray, now: float, results: dict) -> None:
         """Unpack every done running lane to a result and free it.
@@ -400,12 +442,15 @@ class _Engine:
         fails only its own job — the error lands on that job's future and
         the engine keeps running its other lanes."""
         svc = self.svc
-        for b in range(self.B):
+        todo = [b for b in range(self.B)
+                if self.lanes[b] is not None and done[b]]
+        if not todo:
+            return
+        views, per = self._lane_results()
+        for b in todo:
             ln = self.lanes[b]
-            if ln is None or not done[b]:
-                continue
-            view = self._carry.view[b * self.P:(b + 1) * self.P].cpu().numpy()
-            cstats = self._cstats[b]
+            view = views[b]
+            history, it, cstats = per[b]
             self.lanes[b] = None
             self.n_running -= 1
             self.last_used = now
@@ -413,14 +458,13 @@ class _Engine:
             self.ewma_job_s = (dt if self.ewma_job_s is None
                                else 0.7 * self.ewma_job_s + 0.3 * dt)
             member = ln.member
-            history = self._carry.history(b)
             colors = member.gather_global_colors(view[:, :member.n_local_max])
             out = dict(
                 colors=colors,
                 n_colors=(history[-1]["n_colors_distinct"] if history else
                           cstats["n_colors_distinct"]),
                 color=dict(cstats), history=history,
-                n_iters_run=self._carry.it[b] - 1,
+                n_iters_run=it - 1,
                 bucket=self.eid, route="engine", member=member, cfg=self.cfg,
                 latency_s=now - ln.job.t_submit)
             err = None
@@ -472,8 +516,11 @@ class ColoringService:
     ``ShedError``.
 
     ``device`` — default CUDA (raises without it), ``"cpu"`` runs the
-    plain kernels.  ``mesh`` must be ``None``: the engines run on one
-    device.  ``clock`` injects a time source (``FakeClock`` for
+    plain kernels.  ``mesh`` — ``None`` (one device), or a ``MeshSpec``
+    (built for ``device``'s type) or ``DeviceMesh`` spanning the world,
+    whose shard axis must have ``P`` ranks: the mesh route (module
+    docstring); the mesh's device is the service's.  ``clock`` injects a
+    time source (``FakeClock`` for
     deterministic tests).  ``stats()`` exposes the scheduler counters and
     the process-wide program-cache counters.
     """
@@ -483,12 +530,23 @@ class ColoringService:
                  max_batch: int = 64, validate: bool = False, seed: int = 0,
                  memo_graphs: int = 256, serve: ServeConfig | None = None,
                  clock=None, device=None):
+        self._comm = None
+        self._rows = slice(None)        # this device's rows of a partition
+        if isinstance(mesh, MeshSpec):
+            mesh = mesh.build("cpu" if device is not None and
+                              torch.device(device).type == "cpu" else None)
         if mesh is not None:
-            raise NotImplementedError(
-                "ColoringService runs on one device (mesh=None); a mesh "
-                "route waits for the multi-GPU port (ROADMAP Queue 1 "
-                "item 5)")
-        self.device = resolve_device(device)
+            self._comm = MeshComm(mesh)
+            if self._comm.P != P:
+                raise ValueError(f"P={P} partitions on a mesh whose shard "
+                                 f"axis has {self._comm.P} ranks")
+            if mesh.size() != dist.get_world_size():
+                raise ValueError("the service's mesh must span the world")
+            self._rows = slice(self._comm.p, self._comm.p + 1)
+            self.device = self._comm.device
+        else:
+            self.device = resolve_device(device)
+        self.mesh = mesh
         self.P = P
         self.cfg = cfg or default_config()
         self.order_kind = order_kind
@@ -509,6 +567,11 @@ class ColoringService:
         self._n_shed = self._n_deferred = self._n_failed = 0
         self._memo_hits = 0
 
+    def _now(self) -> float:
+        """The service clock: on a mesh, the first rank's reading."""
+        t = self._clock.now()
+        return t if self._comm is None else self._comm.root_value(t)
+
     @property
     def pending(self) -> int:
         """Jobs the service still owes a resolution: queued + running."""
@@ -523,7 +586,7 @@ class ColoringService:
         if self.cfg.color.partial != (marked is not None):
             raise ValueError("marked= requires (and is required by) a "
                              "partial color config")
-        job = _Job(self._next_id, g, marked, t_submit=self._clock.now())
+        job = _Job(self._next_id, g, marked, t_submit=self._now())
         self._next_id += 1
         if (self.serve.mode == "continuous"
                 and len(self._queue) >= self.serve.max_queue):
@@ -597,7 +660,7 @@ class ColoringService:
         (2) every engine with running lanes advances one ``chunk_iters``
         step; (3) finished lanes drain to results and free up."""
         results: dict[int, dict] = {}
-        now = self._clock.now()
+        now = self._now()
         progressed = False
         still: list[_Job] = []
         for job in self._queue:
@@ -609,7 +672,7 @@ class ColoringService:
         for eng in self._engines:
             if eng.n_running:
                 done = eng.step()
-                eng.drain(done, self._clock.now(), results)
+                eng.drain(done, self._now(), results)
                 progressed = True
         if self._queue and not progressed:
             raise RuntimeError(
@@ -649,7 +712,7 @@ class ColoringService:
                        color=r["color"], history=r["history"],
                        n_iters_run=r["n_iters_run"], bucket=r["bucket"],
                        route="solo",
-                       latency_s=self._clock.now() - job.t_submit)
+                       latency_s=self._now() - job.t_submit)
             err = None
             if self.validate:
                 out["check"] = check_coloring(
@@ -754,10 +817,11 @@ class ColoringService:
         bucket = bucket_graphs([pg])[0]
         member = bucket.members[0]
         e = _Entry(pg=pg, bucket=bucket,
-                   signature=bucket_signature(bucket, self.cfg),
-                   solo_sig=plan_signature(member, self.cfg),
+                   signature=bucket_signature(bucket, self.cfg,
+                                              mesh=self.mesh),
+                   solo_sig=plan_signature(member, self.cfg, mesh=self.mesh),
                    order=compute_order(member, self.order_kind),
-                   exact_sig=plan_signature(pg, self.cfg),
+                   exact_sig=plan_signature(pg, self.cfg, mesh=self.mesh),
                    exact_order=compute_order(pg, self.order_kind))
         self._memo[fp] = e
         while len(self._memo) > self._memo_max:
@@ -794,9 +858,13 @@ class ColoringService:
         cks, rks = self._keys([job])
         marked = (self._marked_blocks(tgt, job.marked)
                   if self.cfg.color.partial else None)
-        view, res = pipeline_sim(tgt, order, self.cfg, marked=marked,
-                                 color_key=cks[0], recolor_key=rks[0],
-                                 device=self.device)
+        keys = dict(marked=marked, color_key=cks[0], recolor_key=rks[0])
+        if self.mesh is None:
+            view, res = pipeline_sim(tgt, order, self.cfg, device=self.device,
+                                     **keys)
+        else:
+            view, res = pipeline_sharded(tgt, order, self.cfg, self.mesh,
+                                         **keys)
         view = view.cpu().numpy()
         return dict(
             colors=e.pg.gather_global_colors(view[:, :e.pg.n_local_max]),
@@ -821,10 +889,11 @@ class ColoringService:
         cks, rks = self._keys(jobs)
         # pad_batch: pow2 lane counts keep the batch signatures stable as
         # the queue depth fluctuates
-        return color_many(pgs, self.cfg, orders=self.order_kind,
-                          marked=marked, color_keys=cks, recolor_keys=rks,
-                          buckets=buckets, pad_batch=True,
-                          device=self.device)
+        kw = dict(orders=self.order_kind, marked=marked, color_keys=cks,
+                  recolor_keys=rks, buckets=buckets, pad_batch=True)
+        if self.mesh is None:
+            return color_many(pgs, self.cfg, device=self.device, **kw)
+        return color_many_sharded(pgs, self.cfg, self.mesh, **kw)
 
     def _finish(self, job, r, latency, route, results):
         out = dict(colors=r["colors"],
@@ -861,9 +930,9 @@ class ColoringService:
             cold = [(j, e) for j, e in pairs if not _warm(e)]
             # the cached route: each request now, on its own
             for j, e in warm:
-                t0 = self._clock.now()
+                t0 = self._now()
                 out = self._solo_dispatch(j, e)
-                self._finish(j, out, self._clock.now() - t0, "solo",
+                self._finish(j, out, self._now() - t0, "solo",
                              results)
                 self._n_solo += 1
             # the rest grouped by solo signature: the group's padded dims
@@ -874,10 +943,10 @@ class ColoringService:
                 groups.setdefault(e.signature, []).append((j, e))
             for sub in groups.values():
                 bucket = bucket_graphs([e.pg for _, e in sub])[0]
-                t0 = self._clock.now()
+                t0 = self._now()
                 outs = self._dispatch([j for j, _ in sub],
                                       [e for _, e in sub], [bucket])
-                lat = self._clock.now() - t0
+                lat = self._now() - t0
                 for (j, _), r in zip(sub, outs):
                     self._finish(j, r, lat, "batch", results)
                     self._n_batch += 1

@@ -16,6 +16,7 @@ import pytest
 
 import repro.core as R
 import repro_torch.core as T
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 GRAPHS = {
     "grid2d": lambda m: m.rmat.grid2d(12, 12, 9),

@@ -21,6 +21,7 @@ R = pytest.importorskip("repro.core")
 jax = pytest.importorskip("jax")
 import repro_torch.core as T  # noqa: E402
 from repro_torch import rng  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 MC = 512
 

@@ -19,6 +19,7 @@ jax = pytest.importorskip("jax")
 from test_torch_many import assert_lanes, run_both  # noqa: E402
 
 import repro_torch.core as T  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 MC = 256
 

@@ -13,6 +13,7 @@ import torch
 import repro.core as R
 import repro_torch.core as T
 from repro_torch.core.graph import arrays_from_numpy, view_from_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SCHEMES = ["sparse", "allgather"]
 SELECTIONS = ["first_fit", "random_x"]

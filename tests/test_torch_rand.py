@@ -24,6 +24,7 @@ import repro_torch.core as T
 from repro.core import recolor as R_recolor
 from repro_torch import rng
 from repro_torch.core import recolor as T_recolor
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SCHEMES = ["sparse", "allgather"]
 TIE_SEED = 1563    # split(key(1563))[1] draws a repeated word among 1024

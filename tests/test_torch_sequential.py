@@ -24,6 +24,7 @@ import torch
 import repro_torch.core as T
 from repro_torch.core import selection as sel
 from repro_torch.kernels import ops
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 MC = 64
 SELECTIONS = [("first_fit", 0), ("staggered", 0), ("random_x", 5),

@@ -24,6 +24,7 @@ from repro_torch.launch.serve_coloring import (
     default_config)
 from repro_torch.launch.serve_harness import (
     Arrival, mid_flight_admissions, random_script, run_script)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 P = 2
 MC = 512
@@ -315,10 +316,14 @@ def test_service_stats_counters_consistent(mode):
 
 
 def test_service_needs_one_device():
-    """A mesh is refused (the multi-GPU port is still to come), and the
+    """A mesh needs axis names and an initialised world (the mesh route
+    runs in ``tests/test_torch_sharded_serve.py``), and without a mesh the
     default device is CUDA."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    from repro_torch.launch.mesh import MeshSpec
+    with pytest.raises(ValueError, match="axis names"):
         ColoringService(P=2, mesh=object(), device="cpu")
+    with pytest.raises(RuntimeError, match="init_world"):
+        ColoringService(P=2, mesh=MeshSpec.worker(2), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ColoringService(P=2)

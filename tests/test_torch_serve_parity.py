@@ -22,6 +22,7 @@ import repro_torch.core as T  # noqa: E402
 from repro_torch.launch.serve_harness import (  # noqa: E402
     Arrival, random_script, run_script)
 from test_torch_serve import P, _assert_bitwise, _cfg, _pool, _svc  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True)

@@ -24,6 +24,7 @@ import repro_torch.core as T  # noqa: E402
 from repro_torch import rng  # noqa: E402
 from repro_torch.core.graph import arrays_from_numpy  # noqa: E402
 from repro.core.speculative import _apply_partial  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 P, MC = 2, 64
 
