@@ -125,7 +125,19 @@ before the final line):
    ``MeshSpec.coloring(1, batch=1)`` on phase 8's 8 x ``rmat_good(17, 8)``
    at P=1: every lane bitwise ``color_many``'s, the same launches; (c)
    ``ColoringService(mesh=MeshSpec.coloring(1, 1))`` on phase 9(a)'s
-   script at P=1: every result bitwise the ``mesh=None`` service's.
+   script at P=1: every result bitwise the ``mesh=None`` service's;
+11. the coloring system's last modules, on the same one-rank world: (a)
+   the three examples (``examples/torch_quickstart.py``,
+   ``torch_coloring_sched.py``, ``torch_distributed_coloring.py``, the
+   last one's sharded leg on the world) at their own sizes, every
+   coloring valid; (b) ``roofline.coloring_memory_projection`` with phase
+   3's and phase 5's partition fractions beside the bytes of the tensors
+   ``to_device`` makes of those partitions (each array the projection
+   names equal, byte for byte) and the path's measured peak; (c) the
+   collective audit's recorder around 10(a)'s ``pipeline_sharded``: its
+   calls by op, which must be 51 ``all_reduce`` and 1 ``all_gather``, the
+   count 10(a)'s profiler read (PERF.md §5); (d) the ``--coloring`` dry-run
+   record of ``rmat_er(18, 8, seed=1)`` at P=256, printed.
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
 result line.
@@ -182,6 +194,10 @@ SERVE_D2_K, SERVE_D2_LANES = 4, 2
 SERVE_KERNELS = ("select_run", "conflict_frontier")
 # the sharded entry points (phase 10): one rank, so one shard
 MESH_P = 1
+# phase 11: the collectives of 10(a)'s pipeline_sharded (PERF.md §5, the
+# profiler's count in PR 19) and the dry run's production cell
+MESH_COLLECTIVES = {"all_reduce": 51, "all_gather": 1}
+DRYRUN_SCALE, DRYRUN_P = 18, 256
 SERVE_D2_KERNELS = ("select_run_d2", "conflict_frontier_d2")
 
 
@@ -937,7 +953,7 @@ def drive_path(core, ops, dev, g, pg, order, cfg, kernels) -> dict:
     phase(f"{'5b' if distance == 2 else '3b'} run and frontier kernels vs "
           "plain (bitwise) on this path's arrays", t)
     profile_path(core, pg, order, cfg, dev, res, kernels)
-    return launches, measured, view
+    return launches, measured, view, peak
 
 
 def phase_main_path(core, ops, dev):
@@ -957,11 +973,13 @@ def phase_main_path(core, ops, dev):
           f"P={MAIN_P}, n_local_max={pg.n_local_max}, maxd={pg.maxd}, "
           f"max_ghost={pg.max_ghost}; generate {t_gen:.3f} s, partition+order "
           f"{t_part:.3f} s; scheme {scheme}", flush=True)
-    launches, measured, view = drive_path(
+    launches, measured, view, peak = drive_path(
         core, ops, dev, g, pg, order, cfg, ("select_run",
                                             "conflict_frontier"))
     # the view waits on the host, out of the later paths' peak memory
-    return launches, measured, (g, pg, order, view.cpu())
+    return launches, measured, (g, pg, order, view.cpu()), dict(
+        label=f"rmat_good({MAIN_SCALE}) P={MAIN_P}", pg=pg, scheme=scheme,
+        peak=peak)
 
 
 def d2_config(presets, n_iters: int):
@@ -973,7 +991,9 @@ def d2_config(presets, n_iters: int):
 
 
 def phase_d2_path(core, ops, dev) -> dict:
-    """Phase 5: distance-2 coloring of the 27-point stencil at full size."""
+    """Phase 5: distance-2 coloring of the 27-point stencil at full size.
+    Returns the launch counts, the measured kernels and the partition's
+    memory record for phase 11."""
     from repro_torch.core import presets
     t = time.perf_counter()
     g = core.rmat.grid3d(*D2_GRID)
@@ -993,10 +1013,11 @@ def phase_d2_path(core, ops, dev) -> dict:
     check((pg.maxd, pg.maxd2) == (D2_MAXD, D2_MAXD2),
           f"grid3d ELL widths {(pg.maxd, pg.maxd2)}, want "
           f"{(D2_MAXD, D2_MAXD2)}")
-    launches, measured, _ = drive_path(
+    launches, measured, _, peak = drive_path(
         core, ops, dev, g, pg, order, cfg, ("select_run_d2",
                                             "conflict_frontier_d2"))
-    return launches, measured
+    return launches, measured, dict(label=f"grid3d{D2_GRID} halo=2 P={D2_P}",
+                                    pg=pg, scheme=scheme, peak=peak)
 
 
 def profile_path(core, pg, order, cfg, dev, res, kernels) -> None:
@@ -2086,7 +2107,7 @@ def nccl_collectives(prof) -> str:
 def mesh_pipeline(core, ops, dev, M, g) -> dict:
     """10(a): ``pipeline_sharded`` on ``MeshSpec.worker(1)`` against a
     counted ``pipeline_sim`` of the same P=1 partition of phase 3's graph.
-    Returns the sharded run's launches."""
+    Returns the run's partition, order, config and mesh (phase 11c)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import presets
@@ -2128,7 +2149,7 @@ def mesh_pipeline(core, ops, dev, M, g) -> dict:
           flush=True)
     print(f"  10a NCCL in the profiled repeat: {nccl_collectives(prof)}",
           flush=True)
-    return l_sh
+    return pg, order, cfg, mesh
 
 
 def mesh_many(core, ops, dev, M, goods) -> None:
@@ -2212,16 +2233,16 @@ def mesh_serve(ops, dev, M, graphs) -> None:
           f"{w_ref:.3f} s", flush=True)
 
 
-def phase_mesh(core, ops, dev, g, goods, serve_graphs) -> None:
-    """Phase 10: the sharded entry points on a one-rank NCCL world on this
-    card (a ``file://`` store in the checkout's build directory)."""
+@contextlib.contextmanager
+def nccl_world(dev):
+    """A one-rank NCCL world on this card (a ``file://`` store in the
+    checkout's build directory), torn down on exit."""
     import shutil
     import tempfile
 
     import torch.distributed as dist
 
     from repro_torch.launch import mesh as M
-    t = time.perf_counter()
     root = Path(__file__).resolve().parent / "build"
     root.mkdir(exist_ok=True)
     store = tempfile.mkdtemp(prefix="nccl-store-", dir=root)
@@ -2229,20 +2250,148 @@ def phase_mesh(core, ops, dev, g, goods, serve_graphs) -> None:
                        world_size=1)
     check(got == dev, f"init_world put the rank on {got}, not {dev}")
     try:
-        t0 = time.perf_counter()
-        mesh_pipeline(core, ops, dev, M, g)
-        phase(f"10a pipeline_sharded rmat_good({MAIN_SCALE}) P={MESH_P}", t0)
-        t0 = time.perf_counter()
-        mesh_many(core, ops, dev, M, goods)
-        phase(f"10b color_many_sharded rmat_good({MANY_SCALE}) x "
-              f"{len(goods)} P={MESH_P}", t0)
-        t0 = time.perf_counter()
-        mesh_serve(ops, dev, M, serve_graphs)
-        phase(f"10c ColoringService(mesh) P={MESH_P}", t0)
+        yield M
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
+
+
+def phase_mesh(core, ops, dev, M, g, goods, serve_graphs):
+    """Phase 10: the sharded entry points on the one-rank world.  Returns
+    10(a)'s partition, order, config and mesh."""
+    t = time.perf_counter()
+    t0 = time.perf_counter()
+    run10a = mesh_pipeline(core, ops, dev, M, g)
+    phase(f"10a pipeline_sharded rmat_good({MAIN_SCALE}) P={MESH_P}", t0)
+    t0 = time.perf_counter()
+    mesh_many(core, ops, dev, M, goods)
+    phase(f"10b color_many_sharded rmat_good({MANY_SCALE}) x "
+          f"{len(goods)} P={MESH_P}", t0)
+    t0 = time.perf_counter()
+    mesh_serve(ops, dev, M, serve_graphs)
+    phase(f"10c ColoringService(mesh) P={MESH_P}", t0)
     phase("10 sharded entry points total (one-rank NCCL world)", t)
+    return run10a
+
+
+def load_example(name: str):
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tools_examples(core, dev) -> None:
+    """11(a): the three examples on the card at their own sizes."""
+    from contextlib import redirect_stdout
+    from io import StringIO
+    quiet = StringIO()
+    t = time.perf_counter()
+    with redirect_stdout(quiet):
+        q = load_example("torch_quickstart").main(device=dev)
+    check(q["check"]["valid"], f"11a quickstart coloring invalid: "
+          f"{q['check']}")
+    print(f"  11a torch_quickstart: {q['check']['n_colors']} colors after "
+          f"{q['result']['n_iters_run']} iterations (initial "
+          f"{q['result']['color']['n_colors_distinct']}), valid; "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    t = time.perf_counter()
+    with redirect_stdout(quiet):
+        c = load_example("torch_coloring_sched").main(device=dev)
+    print(f"  11a torch_coloring_sched: {c['single'][1]} groups for "
+          f"{len(c['rows'])} samples; schedule_many "
+          f"{[ng for _, ng, _ in c['many']]} groups, every schedule "
+          f"conflict-free; {time.perf_counter() - t:.3f} s", flush=True)
+    t = time.perf_counter()
+    with redirect_stdout(quiet):
+        d = load_example("torch_distributed_coloring").main(device=dev)
+    g = core.rmat.rmat_er(14, 8, seed=1)
+    check("sharded" in d, "11a the distributed example saw no world")
+    valid = {name: core.check_coloring(g, d[name][0])
+             for name in ("speed", "quality", "sharded")}
+    for name, st in valid.items():
+        check(st["valid"], f"11a distributed example, {name}: {st}")
+    print(f"  11a torch_distributed_coloring: colors "
+          f"{ {k: v['n_colors'] for k, v in valid.items()} } (sharded: "
+          f"color_graph_sharded on the one-rank world), all valid; "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+
+
+def tools_projection(core, dev, mem: dict) -> None:
+    """11(b): the projection of one path's partition against the tensors
+    ``to_device`` makes of it and the path's measured peak."""
+    from repro_torch import roofline
+    pg = mem["pg"]
+    sparse = mem["scheme"] == core.SPARSE
+    proj = roofline.projection_of(pg, sparse=sparse)
+    arrs = core.to_device(pg, dev, sparse=sparse)
+    got = roofline.device_bytes(arrs)
+    per = proj["per_shard_bytes"]
+    check({k: per[k] for k in got} == got,
+          f"11b {mem['label']}: projection {per} against to_device {got}")
+    made = sum(t.numel() * t.element_size() for t in arrs.values())
+    named = sum(got.values()) * pg.P
+    check(named == made, f"11b {mem['label']}: the projection names "
+          f"{named} of the {made} bytes to_device made")
+    del arrs
+    torch.cuda.empty_cache()
+    total = proj["total_per_shard"] * pg.P
+    print(f"  11b {mem['label']}: projection {total / 2**30:.3f} GiB "
+          f"({proj['total_per_shard']} B per shard x {pg.P}: nbr "
+          f"{per['nbr'] * pg.P / 2**30:.3f}, nbr2 "
+          f"{per['nbr2'] * pg.P / 2**30:.3f}, CSR "
+          f"{(per['indices'] + per['edge_src']) * pg.P / 2**30:.3f}, views "
+          f"{per['views'] * pg.P / 2**30:.3f} GiB; {proj['hbm_fraction']:.5f}"
+          f" of one shard's H100); to_device made {made / 2**30:.3f} GiB, "
+          f"every named array equal; measured peak "
+          f"{mem['peak'] / 2**30:.3f} GiB ({total / mem['peak']:.3f} of it "
+          f"projected)", flush=True)
+
+
+def tools_audit(core, run10a) -> None:
+    """11(c): the recorder around 10(a)'s ``pipeline_sharded``."""
+    from repro_torch.analysis import collective_audit as CA
+    pg, order, cfg, mesh = run10a
+    with CA.CollectiveRecorder() as rec:
+        core.pipeline_sharded(pg, order, cfg, mesh)
+    counts = rec.counts()
+    check(CA.sequence_failures({0: rec.calls}) == [],
+          "11c the one rank's sequence fails the audit")
+    check(counts == MESH_COLLECTIVES,
+          f"11c collectives {counts}, want {MESH_COLLECTIVES}")
+    print(f"  11c collective audit of pipeline_sharded rmat_good("
+          f"{MAIN_SCALE}) P={MESH_P}: {CA.count_line(rec.calls)} (PERF.md "
+          f"§5: 51 all_reduce, 1 all_gather)", flush=True)
+
+
+def tools_dryrun() -> None:
+    """11(d): the coloring dry-run record of the production cell."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.coloring_record(DRYRUN_SCALE, DRYRUN_P)
+    check(rec["graph"]["P"] == DRYRUN_P and rec["sparse"]["n_rounds"] > 0,
+          f"11d dry run: {rec['graph']}")
+    print(f"  11d dry run --coloring rmat_er({DRYRUN_SCALE}, 8, seed=1) "
+          f"P={DRYRUN_P}: {json.dumps(rec)}", flush=True)
+
+
+def phase_tools(core, dev, run10a, mems) -> None:
+    """Phase 11: the examples, the projection, the audit, the dry run."""
+    t = time.perf_counter()
+    tools_examples(core, dev)
+    phase("11a examples", t)
+    t0 = time.perf_counter()
+    for mem in mems:
+        tools_projection(core, dev, mem)
+    phase("11b memory projection", t0)
+    t0 = time.perf_counter()
+    tools_audit(core, run10a)
+    phase("11c collective audit", t0)
+    t0 = time.perf_counter()
+    tools_dryrun()
+    phase("11d coloring dry run", t0)
+    phase("11 the coloring system's last modules total", t)
 
 
 def main() -> int:
@@ -2276,7 +2425,7 @@ def main() -> int:
     phase("2 kernels vs plain (bitwise)", t)
 
     t = time.perf_counter()
-    launches, runs, main = phase_main_path(core, ops, dev)
+    launches, runs, main, mem3 = phase_main_path(core, ops, dev)
     measured.update(runs)
     phase(f"3 main path rmat_good({MAIN_SCALE}) P={MAIN_P} K={MAIN_K}", t)
 
@@ -2286,7 +2435,7 @@ def main() -> int:
           "kernels/plain x sparse/allgather", t)
 
     t = time.perf_counter()
-    launches_d2, runs = phase_d2_path(core, ops, dev)
+    launches_d2, runs, mem5 = phase_d2_path(core, ops, dev)
     measured.update(runs)
     phase(f"5 distance-2 path grid3d{D2_GRID} halo=2 P={D2_P} K={D2_K}", t)
     print(f"  launches on the distance-1 path {launches}; on the distance-2 "
@@ -2314,7 +2463,9 @@ def main() -> int:
 
     serve_graphs = phase_serve(core, ops, dev)
 
-    phase_mesh(core, ops, dev, main[0], goods, serve_graphs)
+    with nccl_world(dev) as M:
+        run10a = phase_mesh(core, ops, dev, M, main[0], goods, serve_graphs)
+        phase_tools(core, dev, run10a, (mem3, mem5))
 
     kernels = []
     # launches: each kernel on its own path (the tile-form select and

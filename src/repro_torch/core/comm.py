@@ -171,10 +171,13 @@ def _wire(vals: torch.Tensor, wire16: bool) -> torch.Tensor:
 
 
 def sparse_rounds(arrs: dict) -> int:
-    """Ring-shift rounds of the sparse plan in ``arrs`` (0 without one)."""
+    """Ring-shift rounds of the sparse plan in ``arrs`` (0 without one).
+    Every shard's row of ``shift_to_round`` is the plan's one table
+    (``graph.build_comm_plan`` broadcasts it), so a rank that reads its
+    own row reads the count every rank reads."""
     if "shift_to_round" not in arrs:
         return 0
-    return int((arrs["shift_to_round"][0] >= 0).sum())
+    return shard_uniform(int((arrs["shift_to_round"][0] >= 0).sum()))
 
 
 class _Exchange:

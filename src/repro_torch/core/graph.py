@@ -58,6 +58,10 @@ class Graph:
     def degrees(self) -> np.ndarray:
         return np.diff(self.indptr).astype(np.int32)
 
+    @property
+    def max_degree(self) -> int:
+        return int(self.degrees.max(initial=0))
+
 
 #: per-shard slot index arrays (slots, ELL neighbours) are int32 below this.
 INT32_LIMIT = 2**31

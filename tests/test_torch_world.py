@@ -229,3 +229,14 @@ def serve(spec, P, g_specs, arrivals, cfg: dict, serve_kw: dict,
     return (sorted(out.shed), sorted(out.failed),
             {j: {k: r[k] for k in keep if k in r}
              for j, r in out.results.items()}, svc.stats())
+
+
+def example(name: str, kw: dict):
+    """``main(**kw)`` of ``examples/<name>.py`` on this rank."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main(**kw)
