@@ -137,7 +137,20 @@ before the final line):
    collective audit's recorder around 10(a)'s ``pipeline_sharded``: its
    calls by op, which must be 51 ``all_reduce`` and 1 ``all_gather``, the
    count 10(a)'s profiler read (PERF.md §5); (d) the ``--coloring`` dry-run
-   record of ``rmat_er(18, 8, seed=1)`` at P=256, printed.
+   record of ``rmat_er(18, 8, seed=1)`` at P=256, printed;
+12. the LM serving path (``repro_torch.launch.serve``, plain PyTorch: no
+   TPU kernel lies on it, so it adds nothing to the ``kernels`` line):
+   (a) ``qwen3-0.6b`` and (b) ``minicpm3-4b`` at their published widths and
+   depths in bf16, random weights from a seeded generator on the card,
+   served twice (cold, warm) with batch 8, prompt 512, gen 64: prefill and
+   decode seconds, tokens/s, the decode step beside its weight-bytes bound,
+   the device time of a prefill and of decode steps (torch.profiler), the
+   peak memory, and the decode equivalence (prefill over S tokens plus one
+   decode step against the full forward over S+1, within ``LM_BF16_TOL``
+   of the largest logit, logits finite); (c) every architecture at smoke
+   size in float32 (TF32 off), the same weights and prompts served on the
+   card and on the CPU: logits within ``LM_F32_TOL``, greedy tokens equal
+   up to each row's first near-tie.
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
 result line.
@@ -146,6 +159,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import statistics
@@ -199,6 +213,20 @@ MESH_P = 1
 MESH_COLLECTIVES = {"all_reduce": 51, "all_gather": 1}
 DRYRUN_SCALE, DRYRUN_P = 18, 256
 SERVE_D2_KERNELS = ("select_run_d2", "conflict_frontier_d2")
+# phase 12: the LM serving path, two architectures at their published widths
+# and depths in bf16, then every architecture at smoke size in float32 on
+# the card against the CPU.  Tolerances are relative to the largest logit.
+LM_FULL = ("qwen3-0.6b", "minicpm3-4b")
+LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = 8, 512, 64, 0
+# prefill + decode against the full forward in bf16: 2x the larger of the
+# two errors measured on an NVIDIA H100 80GB HBM3 at 700 W (2.5e-2,
+# minicpm3-4b's 62 layers; qwen3-0.6b 1.0e-2)
+LM_BF16_TOL = 0.05
+LM_SMOKE = dict(batch=4, prompt_len=64, gen=24)
+# the card against the CPU in float32, TF32 off: the CPU tests' tolerance
+# (at most 3.4e-6 on an NVIDIA H100 80GB HBM3 at 700 W, jamba's mamba scan)
+LM_F32_TOL = 1e-5
+LM_PROFILED_STEPS = 4
 
 
 def phase(name: str, t0: float, detail: str = "") -> None:
@@ -1880,7 +1908,6 @@ def serve_leg_bitwise(core, ops, S, H, dev, graphs) -> None:
     beside a running lane of its engine, and the recolor-mode lane form of
     ``select_run`` held bitwise against its plain version on the engine's
     largest step run with a frozen or empty lane."""
-    import gc
     graphs = [g for g in graphs[:SERVE_BITWISE // 2] for _ in range(2)]
     svc = S.ColoringService(
         P=SERVE_P, cfg=S.default_config(), validate=True, device=dev,
@@ -1982,7 +2009,6 @@ def serve_leg_open_loop(core, ops, S, H, dev, graphs) -> None:
     polls, engines, routes, launches against the solo runs together,
     device idle share of the polls (device time from a trace of the
     device alone), peak device memory."""
-    import gc
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2193,7 +2219,6 @@ def mesh_serve(ops, dev, M, graphs) -> None:
     a row, one per tick, continuous mode) at P=1 through
     ``ColoringService(mesh=MeshSpec.coloring(1, 1))`` and the ``mesh=None``
     service: every result bitwise the same."""
-    import gc
 
     from repro_torch.launch import serve_coloring as S
     from repro_torch.launch import serve_harness as H
@@ -2394,6 +2419,216 @@ def phase_tools(core, dev, run10a, mems) -> None:
     phase("11 the coloring system's last modules total", t)
 
 
+# -- phase 12: the LM serving path ---------------------------------------------
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want| (both moved to float32 on the CPU)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def lm_decode_equivalence(M, arch, params, inputs, first, plan) -> tuple:
+    """prefill(S) + one decode step against the full forward over S+1
+    tokens (the prompt and the first generated token), the cache holding
+    S+4 slots as in ``tests/test_models.py``.  Returns (relative error,
+    rows whose argmax agrees, both logits finite)."""
+    toks = torch.cat([inputs["tokens"], first], dim=1)
+    S = inputs["tokens"].shape[1]
+    x, _, _ = M.backbone(params, toks, torch.arange(S + 1, device=toks.device)
+                         [None], arch, plan, mode="train")
+    want = M._unembed(params, x[:, -1:], arch, plan)
+    del x
+    cache, _ = M.prefill(params, inputs, arch, plan, cache_len=S + 4)
+    _, got = M.decode_step(params, cache, first, arch, plan)
+    del cache
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    return rel_err(got, want), agree, finite
+
+
+def lm_full(dev, name: str) -> None:
+    """12(a)/(b): one architecture at its published width and depth."""
+    from repro_torch.configs import get_arch, plan_for_mesh
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models import init_params, model as M
+    from repro_torch.models.layers import flatten
+    arch = get_arch(name)
+    mesh = MeshSpec.local()
+    plan = plan_for_mesh(mesh)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params = init_params(M.param_defs(arch),
+                         torch.Generator(device=dev).manual_seed(LM_SEED), dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t
+    leaves = flatten(params).values()
+    n = sum(p.numel() for p in leaves)
+    w_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    check(n == arch.n_params(), f"12 {name}: {n} parameters, the table says "
+          f"{arch.n_params()}")
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, seed=LM_SEED,
+              params=params, device=dev)
+    runs = [S.serve(arch, mesh, plan, **kw) for _ in range(2)]  # cold, warm
+    tokens = runs[1][0]
+    check(torch.equal(runs[0][0], tokens), f"12 {name}: the warm serve gave "
+          "other tokens than the cold one")
+    check(tokens.shape == (LM_BATCH, LM_GEN) and int(tokens.min()) >= 0
+          and int(tokens.max()) < arch.vocab_padded(),
+          f"12 {name}: tokens {tuple(tokens.shape)} out of range")
+    inputs = S.serve_inputs(arch, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                            seed=LM_SEED, device=dev)
+    err, agree, finite = lm_decode_equivalence(M, arch, params, inputs,
+                                               tokens[:, :1], plan)
+    peak = torch.cuda.max_memory_allocated()
+    dt = lm_device_time(M, arch, plan, params, inputs, tokens)
+    check(finite, f"12 {name}: non-finite logits")
+    check(err <= LM_BF16_TOL, f"12 {name}: prefill + decode against the "
+          f"full forward {err:.3e} > {LM_BF16_TOL}")
+    bound_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    for label, (_, st) in zip(("cold", "warm"), runs):
+        step_ms = st["decode_s"] / (LM_GEN - 1) * 1e3
+        print(f"  12 {name} {label}: prefill {st['prefill_s']:.4f} s, decode "
+              f"{st['decode_s']:.4f} s ({step_ms:.3f} ms per step, "
+              f"{step_ms / bound_ms:.1f}x the weight-bytes bound "
+              f"{bound_ms:.4f} ms), {st['tok_per_s']:.1f} tokens/s",
+              flush=True)
+    warm = runs[1][1]
+    warm_step = warm["decode_s"] / (LM_GEN - 1)
+    print(f"  12 {name} device time (profiled): prefill {dt['prefill_s']:.4f}"
+          f" s (idle {1 - dt['prefill_s'] / warm['prefill_s']:.3f} of the "
+          f"warm prefill), decode {dt['step_s'] * 1e3:.3f} ms a step (idle "
+          f"{1 - dt['step_s'] / warm_step:.3f} of the warm step), "
+          f"{dt['step_kernels']:.0f} device kernels a step "
+          f"({dt['step_kernels'] / arch.n_layers:.1f} a layer); per decode "
+          f"step: {dt['top']}", flush=True)
+    print(f"  12 {name}: {arch.n_layers} layers, d_model {arch.d_model}, "
+          f"vocab {arch.vocab_size} (padded {arch.vocab_padded()}), {n:,} "
+          f"parameters, {w_bytes / 1e9:.3f} GB bf16, drawn in {t_init:.3f} s; "
+          f"batch {LM_BATCH}, prompt {LM_PROMPT}, gen {LM_GEN}; peak "
+          f"{peak / 2**30:.3f} GiB; decode equivalence {err:.4e} of the "
+          f"largest logit (tol {LM_BF16_TOL}), argmax agrees on {agree}/"
+          f"{LM_BATCH} rows, logits finite", flush=True)
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_device_time(M, arch, plan, params, inputs, tokens) -> dict:
+    """Device time (torch.profiler) of one warm prefill and of
+    ``LM_PROFILED_STEPS`` decode steps fed the served ``tokens``; the top
+    device consumers of the decode steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def busy(prof):
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+        return sum(e.self_device_time_total for e in ev) / 1e6, ev
+
+    S = inputs["tokens"].shape[1]
+    M.prefill(params, inputs, arch, plan, S)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cache, _ = M.prefill(params, inputs, arch, plan, S)
+        torch.cuda.synchronize()
+    pre, _ = busy(prof)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(LM_PROFILED_STEPS):
+            cache, _ = M.decode_step(params, cache, tokens[:, i:i + 1], arch,
+                                     plan)
+        torch.cuda.synchronize()
+    dec, ev = busy(prof)
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+    per = 1e3 * LM_PROFILED_STEPS
+    return dict(prefill_s=pre, step_s=dec / LM_PROFILED_STEPS,
+                step_kernels=sum(e.count for e in ev) / LM_PROFILED_STEPS,
+                top="; ".join(f"{e.self_device_time_total / per:.3f} ms "
+                              f"{e.key[:60]}" for e in top))
+
+
+def lm_logits(M, arch, plan, params, inputs, tokens) -> list:
+    """Prefill then decode fed ``tokens`` (teacher forcing): the logits of
+    every step, on the CPU."""
+    cache, logits = M.prefill(params, inputs, arch, plan,
+                              inputs["tokens"].shape[1])
+    out = [logits[:, -1].float().cpu()]
+    for i in range(tokens.shape[1] - 1):
+        cache, logits = M.decode_step(params, cache, tokens[:, i:i + 1],
+                                      arch, plan)
+        out.append(logits[:, -1].float().cpu())
+    return out
+
+
+def lm_smoke(dev, name: str) -> str:
+    """12(c): one architecture at smoke size, float32, the same weights and
+    prompts served on the card and on the CPU."""
+    from repro_torch.configs import get_arch, plan_for_mesh, smoke_of
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models import init_params, model as M
+    from repro_torch.models.layers import tree_map
+    arch = smoke_of(get_arch(name))
+    plan = plan_for_mesh(MeshSpec.local())
+    cpu = init_params(M.param_defs(arch),
+                      torch.Generator().manual_seed(LM_SEED), "cpu")
+    card = tree_map(lambda t: t.to(dev), cpu)
+    got, _ = S.serve(arch, None, plan, seed=LM_SEED, params=card, device=dev,
+                     **LM_SMOKE)
+    want, _ = S.serve(arch, None, plan, seed=LM_SEED, params=cpu,
+                      device="cpu", **LM_SMOKE)
+    got = got.cpu()
+    ins = {d: S.serve_inputs(arch, batch=LM_SMOKE["batch"],
+                             prompt_len=LM_SMOKE["prompt_len"], seed=LM_SEED,
+                             device=d) for d in ("cpu", dev)}
+    lc = lm_logits(M, arch, plan, cpu, ins["cpu"], want)
+    lg = lm_logits(M, arch, plan, card, ins[dev], want.to(dev))
+    err = max(rel_err(g, c) for g, c in zip(lg, lc))
+    check(err <= LM_F32_TOL, f"12c {name}: card against CPU logits "
+          f"{err:.3e} > {LM_F32_TOL}")
+    # tokens equal up to each row's first near-tie (top two within twice
+    # the tolerance of the CPU's largest logit)
+    compared = 0
+    for b in range(want.shape[0]):
+        upto = want.shape[1]
+        for i, c in enumerate(lc):
+            top = torch.topk(c[b].double(), 2).values
+            if float(top[0] - top[1]) < 2 * LM_F32_TOL * float(c[b].abs().max()):
+                upto = i + 1
+                break
+        check(torch.equal(got[b, :upto], want[b, :upto]),
+              f"12c {name} row {b}: card tokens {got[b].tolist()} against "
+              f"CPU {want[b].tolist()} before the first near-tie at {upto}")
+        compared += upto
+    return (f"{name} {err:.2e} ({compared}/{want.numel()} tokens before a "
+            "near-tie)")
+
+
+def phase_lm(dev) -> None:
+    """Phase 12: the LM serving path (``repro_torch.launch.serve``)."""
+    t = time.perf_counter()
+    for i, name in enumerate(LM_FULL):
+        t0 = time.perf_counter()
+        lm_full(dev, name)
+        phase(f"12{'ab'[i]} {name} at full width and depth, bf16", t0)
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        from repro_torch.configs import list_archs
+        lines = [lm_smoke(dev, name) for name in list_archs()]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"  12c card against CPU, float32, serve batch "
+          f"{LM_SMOKE['batch']} prompt {LM_SMOKE['prompt_len']} gen "
+          f"{LM_SMOKE['gen']}, logits max relative error (tol {LM_F32_TOL}): "
+          + "; ".join(lines), flush=True)
+    phase("12c every architecture at smoke size, card against CPU", t0)
+    phase("12 LM serving path total", t)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2466,6 +2701,9 @@ def main() -> int:
     with nccl_world(dev) as M:
         run10a = phase_mesh(core, ops, dev, M, main[0], goods, serve_graphs)
         phase_tools(core, dev, run10a, (mem3, mem5))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lm(dev)
 
     kernels = []
     # launches: each kernel on its own path (the tile-form select and

@@ -1,4 +1,5 @@
 """The port's launch layer: ``mesh`` (``MeshSpec``, ``init_world``: the
 ``torch.distributed`` meshes the ``*_sharded`` entry points run on),
 ``serve_coloring`` (the continuous-batching ``ColoringService``, one device
-or a mesh) and ``serve_harness`` (its scripted fake-clock event loop)."""
+or a mesh), ``serve_harness`` (its scripted fake-clock event loop) and
+``serve`` (the LM scaffold's batched prefill + greedy decode)."""

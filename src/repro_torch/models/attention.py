@@ -1,0 +1,296 @@
+"""Attention: blockwise (flash-style) SDPA, GQA/MQA, qk-norm, MLA, caches
+(the port of ``repro.models.attention``).
+
+The blockwise attention is the reference's algorithm in plain PyTorch: a
+loop over query blocks and, inside it, over KV blocks, with the online
+softmax's ``m`` / ``l`` / ``acc`` in float32 (the reference's
+``preferred_element_type=float32``), so long prompts never materialize S×S
+scores.  No Pallas kernel lies behind it in the reference (XLA runs its
+``lax.scan``), so the port has no hand-written kernel here either.
+
+Decode uses a ring-buffer KV cache: capacity = the cache's length, slot
+``pos % S`` overwritten, full-window attention over ``min(pos + 1, S)``
+slots.  The cache's tensors are updated in place.  MLA decode runs in
+*absorbed* form — scores and values are computed against the
+(kv_lora+rope) latent cache without materializing per-head K/V.
+
+Where the reference asks for float32 results of bf16 operands
+(``preferred_element_type``), the port upcasts the operands first: the
+products of bf16 values are exact in float32, so both accumulate the same
+terms in float32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShardingPlan
+from .layers import (ParamDef, apply_m_rope, apply_rope, constrain, f32,
+                     rms_norm)
+
+NEG_INF = -1e30
+
+
+def _pick(S: int, target: int) -> int:
+    """Largest block <= target that divides S."""
+    for b in range(min(target, S), 0, -1):
+        if S % b == 0:
+            return b
+    return S
+
+
+def _blockwise(q, k, v, *, causal: bool, scale: float, q_block: int = 512,
+               kv_block: int = 512):
+    """q (B,Sq,H,D), k/v (B,Sk,Hkv,Dk/Dv) -> (B,Sq,H,Dv); online softmax."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // Hkv
+    bq, bk = _pick(Sq, q_block), _pick(Sk, kv_block)
+    nq, nk = Sq // bq, Sk // bk
+    dev = q.device
+
+    qb = f32(q).reshape(B, nq, bq, Hkv, G, D)
+    kb = f32(k).reshape(B, nk, bk, Hkv, D)
+    vb = v.reshape(B, nk, bk, Hkv, Dv)
+    outs = []
+    for qi in range(nq):
+        qblk = qb[:, qi]                                 # (B,bq,Hkv,G,D)
+        qpos = qi * bq + torch.arange(bq, device=dev)
+        m = torch.full((B, Hkv, G, bq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, Hkv, G, bq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, Hkv, G, bq, Dv), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kb[:, ki]) * scale
+            if causal:
+                kpos = ki * bk + torch.arange(bk, device=dev)
+                mask = qpos[:, None] >= kpos[None, :]
+                s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", f32(p.to(v.dtype)),
+                              f32(vb[:, ki]))
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B,Hkv,G,bq,Dv)
+        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
+    # (B, bq, Hkv, G, Dv) per block -> (B, Sq, H, Dv)
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, Dv)
+
+
+def _valid_mask(S: int, n_valid, device):
+    """(S,) True for the filled cache slots (``n_valid`` a 0-d tensor)."""
+    return torch.arange(S, device=device) < n_valid
+
+
+def _decode_sdpa(q, k, v, scale: float, n_valid=None):
+    """q (B,1,H,D) vs cache k/v (B,S,Hkv,D*) -> (B,1,H,Dv).
+
+    `n_valid`: number of filled cache slots (unfilled ones are masked)."""
+    B, _, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qh = q.reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", f32(qh), f32(k)) * scale
+    if n_valid is not None:
+        s = torch.where(_valid_mask(S, n_valid, s.device), s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", f32(p.to(v.dtype)), f32(v))
+    return o.reshape(B, 1, H, v.shape[3]).to(q.dtype)
+
+
+def _write_slot(buf, x, slot):
+    """Overwrite ``buf[:, slot]`` with ``x`` (B, 1, ...) in place;
+    ``slot`` a 0-d device tensor (no host read)."""
+    buf.index_copy_(1, slot.reshape(1).to(torch.long), x.to(buf.dtype))
+    return buf
+
+
+def _write_prefix(buf, x):
+    """Overwrite ``buf[:, :S]`` with the prompt's ``x`` (B, S, ...) in
+    place."""
+    buf[:, :x.shape[1]].copy_(x)
+    return buf
+
+
+# --------------------------------------------------------------------------
+# GQA / MQA (+ qk-norm, RoPE / M-RoPE)
+
+
+def gqa_defs(cfg: ArchConfig, dt: str) -> dict:
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    defs = {
+        "wq": ParamDef((d, H * hd), ("fsdp", "tp"), dtype=dt),
+        "wk": ParamDef((d, Hkv * hd), ("fsdp", "tp"), dtype=dt),
+        "wv": ParamDef((d, Hkv * hd), ("fsdp", "tp"), dtype=dt),
+        "wo": ParamDef((H * hd, d), ("tp", "fsdp"), dtype=dt),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((hd,), (None,), init="ones", dtype=dt)
+        defs["k_norm"] = ParamDef((hd,), (None,), init="ones", dtype=dt)
+    return defs
+
+
+def gqa_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
+              causal=True, mode="train", cache=None, cache_pos=None,
+              pos3=None):
+    """mode: train/prefill (blockwise) | decode (ring-buffer cache)."""
+    B, S, d = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
+    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
+        k = rms_norm(k, p["k_norm"], cfg.rms_eps)
+    if cfg.m_rope and pos3 is not None:
+        sections = _mrope_sections(hd)
+        q = apply_m_rope(q, pos3, sections, cfg.rope_theta)
+        k = apply_m_rope(k, pos3, sections, cfg.rope_theta)
+    elif cfg.rope_theta > 0:  # whisper (theta=0) uses absolute positions
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    q = constrain(q, plan, ("batch", None, "tp", None))
+    scale = hd ** -0.5
+
+    if mode == "decode":
+        S_cache = cache["k"].shape[1]
+        slot = cache_pos % S_cache
+        k_cache = _write_slot(cache["k"], k, slot)
+        v_cache = _write_slot(cache["v"], v, slot)
+        n_valid = torch.clamp(cache_pos + 1, max=S_cache)
+        o = _decode_sdpa(q, k_cache, v_cache, scale, n_valid)
+        new_cache = {"k": k_cache, "v": v_cache}
+    else:
+        o = _blockwise(q, k, v, causal=causal, scale=scale)
+        new_cache = None
+        if mode == "prefill":
+            if cache is not None:  # write prompt K/V into the cache buffer
+                new_cache = {"k": _write_prefix(cache["k"], k),
+                             "v": _write_prefix(cache["v"], v)}
+            else:
+                new_cache = {"k": k.to(torch.bfloat16),
+                             "v": v.to(torch.bfloat16)}
+    out = o.reshape(B, S, H * hd) @ p["wo"]
+    return constrain(out, plan, ("batch", None, "fsdp")), new_cache
+
+
+def gqa_cross_apply(p, x, enc_kv, cfg: ArchConfig, plan: ShardingPlan):
+    """Cross-attention against precomputed encoder K/V (whisper decoder)."""
+    B, S, d = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim_
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    o = _blockwise(q, enc_kv["k"], enc_kv["v"], causal=False,
+                   scale=hd ** -0.5)
+    out = o.reshape(B, S, H * hd) @ p["wo"]
+    return constrain(out, plan, ("batch", None, "fsdp"))
+
+
+def encode_kv(p, x_enc, cfg: ArchConfig):
+    B, S, _ = x_enc.shape
+    Hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    return {"k": (x_enc @ p["wk"]).reshape(B, S, Hkv, hd),
+            "v": (x_enc @ p["wv"]).reshape(B, S, Hkv, hd)}
+
+
+def _mrope_sections(head_dim: int) -> tuple[int, int, int]:
+    """Qwen2-VL splits D/2 rotary channels among (t, h, w) as 2:3:3."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+# --------------------------------------------------------------------------
+# MLA (deepseek-v3 / minicpm3)
+
+
+def mla_defs(cfg: ArchConfig, dt: str) -> dict:
+    d, H = cfg.d_model, cfg.n_heads
+    ql, kvl = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    defs = {
+        "wkv_a": ParamDef((d, kvl + rope), ("fsdp", None), dtype=dt),
+        "kv_norm": ParamDef((kvl,), (None,), init="ones", dtype=dt),
+        "wkv_b": ParamDef((kvl, H * (nope + vd)), ("fsdp", "tp"), dtype=dt),
+        "wo": ParamDef((H * vd, d), ("tp", "fsdp"), dtype=dt),
+    }
+    if ql > 0:
+        defs["wq_a"] = ParamDef((d, ql), ("fsdp", None), dtype=dt)
+        defs["q_norm"] = ParamDef((ql,), (None,), init="ones", dtype=dt)
+        defs["wq_b"] = ParamDef((ql, H * (nope + rope)), ("fsdp", "tp"),
+                                dtype=dt)
+    else:
+        defs["wq"] = ParamDef((d, H * (nope + rope)), ("fsdp", "tp"), dtype=dt)
+    return defs
+
+
+def _mla_q(p, x, cfg: ArchConfig):
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank > 0:
+        q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.rms_eps) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, S, H, nope + rope)
+    return q[..., :nope], q[..., nope:]
+
+
+def mla_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
+              mode="train", cache=None, cache_pos=None):
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rope, vd, kvl = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                           cfg.kv_lora_rank)
+    scale = (nope + rope) ** -0.5
+
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+
+    kv_a = x @ p["wkv_a"]                                 # (B,S,kvl+rope)
+    c_kv = rms_norm(kv_a[..., :kvl], p["kv_norm"], cfg.rms_eps)
+    k_rope = apply_rope(kv_a[..., kvl:][:, :, None, :], pos,
+                        cfg.rope_theta)                   # (B,S,1,rope)
+
+    wkv_b = p["wkv_b"].reshape(kvl, H, nope + vd)
+    w_k, w_v = wkv_b[..., :nope], wkv_b[..., nope:]
+
+    if mode == "decode":
+        S_cache = cache["c_kv"].shape[1]
+        slot = cache_pos % S_cache
+        c_cache = _write_slot(cache["c_kv"], c_kv, slot)
+        r_cache = _write_slot(cache["k_rope"], k_rope[:, :, 0], slot)
+        # absorbed scores: q_nope' = q_nope @ w_k^T  -> (B,1,H,kvl)
+        q_abs = torch.einsum("bshn,khn->bshk", q_nope, w_k)
+        s = (torch.einsum("bshk,btk->bhst", f32(q_abs), f32(c_cache))
+             + torch.einsum("bshr,btr->bhst", f32(q_rope), f32(r_cache))
+             ) * scale
+        n_valid = torch.clamp(cache_pos + 1, max=S_cache)
+        s = torch.where(_valid_mask(S_cache, n_valid, s.device), s, NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhst,btk->bshk", f32(pr.to(c_cache.dtype)),
+                             f32(c_cache))
+        o = torch.einsum("bshk,khv->bshv", o_lat.to(x.dtype), w_v)
+        new_cache = {"c_kv": c_cache, "k_rope": r_cache}
+    else:
+        # materialized K/V + blockwise attention
+        k_nope = torch.einsum("btk,khn->bthn", c_kv, w_k)
+        v = torch.einsum("btk,khv->bthv", c_kv, w_v)
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, rope)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        q = constrain(q, plan, ("batch", None, "tp", None))
+        o = _blockwise(q, k, v, causal=True, scale=scale)
+        new_cache = None
+        if mode == "prefill":
+            if cache is not None:
+                new_cache = {"c_kv": _write_prefix(cache["c_kv"], c_kv),
+                             "k_rope": _write_prefix(cache["k_rope"],
+                                                     k_rope[:, :, 0])}
+            else:
+                new_cache = {"c_kv": c_kv.to(torch.bfloat16),
+                             "k_rope": k_rope[:, :, 0].to(torch.bfloat16)}
+    out = o.reshape(B, S, H * vd) @ p["wo"]
+    return constrain(out, plan, ("batch", None, "fsdp")), new_cache

@@ -1,0 +1,462 @@
+"""Model assembly: layer plans, parameter tables, train/prefill/decode (the
+port of ``repro.models.model``, forward only).
+
+An architecture lowers to a list of *runs*: maximal contiguous groups of
+identical (mixer, ffn) layer specs.  Each run's parameters (and caches) are
+stacked on a leading L axis, the reference's layout, so carrying the
+reference's weights across is a copy; a Python loop over the run's L layers
+takes the place of its ``lax.scan``.  Heterogeneous stacks (jamba's 1:7
+mamba:attention interleave with alternating MoE) produce many short runs.
+
+Modes: ``train`` (the full forward, no cache), ``prefill`` (build caches +
+last-position logits), ``decode`` (one token against ring-buffer caches).
+Caches are updated in place: a layer writes into its slice of the run's
+stacked cache tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, ShardingPlan
+from . import attention as attn
+from . import moe as moe_mod
+from . import ssm
+from .layers import (DTYPES, ParamDef, constrain, flatten, geglu, layer_norm,
+                     rms_norm, sinusoidal_from_pos, swiglu, tree_map)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    mixer: str            # gqa | mla | rwkv6 | mamba | none
+    ffn: str              # swiglu | geglu | mlp | moe | rwkv
+    cross: bool = False   # whisper decoder cross-attention
+    causal: bool = True
+
+
+# --------------------------------------------------------------------------
+# Layer plans
+
+
+def layer_specs(cfg: ArchConfig) -> list[BlockSpec]:
+    """Per-layer BlockSpec for the decoder/backbone stack."""
+    specs = []
+    for i in range(cfg.n_layers):
+        if cfg.family == "hybrid":
+            mixer = "gqa" if cfg.attn_every and i % cfg.attn_every == (
+                cfg.attn_every // 2) else "mamba"
+            ffn = "moe" if cfg.moe_every and i % cfg.moe_every == 1 else \
+                cfg.ffn_kind
+        elif cfg.family == "ssm":
+            mixer, ffn = cfg.ssm_kind, cfg.ffn_kind
+        else:
+            mixer = cfg.attn_kind
+            ffn = "moe" if (cfg.is_moe and i >= cfg.first_k_dense) else \
+                cfg.ffn_kind
+        specs.append(BlockSpec(mixer=mixer, ffn=ffn,
+                               cross=cfg.enc_dec, causal=True))
+    return specs
+
+
+def layer_runs(cfg: ArchConfig) -> list[tuple[BlockSpec, int]]:
+    runs: list[tuple[BlockSpec, int]] = []
+    for s in layer_specs(cfg):
+        if runs and runs[-1][0] == s:
+            runs[-1] = (s, runs[-1][1] + 1)
+        else:
+            runs.append((s, 1))
+    return runs
+
+
+def encoder_runs(cfg: ArchConfig) -> list[tuple[BlockSpec, int]]:
+    if not cfg.enc_dec:
+        return []
+    return [(BlockSpec(mixer="gqa", ffn="mlp", causal=False),
+             cfg.n_enc_layers)]
+
+
+# --------------------------------------------------------------------------
+# Parameter tables
+
+
+def _norm_defs(cfg: ArchConfig, dt: str) -> dict:
+    if cfg.enc_dec:  # whisper uses LayerNorm
+        return {"gamma": ParamDef((cfg.d_model,), (None,), init="ones",
+                                  dtype=dt),
+                "beta": ParamDef((cfg.d_model,), (None,), init="zeros",
+                                 dtype=dt)}
+    return {"gamma": ParamDef((cfg.d_model,), (None,), init="ones", dtype=dt)}
+
+
+def _apply_norm(p, x, cfg: ArchConfig):
+    if "beta" in p:
+        return layer_norm(x, p["gamma"], p["beta"])
+    return rms_norm(x, p["gamma"], cfg.rms_eps)
+
+
+def _mixer_defs(kind: str, cfg: ArchConfig, dt: str) -> dict:
+    if kind == "gqa":
+        return attn.gqa_defs(cfg, dt)
+    if kind == "mla":
+        return attn.mla_defs(cfg, dt)
+    if kind == "rwkv6":
+        return ssm.rwkv6_defs(cfg, dt)
+    if kind == "mamba":
+        return ssm.mamba_defs(cfg, dt)
+    return {}
+
+
+def _ffn_defs(kind: str, cfg: ArchConfig, dt: str) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if kind in ("swiglu", "geglu"):
+        return {"w_gate": ParamDef((d, f), ("fsdp", "tp"), dtype=dt),
+                "w_up": ParamDef((d, f), ("fsdp", "tp"), dtype=dt),
+                "w_down": ParamDef((f, d), ("tp", "fsdp"), dtype=dt)}
+    if kind == "mlp":
+        return {"w1": ParamDef((d, f), ("fsdp", "tp"), dtype=dt),
+                "w2": ParamDef((f, d), ("tp", "fsdp"), dtype=dt)}
+    if kind == "moe":
+        return moe_mod.moe_defs(cfg, dt)
+    if kind == "rwkv":
+        return ssm.rwkv6_ffn_defs(cfg, dt)
+    raise ValueError(kind)
+
+
+def block_defs(spec: BlockSpec, cfg: ArchConfig, dt: str) -> dict:
+    defs = {
+        "norm1": _norm_defs(cfg, dt),
+        "mixer": _mixer_defs(spec.mixer, cfg, dt),
+        "norm2": _norm_defs(cfg, dt),
+        "ffn": _ffn_defs(spec.ffn, cfg, dt),
+    }
+    if spec.cross:
+        defs["norm_x"] = _norm_defs(cfg, dt)
+        defs["cross"] = attn.gqa_defs(cfg, dt)
+    return defs
+
+
+def _stack_defs(tree, L: int):
+    return tree_map(lambda d: ParamDef((L,) + d.shape, (None,) + d.dims,
+                                       d.init, d.scale, d.dtype), tree)
+
+
+def param_defs(cfg: ArchConfig) -> dict:
+    dt = cfg.params_dtype
+    V = cfg.vocab_padded()
+    d = cfg.d_model
+    defs: dict[str, Any] = {
+        "embed": ParamDef((V, d), ("tp", "fsdp"), scale=1.0, dtype=dt),
+        "final_norm": _norm_defs(cfg, dt),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((d, V), ("fsdp", "tp"), dtype=dt)
+    for r, (spec, L) in enumerate(layer_runs(cfg)):
+        defs[f"run{r}"] = _stack_defs(block_defs(spec, cfg, dt), L)
+    if cfg.enc_dec:
+        for r, (spec, L) in enumerate(encoder_runs(cfg)):
+            defs[f"enc_run{r}"] = _stack_defs(block_defs(spec, cfg, dt), L)
+        defs["enc_final_norm"] = _norm_defs(cfg, dt)
+    return defs
+
+
+# --------------------------------------------------------------------------
+# Caches
+
+
+def _mixer_cache_defs(kind: str, cfg: ArchConfig, B: int, S: int) -> dict:
+    d = cfg.d_model
+    dt = cfg.compute_dtype
+    if kind == "gqa":
+        hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+        return {"k": ParamDef((B, S, hkv, hd), ("batch", "seq", None, None),
+                              init="zeros", dtype=dt),
+                "v": ParamDef((B, S, hkv, hd), ("batch", "seq", None, None),
+                              init="zeros", dtype=dt)}
+    if kind == "mla":
+        return {"c_kv": ParamDef((B, S, cfg.kv_lora_rank),
+                                 ("batch", "seq", None), init="zeros",
+                                 dtype=dt),
+                "k_rope": ParamDef((B, S, cfg.qk_rope_dim),
+                                   ("batch", "seq", None), init="zeros",
+                                   dtype=dt)}
+    if kind == "rwkv6":
+        H = max(d // 64, 1)
+        return {"x_prev": ParamDef((B, 1, d), ("batch", None, None),
+                                   init="zeros", dtype=dt),
+                "state": ParamDef((B, H, d // H, d // H),
+                                  ("batch", "tp", None, None), init="zeros",
+                                  dtype="float32")}
+    if kind == "mamba":
+        di = cfg.expand * d
+        return {"conv": ParamDef((B, cfg.d_conv - 1, di),
+                                 ("batch", None, "tp"), init="zeros",
+                                 dtype=dt),
+                "h": ParamDef((B, di, cfg.d_state), ("batch", "tp", None),
+                              init="zeros", dtype="float32")}
+    return {}
+
+
+def cache_defs(cfg: ArchConfig, B: int, S: int) -> dict:
+    """Nested ParamDef table for the decode cache (stacked per run)."""
+    out: dict[str, Any] = {"pos": ParamDef((), (), init="zeros",
+                                           dtype="int32")}
+    for r, (spec, L) in enumerate(layer_runs(cfg)):
+        entry = {"mixer": _mixer_cache_defs(spec.mixer, cfg, B, S)}
+        if spec.ffn == "rwkv":
+            entry["ffn"] = {"x_prev": ParamDef((B, 1, cfg.d_model),
+                                               ("batch", None, None),
+                                               init="zeros",
+                                               dtype=cfg.compute_dtype)}
+        if spec.cross:
+            hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+            E = cfg.enc_len
+            entry["cross"] = {
+                "k": ParamDef((B, E, hkv, hd), ("batch", None, None, None),
+                              init="zeros", dtype=cfg.compute_dtype),
+                "v": ParamDef((B, E, hkv, hd), ("batch", None, None, None),
+                              init="zeros", dtype=cfg.compute_dtype)}
+        out[f"run{r}"] = _stack_defs(entry, L)
+    return out
+
+
+def init_cache(cfg: ArchConfig, B: int, S: int, device=None):
+    return tree_map(lambda d: torch.zeros(d.shape, dtype=DTYPES[d.dtype],
+                                          device=device),
+                    cache_defs(cfg, B, S))
+
+
+# --------------------------------------------------------------------------
+# Forward
+
+
+def _apply_mixer(spec: BlockSpec, p, h, pos, cfg, plan, mode, cache,
+                 cache_pos, pos3):
+    if spec.mixer == "gqa":
+        return attn.gqa_apply(p, h, pos, cfg, plan, causal=spec.causal,
+                              mode=mode, cache=cache, cache_pos=cache_pos,
+                              pos3=pos3)
+    if spec.mixer == "mla":
+        return attn.mla_apply(p, h, pos, cfg, plan, mode=mode, cache=cache,
+                              cache_pos=cache_pos)
+    if spec.mixer == "rwkv6":
+        x_prev = cache["x_prev"].to(h.dtype) if cache is not None else \
+            torch.zeros_like(h[:, :1])
+        state = cache["state"] if cache is not None else torch.zeros(
+            (h.shape[0], max(cfg.d_model // 64, 1), 64, 64),
+            dtype=torch.float32, device=h.device)
+        if mode == "decode":
+            y, (xl, st) = ssm.rwkv6_step(p, h, x_prev, state, cfg, plan)
+        else:
+            y, (xl, st) = ssm.rwkv6_chunked(p, h, x_prev, state, cfg, plan)
+        new_cache = ({"x_prev": xl.to(DTYPES[cfg.compute_dtype]),
+                      "state": st} if mode != "train" else None)
+        return y, new_cache
+    if spec.mixer == "mamba":
+        di = cfg.expand * cfg.d_model
+        conv = cache["conv"] if cache is not None else torch.zeros(
+            (h.shape[0], cfg.d_conv - 1, di), dtype=torch.bfloat16,
+            device=h.device)
+        hs = cache["h"] if cache is not None else torch.zeros(
+            (h.shape[0], di, cfg.d_state), dtype=torch.float32,
+            device=h.device)
+        y, (conv, hs) = ssm.mamba_apply(p, h, conv, hs, cfg, plan)
+        new_cache = {"conv": conv, "h": hs} if mode != "train" else None
+        return y, new_cache
+    raise ValueError(spec.mixer)
+
+
+def _apply_ffn(spec: BlockSpec, p, h, cfg, plan, mode, cache):
+    if spec.ffn == "swiglu":
+        return swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0, None
+    if spec.ffn == "geglu":
+        return geglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0, None
+    if spec.ffn == "mlp":
+        return F.gelu(h @ p["w1"], approximate="tanh") @ p["w2"], 0.0, None
+    if spec.ffn == "moe":
+        y, aux = moe_mod.moe_apply(p, h, cfg, plan)
+        return y, aux, None
+    if spec.ffn == "rwkv":
+        x_prev = cache["x_prev"].to(h.dtype) if cache is not None else \
+            torch.zeros_like(h[:, :1])
+        y, xl = ssm.rwkv6_ffn(p, h, x_prev, cfg, plan)
+        new_cache = ({"x_prev": xl.to(DTYPES[cfg.compute_dtype])}
+                     if mode != "train" else None)
+        return y, 0.0, new_cache
+    raise ValueError(spec.ffn)
+
+
+def apply_block(spec: BlockSpec, p, x, pos, cfg, plan, *, mode,
+                cache=None, cache_pos=None, pos3=None, x_enc=None):
+    """One transformer/SSM block. Returns (x, aux, new_cache)."""
+    c_mix = cache.get("mixer") if cache else None
+    c_ffn = cache.get("ffn") if cache else None
+    h = _apply_norm(p["norm1"], x, cfg)
+    y, new_mix = _apply_mixer(spec, p["mixer"], h, pos, cfg, plan, mode,
+                              c_mix, cache_pos, pos3)
+    x = x + y
+    new_cache: dict[str, Any] = {}
+    if new_mix is not None:
+        new_cache["mixer"] = new_mix
+    if spec.cross:
+        h = _apply_norm(p["norm_x"], x, cfg)
+        if mode == "train" or (mode == "prefill" and x_enc is not None):
+            enc_kv = attn.encode_kv(p["cross"], x_enc, cfg)
+        else:
+            enc_kv = {"k": cache["cross"]["k"], "v": cache["cross"]["v"]}
+        x = x + attn.gqa_cross_apply(p["cross"], h, enc_kv, cfg, plan)
+        if mode == "prefill":
+            new_cache["cross"] = {k: v.to(DTYPES[cfg.compute_dtype])
+                                  for k, v in enc_kv.items()}
+        elif mode == "decode":
+            new_cache["cross"] = cache["cross"]
+    h = _apply_norm(p["norm2"], x, cfg)
+    y, aux, new_ffn = _apply_ffn(spec, p["ffn"], h, cfg, plan, mode, c_ffn)
+    if new_ffn is not None:
+        new_cache["ffn"] = new_ffn
+    return x + y, aux, (new_cache if new_cache else None)
+
+
+def _layer(tree, i: int):
+    """Layer ``i``'s slice of a stacked tree (views, no copy)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def _store(stacked: dict, i: int, new: dict) -> None:
+    """Write layer ``i``'s new cache into the stacked cache in place (a
+    tensor the layer already wrote through its view is left as it is)."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _store(stacked[k], i, v)
+        else:
+            dst = stacked[k][i]
+            if v.data_ptr() != dst.data_ptr():
+                dst.copy_(v)
+
+
+def _run_stack(spec: BlockSpec, p_stacked, x, pos, cfg, plan, *, mode,
+               cache=None, cache_pos=None, pos3=None, x_enc=None):
+    """One run, layer by layer (stacked params / caches). Returns (x, aux,
+    new_cache): ``cache`` itself, updated in place, when one is given;
+    else the layers' caches stacked (``None`` in train mode)."""
+    L = next(iter(flatten(p_stacked).values())).shape[0]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    made = []
+    for i in range(L):
+        c_l = _layer(cache, i) if cache is not None else None
+        x, a, nc = apply_block(spec, _layer(p_stacked, i), x, pos, cfg, plan,
+                               mode=mode, cache=c_l, cache_pos=cache_pos,
+                               pos3=pos3, x_enc=x_enc)
+        aux = aux + a
+        if nc is None:
+            continue
+        if cache is not None:
+            _store(cache, i, nc)
+        else:
+            made.append(nc)
+    if cache is not None:
+        return x, aux, cache
+    if not made:
+        return x, aux, None
+    return x, aux, _stack_trees(made)
+
+
+def _stack_trees(trees: list[dict]) -> dict:
+    return {k: (_stack_trees([t[k] for t in trees])
+                if isinstance(v, dict) else torch.stack([t[k] for t in trees]))
+            for k, v in trees[0].items()}
+
+
+def _embed(params, tokens, cfg: ArchConfig):
+    x = params["embed"][tokens]
+    if cfg.scale_embed:  # gemma convention
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x.to(DTYPES[cfg.compute_dtype])
+
+
+def _unembed(params, x, cfg: ArchConfig, plan: ShardingPlan):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = torch.einsum("bsd,dv->bsv", x.float(), w.float())
+    return constrain(logits, plan, ("batch", None, "tp"))
+
+
+def _encoder(params, batch, cfg, plan):
+    x = batch["enc_embeds"].to(DTYPES[cfg.compute_dtype])
+    enc_pos = torch.arange(x.shape[1], device=x.device)
+    x = x + sinusoidal_from_pos(enc_pos, cfg.d_model).to(x.dtype)
+    for r, (spec, L) in enumerate(encoder_runs(cfg)):
+        x, _, _ = _run_stack(spec, params[f"enc_run{r}"], x, enc_pos[None],
+                             cfg, plan, mode="train", cache=None)
+    return _apply_norm(params["enc_final_norm"], x, cfg)
+
+
+def backbone(params, tokens, pos, cfg, plan, *, mode, cache=None,
+             pos3=None, batch=None):
+    """Shared trunk. Returns (hidden, aux, new_cache)."""
+    x = _embed(params, tokens, cfg)
+    if cfg.n_patches and batch is not None and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    if cfg.enc_dec:  # whisper decoder: absolute positions, any mode
+        x = x + sinusoidal_from_pos(pos, cfg.d_model).to(x.dtype)
+    x = constrain(x, plan, ("batch", None, None))
+    x_enc = _encoder(params, batch, cfg, plan) \
+        if cfg.enc_dec and mode in ("train", "prefill") else None
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache = {}
+    cache_pos = cache["pos"] if cache is not None else None
+    for r, (spec, L) in enumerate(layer_runs(cfg)):
+        c = cache.get(f"run{r}") if cache is not None else None
+        x, a, nc = _run_stack(spec, params[f"run{r}"], x, pos, cfg, plan,
+                              mode=mode, cache=c, cache_pos=cache_pos,
+                              pos3=pos3, x_enc=x_enc)
+        aux = aux + a
+        if nc is not None:
+            new_cache[f"run{r}"] = nc
+    x = _apply_norm(params["final_norm"], x, cfg)
+    if mode != "train":
+        step = 1 if mode == "decode" else tokens.shape[1]
+        new_cache["pos"] = (cache_pos + step if cache_pos is not None else
+                            torch.tensor(step, dtype=torch.int32,
+                                         device=x.device))
+    return x, aux, new_cache
+
+
+# --------------------------------------------------------------------------
+# Entry points (the training loss, ``loss_fn`` / ``_xent_chunked``, comes
+# with the port's training slice)
+
+
+def prefill(params, batch, cfg: ArchConfig, plan: ShardingPlan,
+            cache_len: int):
+    """Build decode caches from a full prompt; returns (cache, last logits)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if S > cache_len:
+        raise ValueError(f"prompt of {S} tokens is longer than the cache "
+                         f"capacity {cache_len}")
+    cache = init_cache(cfg, B, cache_len, tokens.device)
+    pos = batch.get("pos", torch.arange(S, device=tokens.device)[None])
+    x, _, new_cache = backbone(params, tokens, pos, cfg, plan, mode="prefill",
+                               cache=cache, pos3=batch.get("pos3"),
+                               batch=batch)
+    logits = _unembed(params, x[:, -1:], cfg, plan)
+    return new_cache, logits
+
+
+def decode_step(params, cache, tokens, cfg: ArchConfig, plan: ShardingPlan,
+                batch=None):
+    """One token for every sequence in the batch. tokens (B, 1).  The
+    cache's tensors are updated in place; the returned cache holds them
+    and the advanced ``pos``."""
+    pos = cache["pos"] + torch.zeros(tokens.shape, dtype=torch.int32,
+                                     device=tokens.device)
+    pos3 = pos.expand((3,) + tuple(tokens.shape)) if cfg.m_rope else None
+    x, _, new_cache = backbone(params, tokens, pos, cfg, plan, mode="decode",
+                               cache=cache, pos3=pos3, batch=batch)
+    logits = _unembed(params, x, cfg, plan)
+    return new_cache, logits

@@ -1,0 +1,135 @@
+"""Mixture-of-Experts FFN: top-k router + sort-based capacity dispatch (the
+port of ``repro.models.moe``).
+
+Dispatch is static-shaped: assignments are sorted by expert (a stable sort,
+so tokens keep their order within an expert), each expert gets a
+``capacity`` of slots, overflow tokens are dropped.  Which tokens an expert
+sees depends on that order and on the router's order on ties, so both follow
+the reference: the stable sort, and ``lax.top_k``'s lower index first among
+equal probabilities.  Each batch row is one dispatch group (the reference's
+``vmap`` over rows is a leading batch dim here).
+
+Router: softmax gating over top-k with load-balance + z auxiliary losses,
+in float32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, ShardingPlan
+from .layers import ParamDef, constrain, f32
+
+
+def moe_defs(cfg: ArchConfig, dt: str) -> dict:
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+    defs = {
+        "router": ParamDef((d, E), ("fsdp", None), dtype="float32"),
+        "experts": {
+            "w_gate": ParamDef((E, d, f), ("exp", "fsdp", None), dtype=dt),
+            "w_up": ParamDef((E, d, f), ("exp", "fsdp", None), dtype=dt),
+            "w_down": ParamDef((E, f, d), ("exp", None, "fsdp"), dtype=dt),
+        },
+    }
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        defs["shared"] = {
+            "w_gate": ParamDef((d, fs), ("fsdp", "tp"), dtype=dt),
+            "w_up": ParamDef((d, fs), ("fsdp", "tp"), dtype=dt),
+            "w_down": ParamDef((fs, d), ("tp", "fsdp"), dtype=dt),
+        }
+    return defs
+
+
+def capacity(n_tokens: int, cfg: ArchConfig) -> int:
+    c = int(n_tokens * cfg.n_experts_per_tok * cfg.capacity_factor
+            / cfg.n_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def top_k(probs, k: int):
+    """``lax.top_k`` over the last dim: the k largest, the lower index
+    first among equal values."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _dispatch_group(xg, idx, E: int, C: int):
+    """Sort-based dispatch of the groups. xg (G,T,d), idx (G,T,k).
+
+    Returns (dispatched (G, E*C, d), slot, keep, t_sorted, order), the last
+    four (G, T*k)."""
+    G, T, d = xg.shape
+    k = idx.shape[-1]
+    dev = xg.device
+    expert = idx.reshape(G, T * k)
+    tok = torch.arange(T, device=dev).repeat_interleave(k)
+    order = torch.argsort(expert, dim=-1, stable=True)
+    e_sorted, t_sorted = torch.gather(expert, 1, order), tok[order]
+    counts = torch.zeros((G, E), dtype=torch.int64, device=dev).scatter_add_(
+        1, e_sorted, torch.ones_like(e_sorted))
+    starts = torch.cumsum(counts, dim=1) - counts              # exclusive
+    pos_in_e = (torch.arange(T * k, device=dev)
+                - torch.gather(starts, 1, e_sorted))
+    keep = pos_in_e < C
+    slot = torch.where(keep, e_sorted * C + pos_in_e, E * C)  # dummy slot
+    rows = torch.gather(xg, 1, t_sorted[..., None].expand(G, T * k, d))
+    dispatched = torch.zeros((G, E * C + 1, d), dtype=xg.dtype, device=dev)
+    dispatched.scatter_(1, slot[..., None].expand(G, T * k, d), rows)
+    return dispatched[:, :E * C], slot, keep, t_sorted, order
+
+
+def moe_apply(p, x, cfg: ArchConfig, plan: ShardingPlan):
+    """x (B, S, d) -> (B, S, d), aux-loss scalar.
+
+    GShard-style *grouped* dispatch: each batch row is a dispatch group with
+    its own capacity C = ceil(S·k·cf / E)."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.n_experts_per_tok
+    C = capacity(S, cfg)
+
+    logits = f32(x) @ p["router"]                              # (B, S, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = top_k(probs, k)                                # (B, S, k)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    # aux losses: load balance (Switch) + router z-loss (global over tokens)
+    me = probs.mean((0, 1))                                     # (E,)
+    ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
+        0, idx.reshape(-1), torch.full((idx.numel(),), 1.0 / (B * S * k),
+                                       dtype=torch.float32, device=x.device))
+    aux = E * torch.sum(me * ce)
+    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    aux = aux + 1e-3 * zloss
+
+    # ---- per-group sort-based dispatch ------------------------------------
+    dispatched, slot, keep, t_sorted, order = _dispatch_group(x, idx, E, C)
+    h = dispatched.reshape(B, E, C, d)
+    h = constrain(h, plan, ("batch", "exp", None, None))
+
+    # ---- expert computation (grouped einsum) ------------------------------
+    eg = p["experts"]
+    hidden = F.silu(torch.einsum("gecd,edf->gecf", h, eg["w_gate"])) \
+        * torch.einsum("gecd,edf->gecf", h, eg["w_up"])
+    out_e = torch.einsum("gecf,efd->gecd", hidden, eg["w_down"])
+    out_e = constrain(out_e, plan, ("batch", "exp", None, None))
+
+    # ---- combine -----------------------------------------------------------
+    flat = out_e.reshape(B, E * C, d)
+    picked = torch.gather(
+        flat, 1, torch.clamp(slot, max=E * C - 1)[..., None].expand(
+            B, S * k, d))
+    gathered = torch.where(keep[..., None], picked, 0)
+    g_sorted = torch.gather(gate.reshape(B, S * k), 1, order)
+    y = torch.zeros((B, S, d), dtype=torch.float32, device=x.device)
+    y.scatter_add_(1, t_sorted[..., None].expand(B, S * k, d),
+                   f32(gathered) * g_sorted[..., None])
+
+    if cfg.n_shared_experts:
+        sh = p["shared"]
+        xr = x.reshape(B * S, d)
+        y = y + f32(F.silu(xr @ sh["w_gate"]) * (xr @ sh["w_up"])
+                    @ sh["w_down"]).reshape(B, S, d)
+
+    y = y.to(x.dtype).reshape(B, S, d)
+    return constrain(y, plan, ("batch", None, "fsdp")), aux

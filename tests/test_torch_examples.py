@@ -119,3 +119,19 @@ def test_distributed_coloring_on_a_gloo_world(world2):
         for name, (c, log) in ref_presets.items():
             np.testing.assert_array_equal(out[name][0], c)
             assert out[name][1] == log
+
+
+def test_serve_decode_example_on_the_cpu(capsys):
+    """The port's ``serve_decode`` example: the reference example's two
+    serves (its weights are the port's own seeded draw, so the tokens are
+    held in range and in shape here; ``tests/test_torch_lm_serve.py`` holds
+    serve to the reference on carried weights)."""
+    got = load("torch_serve_decode").main(device="cpu")
+    out = capsys.readouterr().out
+    assert "generated: (4, 24)" in out and "MLA absorbed decode" in out
+    for key, shape, vocab in (("qwen3", (4, 24), 512),
+                              ("minicpm3", (2, 8), 512)):
+        tokens, stats = got[key]
+        assert tuple(tokens.shape) == shape
+        assert int(tokens.min()) >= 0 and int(tokens.max()) < vocab
+        assert stats["tok_per_s"] > 0

@@ -98,6 +98,12 @@ def _imported_modules(path: Path) -> set[str]:
 
 def test_port_sources_import_neither_jax_nor_repro():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    port = {p.relative_to(REPO / "src" / "repro_torch").as_posix()
+            for p in files}
+    assert {"configs/base.py", "configs/archs.py", "models/layers.py",
+            "models/attention.py", "models/moe.py", "models/ssm.py",
+            "models/model.py", "models/convert.py",
+            "launch/serve.py"} <= port
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     for path in files:
@@ -106,8 +112,8 @@ def test_port_sources_import_neither_jax_nor_repro():
 
 
 def test_port_runs_with_jax_blocked():
-    """With jax made unimportable, the port still imports and colors a
-    small graph on the CPU."""
+    """With jax made unimportable, the port still imports, colors a
+    small graph and serves a small LM on the CPU."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -121,6 +127,13 @@ def test_port_runs_with_jax_blocked():
         view, res = core.pipeline_sim(pg, order, cfg, device="cpu")
         st = core.check_coloring(g, core.colors_from_views(pg, view))
         assert st["valid"] and res["n_iters_run"] == 2, (st, res)
+        from repro_torch.configs import get_arch, plan_for_mesh, smoke_of
+        from repro_torch.launch.mesh import MeshSpec
+        from repro_torch.launch.serve import serve
+        toks, _ = serve(smoke_of(get_arch("minicpm3-4b")), None,
+                        plan_for_mesh(MeshSpec.local()), batch=1,
+                        prompt_len=8, gen=3, device="cpu")
+        assert tuple(toks.shape) == (1, 3), toks.shape
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
         print("ok")

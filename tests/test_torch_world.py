@@ -240,3 +240,10 @@ def example(name: str, kw: dict):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.main(**kw)
+
+
+def lm_plan(shape: tuple, axes: tuple) -> dict:
+    """``configs.plan_for_mesh`` of this rank's ``DeviceMesh``, as a dict."""
+    import dataclasses
+    from repro_torch.configs import plan_for_mesh
+    return dataclasses.asdict(plan_for_mesh(mesh(shape, axes)))
