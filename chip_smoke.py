@@ -150,7 +150,23 @@ before the final line):
    of the largest logit, logits finite); (c) every architecture at smoke
    size in float32 (TF32 off), the same weights and prompts served on the
    card and on the CPU: logits within ``LM_F32_TOL``, greedy tokens equal
-   up to each row's first near-tie.
+   up to each row's first near-tie;
+13. the LM training path (``repro_torch.launch.train``, plain PyTorch: no
+   TPU kernel lies on it either): (a) ``qwen3-0.6b`` at its published
+   width and depth (bf16 parameters and compute, per-layer remat,
+   float32 AdamW state) through ``launch/train.py``'s ``Trainer``: batch
+   8 x seq 1024, 16 steps, a checkpoint every 8 into a temporary
+   directory, an injected failure at step 12 (one restart, the replayed
+   steps 9-12 within ``TRAIN_REPLAY_TOL`` of the first pass, every loss
+   finite, the last below the first); cold and warm step seconds,
+   tokens/s, the model-flops share of the dense bf16 peak, the device
+   time and idle share of a profiled warm step with its top consumers,
+   the peak memory, each checkpoint's and the restore's seconds and
+   bytes; (b) one step at ``grad_accum=2`` against ``grad_accum=1`` on
+   (a)'s first batch and initial state, within ``TRAIN_ACCUM_TOL``; (c)
+   every architecture at smoke size in float32 (TF32 off): ``loss_fn``,
+   its gradients and one AdamW step on the card against the CPU, within
+   ``TRAIN_F32_TOL`` (the CPU tests' tolerances).
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
 result line.
@@ -227,6 +243,28 @@ LM_SMOKE = dict(batch=4, prompt_len=64, gen=24)
 # (at most 3.4e-6 on an NVIDIA H100 80GB HBM3 at 700 W, jamba's mamba scan)
 LM_F32_TOL = 1e-5
 LM_PROFILED_STEPS = 4
+# phase 13: the LM training path, qwen3-0.6b at its published width and
+# depth (bf16, remat, float32 AdamW state) through launch/train.py's
+# Trainer, then every architecture at smoke size in float32 card against
+# CPU at the CPU tests' tolerances (tests/test_torch_train_parts.py)
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 16
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8, 12
+H100_BF16_PEAK = 989.4e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+TRAIN_TOP = 8
+# the replayed steps 9-12 against the first pass: twice the largest gap
+# measured on an NVIDIA H100 80GB HBM3 at 700 W, which was 0 (the step's
+# kernels are deterministic: the embedding's backward sorts its indices,
+# the cross entropy's gather scatters to distinct positions)
+TRAIN_REPLAY_TOL = 0.0
+# 13(b), grad_accum 2 against 1 (bf16 gradients of two microbatches summed
+# in float32 against one bf16 gradient): the loss (measured 0), m and v
+# within 3e-2 of each leaf's largest (2x the 1.49e-2 measured), each
+# parameter within one bf16 rounding of its value plus twice the step's
+# largest move (measured at most 0.824 of that bound)
+TRAIN_ACCUM_TOL = dict(loss=1e-5, state=3e-2, params=1.0)
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 2, 64
+TRAIN_F32_TOL = dict(loss=1e-5, grad=1e-4, step=1e-5)
 
 
 def phase(name: str, t0: float, detail: str = "") -> None:
@@ -2629,6 +2667,261 @@ def phase_lm(dev) -> None:
     phase("12 LM serving path total", t)
 
 
+# -- phase 13: the LM training path --------------------------------------------
+
+def train_timed(tr) -> list:
+    """Time every step of ``tr`` (host clock between synchronises; the
+    trainer reads its metrics back after each step at ``log_every=1``
+    anyway).  Returns the list the times are appended to."""
+    fn, times = tr._step_fn, []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+    tr._step_fn = timed
+    return times
+
+
+def train_device_time(step_fn, params, opt, batch) -> dict:
+    """Device time (torch.profiler) of one warm training step, and its top
+    device consumers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+    del out
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev) / 1e6
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:TRAIN_TOP]
+    return dict(busy_s=busy, kernels=sum(e.count for e in ev),
+                top="; ".join(f"{e.self_device_time_total / 1e3:.1f} ms "
+                              f"x{e.count} {e.key[:56]}" for e in top))
+
+
+def train_full(dev):
+    """13(a): ``qwen3-0.6b`` at its published width and depth, trained
+    through ``launch/train.py``'s ``Trainer`` with a failure at step 12;
+    returns what 13(b) needs."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import device_batch, host_batch
+    from repro_torch.launch import train as T
+    from repro_torch.roofline import model_flops
+    with tempfile.TemporaryDirectory() as td:
+        free = shutil.disk_usage(td).free
+        tr = T.build([
+            "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-dir", td,
+            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--log-every", "1",
+            "--fail-at", str(TRAIN_FAIL_AT), "--device", str(dev)])
+        arch = tr.arch
+        check(arch.params_dtype == arch.compute_dtype == "bfloat16"
+              and arch.remat and tr.opt_cfg.state_dtype == "float32",
+              f"13a {arch.name}: not bf16 params and compute, remat and "
+              "float32 AdamW state")
+        times = train_timed(tr)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        params, opt = tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        times = list(times)     # the run's steps (not the profiled one)
+        batch = device_batch(host_batch(tr.data_cfg, TRAIN_STEPS, arch),
+                             tr.mesh, tr.plan, dev)
+        dt = train_device_time(tr._step_fn, params, opt, batch)
+        del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    h = tr.history
+    losses = [x["loss"] for x in h]
+    steps = [x["step"] for x in h]
+    check(tr.restarts == 1 and tr.injector.fired == [TRAIN_FAIL_AT],
+          f"13a: restarts {tr.restarts}, fired {tr.injector.fired}")
+    check(all(np.isfinite(losses)), f"13a: losses {losses}")
+    check(losses[-1] < losses[0], f"13a: last loss {losses[-1]} not below "
+          f"the first {losses[0]}")
+    first = {s: x for s, x in zip(steps[:TRAIN_FAIL_AT],
+                                  h[:TRAIN_FAIL_AT])}
+    replay = h[TRAIN_FAIL_AT:TRAIN_FAIL_AT + TRAIN_FAIL_AT - TRAIN_CKPT_EVERY]
+    check([x["step"] for x in replay] == list(range(
+        TRAIN_CKPT_EVERY + 1, TRAIN_FAIL_AT + 1)),
+        f"13a: steps {steps}")
+    gap = max(abs(x["loss"] - first[x["step"]]["loss"])
+              / abs(first[x["step"]]["loss"]) for x in replay)
+    check(gap <= TRAIN_REPLAY_TOL, f"13a: replayed steps {gap:.3e} from "
+          f"the first pass > {TRAIN_REPLAY_TOL}")
+    shape = ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    flops = model_flops(arch, shape)
+    cold = times[0]
+    warm = statistics.median(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"  13a {arch.name}: {arch.n_layers} layers, d_model "
+          f"{arch.d_model}, {arch.n_heads}/{arch.n_kv_heads} heads of "
+          f"{arch.head_dim_}, d_ff {arch.d_ff}, tied vocab "
+          f"{arch.vocab_size} (padded {arch.vocab_padded()}), "
+          f"{arch.n_params():,} parameters, bf16, remat, float32 AdamW; "
+          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps, "
+          f"checkpoint every {TRAIN_CKPT_EVERY}, failure at "
+          f"{TRAIN_FAIL_AT}; {free / 2**30:.1f} GiB free in the checkpoint "
+          "directory", flush=True)
+    print(f"  13a steps: cold {cold:.4f} s, warm median {warm:.4f} s "
+          f"({min(times[1:]):.4f}-{max(times[1:]):.4f} s over "
+          f"{len(times) - 1}), {tokens / warm:.1f} tokens/s; model flops "
+          f"{flops:.4e} a step, {flops / warm / 1e12:.1f} TFLOP/s = "
+          f"{flops / warm / H100_BF16_PEAK:.4f} of the H100 SXM dense bf16 "
+          f"peak ({H100_BF16_PEAK / 1e12:.1f} TFLOP/s); run {wall:.3f} s "
+          f"for {len(times)} steps; peak {peak / 2**30:.3f} GiB",
+          flush=True)
+    print(f"  13a device time of a warm step (profiled): {dt['busy_s']:.4f}"
+          f" s, idle {1 - dt['busy_s'] / warm:.3f} of the warm median, "
+          f"{dt['kernels']} device kernels; top: {dt['top']}", flush=True)
+    for rec in tr.ckpt_log:
+        if rec["op"] == "save":
+            print(f"  13a checkpoint save at step {rec['step']}: "
+                  f"{rec['bytes'] / 1e9:.3f} GB, host snapshot "
+                  f"{rec['snapshot_s']:.3f} s, background write "
+                  f"{rec['write_s']:.3f} s", flush=True)
+        else:
+            print(f"  13a restore of step {rec['step']}: "
+                  f"{rec['bytes'] / 1e9:.3f} GB in {rec['seconds']:.3f} s",
+                  flush=True)
+    print(f"  13a losses: {' '.join(f'{s}:{x:.4f}' for s, x in zip(steps, losses))}; "
+          f"replayed steps {TRAIN_CKPT_EVERY + 1}-{TRAIN_FAIL_AT} within "
+          f"{gap:.3e} of the first pass (tol {TRAIN_REPLAY_TOL})", flush=True)
+    return tr
+
+
+def train_accum(dev, tr) -> None:
+    """13(b): one step at ``grad_accum=2`` against ``grad_accum=1`` on
+    13(a)'s first batch and initial state."""
+    from repro_torch.data.pipeline import device_batch, host_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.layers import flatten
+    params, opt = tr.init_state()
+    batch = device_batch(host_batch(tr.data_cfg, 0, tr.arch), tr.mesh,
+                         tr.plan, dev)
+    out = {}
+    for M in (1, 2):
+        arch = dataclasses.replace(tr.arch, grad_accum=M)
+        p, s, m = make_train_step(arch, tr.plan, tr.opt_cfg)(params, opt,
+                                                             batch)
+        out[M] = (flatten(p), flatten(s), float(m["loss"]))
+        del p, s
+    p0 = flatten(params)
+    loss_err = abs(out[2][2] - out[1][2]) / abs(out[1][2])
+    mv_err = max(float((out[2][1][k] - out[1][1][k]).abs().max())
+                 / max(float(out[1][1][k].abs().max()), 1e-30)
+                 for k in out[1][1] if k != "count")
+    # bf16 parameters: each element within one bf16 rounding of the
+    # grad_accum=1 result plus twice the step's largest move (a gradient
+    # element near zero can turn Adam's first step around)
+    move = max(float((out[1][0][k].float() - p0[k].float()).abs().max())
+               for k in p0)
+    eps = torch.finfo(torch.bfloat16).eps
+    p_err, n_diff, n_all = 0.0, 0, 0
+    for k in p0:
+        a, b = out[1][0][k].float(), out[2][0][k].float()
+        d = (b - a).abs()
+        p_err = max(p_err, float((d / (eps * a.abs() + 2 * move)).max()))
+        n_diff += int((d > 0).sum())
+        n_all += d.numel()
+    print(f"  13b grad_accum 2 against 1 on the first batch: loss "
+          f"{out[2][2]:.6f} against {out[1][2]:.6f} ({loss_err:.3e}, tol "
+          f"{TRAIN_ACCUM_TOL['loss']}); m and v {mv_err:.3e} of each leaf's "
+          f"largest (tol {TRAIN_ACCUM_TOL['state']}); params: {n_diff} of "
+          f"{n_all} elements differ, at most {p_err:.3f} of one bf16 "
+          f"rounding plus twice the step's largest move {move:.3e} (tol "
+          f"{TRAIN_ACCUM_TOL['params']})", flush=True)
+    check(loss_err <= TRAIN_ACCUM_TOL["loss"], f"13b loss {loss_err:.3e}")
+    check(mv_err <= TRAIN_ACCUM_TOL["state"], f"13b m/v {mv_err:.3e}")
+    check(p_err <= TRAIN_ACCUM_TOL["params"], f"13b params {p_err:.3e}")
+    del params, opt, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_smoke(dev, name: str) -> str:
+    """13(c): one architecture at smoke size in float32: ``loss_fn``, its
+    gradients and one AdamW step (from a carried nonzero state) on the
+    card against the CPU on the same weights and batch."""
+    from repro_torch.configs import NO_SHARDING, get_arch, smoke_of
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.models import init_params, loss_fn, model as M
+    from repro_torch.models.layers import flatten, tree_map
+    from repro_torch.train.optimizer import (OptConfig, adamw_update,
+                                             value_and_grad)
+    arch = smoke_of(get_arch(name))
+    cpu = init_params(M.param_defs(arch),
+                      torch.Generator().manual_seed(LM_SEED), "cpu")
+    g = torch.Generator().manual_seed(LM_SEED + 1)
+    state = {"m": tree_map(lambda t: torch.randn(t.shape, generator=g)
+                           * 1e-3, cpu),
+             "v": tree_map(lambda t: torch.randn(t.shape, generator=g).abs()
+                           * 1e-5, cpu),
+             "count": torch.tensor(3, dtype=torch.int32)}
+    b = host_batch(DataConfig(arch.vocab_size, TRAIN_SMOKE_SEQ,
+                              TRAIN_SMOKE_BATCH), 0, arch)
+    opt = OptConfig(peak_lr=1e-3, warmup_steps=2, total_steps=50)
+    res = {}
+    for d in ("cpu", dev):
+        to = lambda t, d=d: t.to(d)  # noqa: E731
+        p, s = tree_map(to, cpu), tree_map(to, state)
+        bb = {k: torch.from_numpy(v).to(d) for k, v in b.items()}
+        loss, met, grads = value_and_grad(
+            lambda q, x: loss_fn(q, x, arch, NO_SHARDING), p, bb)
+        new_p, new_s, _ = adamw_update(p, grads, s, opt)
+        res[str(d)] = (loss, met, flatten(grads), flatten(new_p),
+                       flatten({"m": new_s["m"], "v": new_s["v"]}))
+    c, k = res["cpu"], res[str(dev)]
+    errs = dict(loss=max([rel_err(k[0], c[0])] + [
+        rel_err(torch.as_tensor(k[1][m]), torch.as_tensor(c[1][m]))
+        for m in c[1]]),
+        grad=max(rel_err(k[2][n], c[2][n]) for n in c[2]),
+        step=max(rel_err(k[3][n], c[3][n]) for n in c[3]),
+        state=max(rel_err(k[4][n], c[4][n]) for n in c[4]))
+    for what, tol in (("loss", TRAIN_F32_TOL["loss"]),
+                      ("grad", TRAIN_F32_TOL["grad"]),
+                      ("step", TRAIN_F32_TOL["step"]),
+                      ("state", TRAIN_F32_TOL["grad"])):
+        check(errs[what] <= tol, f"13c {name}: card against CPU {what} "
+              f"{errs[what]:.3e} > {tol}")
+    return (f"{name} loss {errs['loss']:.1e} grads {errs['grad']:.1e} "
+            f"params {errs['step']:.1e} m/v {errs['state']:.1e}")
+
+
+def phase_train(dev) -> None:
+    """Phase 13: the LM training path (``repro_torch.launch.train``)."""
+    t = time.perf_counter()
+    tr = train_full(dev)
+    phase(f"13a {TRAIN_ARCH} trained at full width and depth, bf16", t)
+    t0 = time.perf_counter()
+    train_accum(dev, tr)
+    phase("13b grad_accum 2 against 1", t0)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        from repro_torch.configs import list_archs
+        lines = [train_smoke(dev, name) for name in list_archs()]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"  13c card against CPU, float32, batch {TRAIN_SMOKE_BATCH} seq "
+          f"{TRAIN_SMOKE_SEQ}, max relative errors (tol {TRAIN_F32_TOL}): "
+          + "; ".join(lines), flush=True)
+    phase("13c every architecture at smoke size, card against CPU", t0)
+    phase("13 LM training path total", t)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2704,6 +2997,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_lm(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train(dev)
 
     kernels = []
     # launches: each kernel on its own path (the tile-form select and

@@ -10,7 +10,7 @@ form of each, the ``scheme="auto"`` decision and plan signature, the 2D
 ``batch × shard`` mesh's axes, and the device bytes per rank
 (``roofline.coloring_memory_projection`` with the partition's own
 fractions).  One JSON per cell goes to ``--out``.  The LM cells
-(``dryrun_cell``) wait for the LM slice.
+(``steps.input_specs``, ``dryrun_cell``) wait for the dry-run slice.
 
 Usage::
 
@@ -102,8 +102,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=DEFAULT_OUT)
     args = ap.parse_args(argv)
     if not args.coloring:
-        ap.error("only --coloring is ported; the LM cells wait for the LM "
-                 "slice")
+        ap.error("only --coloring is ported; the LM cells (input_specs, "
+                 "dryrun_cell) wait for the dry-run slice")
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
     for mp in meshes:
         rec = dryrun_coloring(multi_pod=mp, out_dir=Path(args.out),

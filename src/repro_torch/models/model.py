@@ -1,5 +1,5 @@
 """Model assembly: layer plans, parameter tables, train/prefill/decode (the
-port of ``repro.models.model``, forward only).
+port of ``repro.models.model``).
 
 An architecture lowers to a list of *runs*: maximal contiguous groups of
 identical (mixer, ffn) layer specs.  Each run's parameters (and caches) are
@@ -8,19 +8,27 @@ reference's weights across is a copy; a Python loop over the run's L layers
 takes the place of its ``lax.scan``.  Heterogeneous stacks (jamba's 1:7
 mamba:attention interleave with alternating MoE) produce many short runs.
 
-Modes: ``train`` (the full forward, no cache), ``prefill`` (build caches +
-last-position logits), ``decode`` (one token against ring-buffer caches).
-Caches are updated in place: a layer writes into its slice of the run's
-stacked cache tensors.
+Modes: ``train`` (the full forward, no cache; ``loss_fn`` is the training
+loss), ``prefill`` (build caches + last-position logits), ``decode`` (one
+token against ring-buffer caches).  Caches are updated in place: a layer
+writes into its slice of the run's stacked cache tensors.
+
+Training recomputes instead of storing, as the reference does: with
+``cfg.remat`` each layer of a run is a ``torch.utils.checkpoint`` region
+(the reference's ``jax.checkpoint`` with ``nothing_saveable`` around its
+scan body), so the backward pass keeps one residual per layer; the loss's
+(B, chunk, V) logits are recomputed per sequence chunk.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShardingPlan
 from . import attention as attn
@@ -345,11 +353,14 @@ def _run_stack(spec: BlockSpec, p_stacked, x, pos, cfg, plan, *, mode,
     L = next(iter(flatten(p_stacked).values())).shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     made = []
+    # remat: keep only each layer's input for the backward pass
+    block = (functools.partial(checkpoint, apply_block, use_reentrant=False)
+             if cfg.remat and mode == "train" else apply_block)
     for i in range(L):
         c_l = _layer(cache, i) if cache is not None else None
-        x, a, nc = apply_block(spec, _layer(p_stacked, i), x, pos, cfg, plan,
-                               mode=mode, cache=c_l, cache_pos=cache_pos,
-                               pos3=pos3, x_enc=x_enc)
+        x, a, nc = block(spec, _layer(p_stacked, i), x, pos, cfg, plan,
+                         mode=mode, cache=c_l, cache_pos=cache_pos,
+                         pos3=pos3, x_enc=x_enc)
         aux = aux + a
         if nc is None:
             continue
@@ -427,8 +438,51 @@ def backbone(params, tokens, pos, cfg, plan, *, mode, cache=None,
 
 
 # --------------------------------------------------------------------------
-# Entry points (the training loss, ``loss_fn`` / ``_xent_chunked``, comes
-# with the port's training slice)
+# Entry points
+
+
+def _xent_sums(xc, w, lc):
+    """One chunk's (Σ nll, Σ lse²) from its float32 logits."""
+    logits = torch.einsum("bsd,dv->bsv", xc.float(), w.float())
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return (lse - gold).sum(), (lse ** 2).sum()
+
+
+def _xent_chunked(x, w, labels, plan: ShardingPlan, chunk: int = 512):
+    """Sequence-chunked softmax xent: never keeps (B,S,V) logits alive.
+
+    Each chunk's (B,c,V) float32 logits are recomputed in the backward
+    pass (``torch.utils.checkpoint``), bounding activation memory at
+    (B,chunk,V).  Returns (Σ nll, Σ lse²), each over B·S."""
+    B, S, d = x.shape
+    c = min(chunk, S)
+    n = S // c
+    assert S % c == 0
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    z2 = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        a, b = checkpoint(_xent_sums, x[:, i * c:(i + 1) * c], w,
+                          labels[:, i * c:(i + 1) * c], use_reentrant=False)
+        nll, z2 = nll + a, z2 + b
+    denom = B * S
+    return nll / denom, z2 / denom
+
+
+def loss_fn(params, batch, cfg: ArchConfig, plan: ShardingPlan):
+    """Causal-LM cross entropy (+ MoE aux). batch: tokens, labels [+stubs].
+    Returns (loss, {"nll", "aux", "zloss"}), 0-d float32 tensors."""
+    tokens = batch["tokens"]
+    pos = batch.get("pos")
+    if pos is None:
+        pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    x, aux, _ = backbone(params, tokens, pos, cfg, plan, mode="train",
+                         pos3=batch.get("pos3"), batch=batch)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    nll, z2 = _xent_chunked(x, w, batch["labels"], plan)
+    z = 1e-4 * z2
+    loss = nll + z + 1e-2 * aux
+    return loss, {"nll": nll, "aux": aux, "zloss": z}
 
 
 def prefill(params, batch, cfg: ArchConfig, plan: ShardingPlan,

@@ -22,8 +22,9 @@ layouts differ:
 
 The reference's HLO roofline (``analyze_hlo``, ``roofline_terms``) parses
 XLA's compiled text and has no torch counterpart: the kernel table's
-bound column (``chip_smoke.py``) plays its role.  ``model_flops`` waits
-for the LM slice.
+bound column (``chip_smoke.py``) plays its role.  ``model_flops`` is the
+reference's count of an LM step (6·N·D to train, 2·N·D to infer), which
+``chip_smoke.py`` divides by the training step's time.
 """
 from __future__ import annotations
 
@@ -140,3 +141,17 @@ def device_bytes(arrs: dict) -> dict:
             out[name] = sum(arrs[k].numel() * arrs[k].element_size()
                             for k in keys) // P
     return out
+
+
+def model_flops(arch, shape) -> float:
+    """MODEL_FLOPS = 6·N·D (train) / 2·N·D (inference), N = active params
+    (``arch``: an ``ArchConfig``; ``shape``: a ``ShapeConfig``)."""
+    n = arch.n_active_params() if arch.is_moe else arch.n_params()
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        return 6.0 * n * tokens
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n * tokens
+    tokens = shape.global_batch  # one token per sequence
+    return 2.0 * n * tokens

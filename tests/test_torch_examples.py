@@ -135,3 +135,16 @@ def test_serve_decode_example_on_the_cpu(capsys):
         assert tuple(tokens.shape) == shape
         assert int(tokens.min()) >= 0 and int(tokens.max()) < vocab
         assert stats["tok_per_s"] > 0
+
+
+def test_train_lm_example_on_the_cpu(capsys):
+    """The port's ``train_lm`` example at ``tiny=True``: it survives its
+    injected failure and its loss falls (its weights are the port's own
+    seeded draw; ``tests/test_torch_trainer.py`` holds the trainer to the
+    reference)."""
+    tr = load("torch_train_lm").main(device="cpu", steps=30, tiny=True)
+    out = capsys.readouterr().out
+    assert "survived 1 injected failure(s)" in out
+    assert tr.restarts == 1 and tr.injector.fired == [15]
+    losses = [h["loss"] for h in tr.history]
+    assert losses[-1] < losses[0] and all(np.isfinite(losses))

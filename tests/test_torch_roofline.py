@@ -150,3 +150,19 @@ def test_dryrun_matches_the_committed_rmat18_record(tmp_path):
     assert np.isclose(rec["projection"]["allgather"]["hbm_fraction"],
                       rec["projection"]["allgather"]["total_per_shard"]
                       / TR.H100_80GB_HBM_BYTES)
+
+
+def test_model_flops_is_the_reference_count():
+    """``model_flops`` (6·N·D to train, 2·N·D to infer, N the active
+    parameters) equals the reference's for every architecture and shape."""
+    from repro.configs import SHAPES as R_SHAPES
+    from repro.configs import get_arch as r_get_arch
+    from repro_torch.configs import SHAPES, get_arch, list_archs
+    for name in list_archs():
+        for key in SHAPES:
+            assert TR.model_flops(get_arch(name), SHAPES[key]) == \
+                RR.model_flops(r_get_arch(name), R_SHAPES[key]), (name, key)
+    qwen = get_arch("qwen3-0.6b")
+    from repro_torch.configs import ShapeConfig
+    assert TR.model_flops(qwen, ShapeConfig("t", "train", 1024, 8)) == \
+        6.0 * qwen.n_params() * 8 * 1024

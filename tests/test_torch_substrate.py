@@ -103,7 +103,10 @@ def test_port_sources_import_neither_jax_nor_repro():
     assert {"configs/base.py", "configs/archs.py", "models/layers.py",
             "models/attention.py", "models/moe.py", "models/ssm.py",
             "models/model.py", "models/convert.py",
-            "launch/serve.py"} <= port
+            "launch/serve.py", "train/__init__.py", "train/optimizer.py",
+            "train/checkpoint.py", "train/compression.py",
+            "train/trainer.py", "data/pipeline.py", "launch/steps.py",
+            "launch/train.py", "roofline.py"} <= port
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     for path in files:
@@ -113,7 +116,8 @@ def test_port_sources_import_neither_jax_nor_repro():
 
 def test_port_runs_with_jax_blocked():
     """With jax made unimportable, the port still imports, colors a
-    small graph and serves a small LM on the CPU."""
+    small graph, serves a small LM and takes one training step of it on
+    the CPU."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -134,6 +138,21 @@ def test_port_runs_with_jax_blocked():
                         plan_for_mesh(MeshSpec.local()), batch=1,
                         prompt_len=8, gen=3, device="cpu")
         assert tuple(toks.shape) == (1, 3), toks.shape
+        import torch
+        from repro_torch.configs import NO_SHARDING
+        from repro_torch.data.pipeline import DataConfig, host_batch
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models import init_params, param_defs
+        from repro_torch.train import OptConfig, init_opt_state
+        arch = smoke_of(get_arch("qwen3-0.6b"))
+        params = init_params(param_defs(arch), torch.Generator().manual_seed(0),
+                             "cpu")
+        opt = OptConfig(warmup_steps=1)
+        b = {k: torch.from_numpy(v) for k, v in host_batch(DataConfig(
+            arch.vocab_size, 16, 2), 0, arch).items()}
+        new, st, m = make_train_step(arch, NO_SHARDING, opt)(
+            params, init_opt_state(params, opt), b)
+        assert int(st["count"]) == 1 and bool(torch.isfinite(m["loss"]))
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
         print("ok")

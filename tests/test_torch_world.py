@@ -247,3 +247,81 @@ def lm_plan(shape: tuple, axes: tuple) -> dict:
     import dataclasses
     from repro_torch.configs import plan_for_mesh
     return dataclasses.asdict(plan_for_mesh(mesh(shape, axes)))
+
+
+def ckpt_save(path: str, tree: dict, step: int) -> int:
+    """Rank 0 saves ``tree`` (numpy leaves as tensors) at ``step``; every
+    rank waits for it.  Returns the world's size."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import checkpoint as ckpt
+    if dist.get_rank() == 0:
+        ckpt.save(path, step, tree_map(
+            lambda a: torch.from_numpy(np.asarray(a)), tree))
+    dist.barrier()
+    return dist.get_world_size()
+
+
+def ckpt_restore(path: str, specs: dict):
+    """Restore the newest checkpoint onto this rank's ``(n,)`` ``data``
+    mesh: (step, the tree as numpy, the leaves' devices)."""
+    import torch.distributed as dist
+    from repro_torch.models.layers import flatten, tree_map
+    from repro_torch.train import checkpoint as ckpt
+    m = mesh((dist.get_world_size(),), ("data",))
+    step, tree = ckpt.restore(path, mesh=m, specs=specs)
+    devices = sorted({str(t.device) for t in flatten(tree).values()})
+    return step, tree_map(lambda t: t.numpy(), tree), devices
+
+
+def compressed_tree(grads_by_rank: list, errs_by_rank: list):
+    """``compressed_psum_tree`` of this rank's gradients and errors over
+    the world's ``(n,)`` ``data`` mesh; numpy (mean, new error)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train.compression import compressed_psum_tree
+    r = dist.get_rank()
+    m = mesh((dist.get_world_size(),), ("data",))
+    out, err = compressed_psum_tree(tree_map(torch.from_numpy,
+                                             grads_by_rank[r]),
+                                    tree_map(torch.from_numpy,
+                                             errs_by_rank[r]), m)
+    return tree_map(lambda t: t.numpy(), out), tree_map(lambda t: t.numpy(),
+                                                        err)
+
+
+def compressed_dp_train(steps: int, batch: int, seed: int) -> list:
+    """The port's form of the reference's compressed DP train step test: a
+    linear model, each rank on its shard of a global batch, int8 EF
+    all-reduce, plain SGD at 0.1.  Returns the losses (the world's mean)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.train.compression import make_compressed_train_step
+    n, r = dist.get_world_size(), dist.get_rank()
+
+    def loss_fn(params, b):
+        return torch.mean((b["x"] @ params["w"] - b["y"]) ** 2), {}
+
+    def opt_update(params, grads, state):
+        return ({k: p - 0.1 * grads[k] for k, p in params.items()}, state,
+                {})
+
+    step = make_compressed_train_step(loss_fn, opt_update,
+                                      axis=mesh((n,), ("data",)))
+    w_true = np.random.default_rng(0).normal(0, 1, (8, 1)).astype(np.float32)
+    params = {"w": torch.zeros((8, 1))}
+    err = {"w": torch.zeros((8, 1))}
+    state: dict = {}
+    g = np.random.default_rng(seed)
+    losses = []
+    per = batch // n
+    for _ in range(steps):
+        x = g.normal(0, 1, (batch, 8)).astype(np.float32)
+        y = x @ w_true
+        shard = {"x": torch.from_numpy(x[r * per:(r + 1) * per]),
+                 "y": torch.from_numpy(y[r * per:(r + 1) * per])}
+        params, state, err, info = step(params, state, err, shard)
+        losses.append(float(info["loss"]))
+    return losses
