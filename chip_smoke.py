@@ -166,7 +166,23 @@ before the final line):
    (a)'s first batch and initial state, within ``TRAIN_ACCUM_TOL``; (c)
    every architecture at smoke size in float32 (TF32 off): ``loss_fn``,
    its gradients and one AdamW step on the card against the CPU, within
-   ``TRAIN_F32_TOL`` (the CPU tests' tolerances).
+   ``TRAIN_F32_TOL`` (the CPU tests' tolerances);
+14. the LM on a mesh of ranks (``repro_torch.parallel.shard``, plain
+   PyTorch on ``torch.distributed``: GSPMD placed the reference's shards,
+   no TPU kernel): (a) a one-rank NCCL world, ``MeshSpec.local().build()``:
+   ``qwen3-0.6b`` at phase 13's shape, ``MESH_TRAIN_STEPS`` steps of the
+   sharded ``make_train_step`` (per-layer gathers, gradient reductions and
+   the sharded global norm over the one rank) bitwise the unsharded step on
+   the same weights and batches, then a sharded checkpoint saved and
+   restored bitwise; (b) ``launch.dryrun.dryrun_cell`` on ``pod16x16`` for
+   ``qwen3-0.6b`` x the four shapes and ``minicpm3-4b`` x ``decode_32k``
+   (``meta`` tensors only, in ``DRY_WORKERS`` background processes
+   started before phase 13, each cell limited to ``DRY_LIMIT_S``), with
+   each cell's seconds, every cell ``ok`` or ``skipped`` (a cell past its
+   limit fails the phase); (c) the dry run at mesh (1, 1) on phase 13's and
+   phase 12's own shapes, its predicted peak beside the peak those phases
+   measured (``torch.cuda.max_memory_allocated``), within
+   ``DRY_PEAK_RATIO``.  No dry-run process initialises CUDA.
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
 result line.
@@ -2485,7 +2501,7 @@ def lm_decode_equivalence(M, arch, params, inputs, first, plan) -> tuple:
     return rel_err(got, want), agree, finite
 
 
-def lm_full(dev, name: str) -> None:
+def lm_full(dev, name: str) -> int:
     """12(a)/(b): one architecture at its published width and depth."""
     from repro_torch.configs import get_arch, plan_for_mesh
     from repro_torch.launch import serve as S
@@ -2552,6 +2568,7 @@ def lm_full(dev, name: str) -> None:
     del params, runs
     gc.collect()
     torch.cuda.empty_cache()
+    return peak
 
 
 def lm_device_time(M, arch, plan, params, inputs, tokens) -> dict:
@@ -2644,12 +2661,14 @@ def lm_smoke(dev, name: str) -> str:
             "near-tie)")
 
 
-def phase_lm(dev) -> None:
-    """Phase 12: the LM serving path (``repro_torch.launch.serve``)."""
+def phase_lm(dev) -> dict:
+    """Phase 12: the LM serving path (``repro_torch.launch.serve``).
+    Returns each full-width architecture's peak device bytes."""
     t = time.perf_counter()
+    peaks = {}
     for i, name in enumerate(LM_FULL):
         t0 = time.perf_counter()
-        lm_full(dev, name)
+        peaks[name] = lm_full(dev, name)
         phase(f"12{'ab'[i]} {name} at full width and depth, bf16", t0)
     t0 = time.perf_counter()
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -2665,6 +2684,7 @@ def phase_lm(dev) -> None:
           + "; ".join(lines), flush=True)
     phase("12c every architecture at smoke size, card against CPU", t0)
     phase("12 LM serving path total", t)
+    return peaks
 
 
 # -- phase 13: the LM training path --------------------------------------------
@@ -2795,7 +2815,7 @@ def train_full(dev):
     print(f"  13a losses: {' '.join(f'{s}:{x:.4f}' for s, x in zip(steps, losses))}; "
           f"replayed steps {TRAIN_CKPT_EVERY + 1}-{TRAIN_FAIL_AT} within "
           f"{gap:.3e} of the first pass (tol {TRAIN_REPLAY_TOL})", flush=True)
-    return tr
+    return tr, peak
 
 
 def train_accum(dev, tr) -> None:
@@ -2896,10 +2916,11 @@ def train_smoke(dev, name: str) -> str:
             f"params {errs['step']:.1e} m/v {errs['state']:.1e}")
 
 
-def phase_train(dev) -> None:
-    """Phase 13: the LM training path (``repro_torch.launch.train``)."""
+def phase_train(dev) -> int:
+    """Phase 13: the LM training path (``repro_torch.launch.train``).
+    Returns 13(a)'s peak device bytes."""
     t = time.perf_counter()
-    tr = train_full(dev)
+    tr, peak = train_full(dev)
     phase(f"13a {TRAIN_ARCH} trained at full width and depth, bf16", t)
     t0 = time.perf_counter()
     train_accum(dev, tr)
@@ -2920,6 +2941,214 @@ def phase_train(dev) -> None:
           + "; ".join(lines), flush=True)
     phase("13c every architecture at smoke size, card against CPU", t0)
     phase("13 LM training path total", t)
+    return peak
+
+# -- phase 14: the LM on a mesh of ranks, and its dry run ----------------------
+
+MESH_TRAIN_STEPS = 4
+DRY_CELLS = tuple(("qwen3-0.6b", sh) for sh in (
+    "train_4k", "prefill_32k", "decode_32k", "long_500k")) + (
+    ("minicpm3-4b", "decode_32k"),)
+DRY_LIMIT_S = 420.0       # a dry cell that runs longer is an error record
+DRY_WORKERS = 5
+# 14(c): the dry run's predicted peak against the peaks phases 12 and 13
+# measured must lie within these factors
+DRY_PEAK_RATIO = (0.5, 2.0)
+
+
+def dry_jobs() -> list:
+    """14(b)'s production cells, then 14(c)'s one-rank cells on phase 13's
+    and phase 12's own shapes."""
+    jobs = [("cell", a, sh) for a, sh in DRY_CELLS]
+    jobs.append(("local", TRAIN_ARCH, "train", TRAIN_SEQ, TRAIN_BATCH))
+    for name in LM_FULL:
+        jobs.append(("local", name, "prefill", LM_PROMPT, LM_BATCH))
+        jobs.append(("local", name, "decode", LM_PROMPT, LM_BATCH))
+    return jobs
+
+
+def dry_job(job) -> dict:
+    """One dry-run job in a worker process (``meta`` tensors only)."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshSpec
+    t = time.perf_counter()
+    if job[0] == "cell":
+        out = Path(__file__).resolve().parent / "build" / "dryrun"
+        rec = dryrun.dryrun_cell(job[1], job[2], multi_pod=False,
+                                 out_dir=out, force=True,
+                                 limit_s=DRY_LIMIT_S)
+    else:
+        _, name, kind, seq, batch = job
+        rec = dryrun.lm_record(get_arch(name),
+                               ShapeConfig(kind, kind, seq, batch),
+                               MeshSpec.local(), DRY_LIMIT_S)
+    rec["job"] = list(job)
+    rec["wall_s"] = time.perf_counter() - t
+    rec["cuda_initialized"] = torch.cuda.is_initialized()
+    return rec
+
+
+def start_dry():
+    """The dry-run jobs in ``DRY_WORKERS`` background processes (CPU only;
+    they run while the card trains in phases 13 and 14(a))."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(DRY_WORKERS)
+    return pool, pool.map_async(dry_job, dry_jobs())
+
+
+def mesh_train(dev, M) -> None:
+    """14(a): ``qwen3-0.6b`` at full width on a one-rank NCCL world
+    (``MeshSpec.local().build()``): the sharded ``make_train_step`` (shards
+    of a ``(1, 1)`` mesh, the layer gathers and gradient reductions over
+    one rank) against the unsharded step on the same weights and batches,
+    bitwise; then a sharded checkpoint save and restore, bitwise."""
+    import tempfile
+    from repro_torch.configs import get_arch, plan_for_mesh
+    from repro_torch.data.pipeline import DataConfig, device_batch, host_batch
+    from repro_torch.parallel.shard import CollectiveLog, RankMesh, set_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import param_defs
+    from repro_torch.models.layers import flatten, specs_of
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.trainer import init_params_sharded
+    mesh = M.MeshSpec.local().build()
+    rm = RankMesh.of(mesh)
+    arch = get_arch(TRAIN_ARCH)
+    plan = plan_for_mesh(mesh)
+    pdefs = param_defs(arch)
+    specs = specs_of(pdefs, plan)
+    opt_cfg = OptConfig(peak_lr=1e-3, warmup_steps=2,
+                        total_steps=MESH_TRAIN_STEPS)
+    dc = DataConfig(arch.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    step = make_train_step(arch, plan, opt_cfg)
+    coll = {}
+
+    def run(sharded: bool):
+        where = mesh if sharded else M.MeshSpec.local()
+        p = init_params_sharded(pdefs, where, specs, LM_SEED, dev)
+        s = init_opt_state(p, opt_cfg)
+        losses, times = [], []
+        for i in range(MESH_TRAIN_STEPS):
+            b = device_batch(host_batch(dc, i, arch),
+                             mesh if sharded else None, plan, dev,
+                             arch.grad_accum)
+            rm.log = CollectiveLog() if sharded and i == 0 else None
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with set_mesh(rm if sharded else None):
+                p, s, m = step(p, s, b)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t)
+            if rm.log is not None:
+                coll.update(count=dict(rm.log.count), bytes=dict(rm.log.bytes))
+        rm.log = None
+        return losses, p, s, times
+
+    plain = run(False)
+    got = run(True)
+    check(got[0] == plain[0], f"14a losses {got[0]} against unsharded "
+          f"{plain[0]}")
+    for what, a, b in (("params", got[1], plain[1]),
+                       ("m", got[2]["m"], plain[2]["m"]),
+                       ("v", got[2]["v"], plain[2]["v"])):
+        fa, fb = flatten(a), flatten(b)
+        for k in fb:
+            check(fa[k].dtype == fb[k].dtype and torch.equal(fa[k], fb[k]),
+                  f"14a {what}/{k}: sharded step not bitwise the unsharded")
+    plain_t = plain[3]
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = {"params": got[1], "opt": got[2]}
+    all_specs = {"params": specs, "opt": {"m": specs, "v": specs}}
+    with tempfile.TemporaryDirectory() as td:
+        t = time.perf_counter()
+        ckpt.save(td, MESH_TRAIN_STEPS, state, mesh=mesh, specs=all_specs)
+        t_save = time.perf_counter() - t
+        t = time.perf_counter()
+        step_r, back = ckpt.restore(td, mesh=mesh, specs=all_specs)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t
+    fa, fb = flatten(back), flatten(state)
+    check(step_r == MESH_TRAIN_STEPS and fa.keys() == fb.keys(),
+          f"14a restore: step {step_r}, keys {sorted(fa)[:4]}")
+    for k in fb:
+        check(fa[k].dtype == fb[k].dtype and fa[k].device == fb[k].device
+              and torch.equal(fa[k], fb[k]), f"14a restore {k} not bitwise")
+    print(f"  14a {arch.name} on a one-rank NCCL world {mesh.mesh_dim_names}"
+          f" {tuple(mesh.mesh.shape)}: batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, bf16, remat; {MESH_TRAIN_STEPS} sharded steps "
+          f"bitwise the unsharded (losses {' '.join(f'{x:.4f}' for x in got[0])}"
+          f"; params, m, v equal); step seconds sharded "
+          f"{' '.join(f'{x:.3f}' for x in got[3])}, unsharded "
+          f"{' '.join(f'{x:.3f}' for x in plain_t)}; one "
+          f"sharded step's collectives {coll['count']} bytes "
+          f"{coll['bytes']}; checkpoint {ckpt.nbytes(state) / 1e9:.3f} GB "
+          f"saved in {t_save:.3f} s, restored bitwise in {t_restore:.3f} s",
+          flush=True)
+    del state, back, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_dry(pool, pending, peak12: dict, peak13: int) -> None:
+    """14(b), (c): the dry-run records from the background processes."""
+    t0 = time.perf_counter()
+    recs = pending.get()
+    pool.close()
+    pool.join()
+    waited = time.perf_counter() - t0
+    check(not any(r["cuda_initialized"] for r in recs),
+          "14b: a dry-run job initialised CUDA")
+    cells = [r for r in recs if r["job"][0] == "cell"]
+    for r in cells:
+        check(r["status"] in ("ok", "skipped"),
+              f"14b {r['job']}: {r.get('error', r['status'])}")
+        line = f"  14b {r['arch']} {r['shape']} {r['mesh']}: {r['status']}"
+        if r["status"] == "ok":
+            ma, rf = r["memory_analysis"], r["roofline"]
+            line += (f" in {r['seconds']:.1f} s; per rank "
+                     f"{ma['total_per_device'] / 2**30:.3f} GiB peak "
+                     f"(arguments {ma['argument_size_in_bytes'] / 2**30:.3f}"
+                     f" GiB, fits {ma['fits']}), {rf['flops']:.4e} FLOP, "
+                     f"collectives {r['coll_count']}; roofline {rf['bottleneck']}"
+                     f" (compute {rf['compute_s']:.4f} s, memory "
+                     f"{rf['memory_s']:.4f} s, collective "
+                     f"{rf['collective_s']:.4f} s); useful flops "
+                     f"{r['useful_flops_ratio']:.4f}")
+            if "cache_seq_replicated" in r:
+                line += f"; cache_seq_replicated {r['cache_seq_replicated']}"
+        elif r["status"] == "skipped":
+            line += f" ({r['reason']})"
+        else:
+            line += f" after {r['seconds']:.1f} s: {r['error'][:160]}"
+        print(line, flush=True)
+    local = {tuple(r["job"][1:3]): r for r in recs if r["job"][0] == "local"}
+    for r in local.values():
+        check(r["status"] == "ok", f"14c {r['job']}: {r.get('error')}")
+    pred13 = local[TRAIN_ARCH, "train"]["memory_analysis"]["total_per_device"]
+    rows = [(f"13a {TRAIN_ARCH} train {TRAIN_BATCH} x {TRAIN_SEQ}", pred13,
+             peak13, local[TRAIN_ARCH, "train"]["seconds"])]
+    for name in LM_FULL:
+        pre = local[name, "prefill"]["memory_analysis"]["total_per_device"]
+        dec = local[name, "decode"]["memory_analysis"]["total_per_device"]
+        rows.append((f"12 {name} prefill {LM_BATCH} x {LM_PROMPT} + decode "
+                     f"(cache {LM_PROMPT})", max(pre, dec), peak12[name],
+                     local[name, "prefill"]["seconds"]
+                     + local[name, "decode"]["seconds"]))
+    for what, pred, meas, sec in rows:
+        ratio = pred / meas
+        print(f"  14c {what}: dry run at mesh (1, 1) predicts "
+              f"{pred / 2**30:.3f} GiB, measured peak {meas / 2**30:.3f} GiB,"
+              f" ratio {ratio:.3f} (limits {DRY_PEAK_RATIO}); dry seconds "
+              f"{sec:.1f}", flush=True)
+        check(DRY_PEAK_RATIO[0] <= ratio <= DRY_PEAK_RATIO[1],
+              f"14c {what}: predicted/measured {ratio:.3f}")
+    print(f"  14 dry run: {len(recs)} jobs in {DRY_WORKERS} background "
+          f"processes; waited {waited:.1f} s for them after 14(a)",
+          flush=True)
 
 
 def main() -> int:
@@ -2996,10 +3225,21 @@ def main() -> int:
         phase_tools(core, dev, run10a, (mem3, mem5))
     gc.collect()
     torch.cuda.empty_cache()
-    phase_lm(dev)
+    peak12 = phase_lm(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train(dev)
+    pool, pending = start_dry()
+    peak13 = phase_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    with nccl_world(dev) as M:
+        mesh_train(dev, M)
+    phase("14a sharded training on a one-rank NCCL world, bitwise", t)
+    t = time.perf_counter()
+    phase_dry(pool, pending, peak12, peak13)
+    phase("14bc dry-run cells and predicted peaks", t)
 
     kernels = []
     # launches: each kernel on its own path (the tile-form select and

@@ -9,8 +9,13 @@ automatically), and prints the loss curve.  The same steps as
 Run:  PYTHONPATH=src python examples/torch_train_lm.py [--steps 300]
       [--tiny] [--device cpu]
 (``--tiny`` uses the smoke size, which runs on the CPU in seconds.)
+
+``main(mesh=...)`` trains on a built ``DeviceMesh`` of an initialised
+world instead (each rank its shards, ``parallel.shard``); its ranks then
+share ``ckpt_dir``.
 """
 import argparse
+import contextlib
 import dataclasses
 import tempfile
 
@@ -20,7 +25,8 @@ from repro_torch.launch.mesh import MeshSpec
 from repro_torch.train import FailureInjector, OptConfig, Trainer, TrainerConfig
 
 
-def main(device=None, steps: int = 300, tiny: bool = False) -> Trainer:
+def main(device=None, steps: int = 300, tiny: bool = False, mesh=None,
+         ckpt_dir: str | None = None) -> Trainer:
     base = get_arch("qwen3-0.6b")
     if tiny:
         arch = smoke_of(base)
@@ -32,10 +38,11 @@ def main(device=None, steps: int = 300, tiny: bool = False) -> Trainer:
             head_dim=64, d_ff=2048, vocab_size=32768, params_dtype="float32",
             compute_dtype="float32", name="qwen3-100m")
         seq, batch = 256, 8
-    mesh = MeshSpec.local()
+    mesh = MeshSpec.local() if mesh is None else mesh
     plan = plan_for_mesh(mesh)
     print(f"arch={arch.name}: {arch.n_params():,} params")
-    with tempfile.TemporaryDirectory() as td:
+    with contextlib.ExitStack() as stack:
+        td = ckpt_dir or stack.enter_context(tempfile.TemporaryDirectory())
         tr = Trainer(
             arch, mesh, plan,
             DataConfig(vocab_size=arch.vocab_size, seq_len=seq,

@@ -9,8 +9,11 @@ decreasing loss.
 
 ``host_batch`` is the reference's numpy, draw for draw (PCG64DXSM over
 ``[seed, step]``), so both packages see the same bytes; ``device_batch``
-puts it on the mesh's device.  The port keeps one replica of the LM per
-rank, so a rank's batch is the whole global batch.
+puts this rank's rows of it on the mesh's device: on a built
+``DeviceMesh`` the batch dim (axis 1 of ``pos3``) split by the plan's
+batch spec, as the reference's ``NamedSharding`` places it (at
+``grad_accum > 1``, split microbatch by microbatch); for a ``MeshSpec``
+or no mesh, the whole batch.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShardingPlan
 from repro_torch.core.speculative import resolve_device
+from repro_torch.parallel.shard import as_rank_mesh, shard_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,15 +75,47 @@ def mesh_device(mesh, device=None) -> torch.device:
     return resolve_device(device)
 
 
-def device_batch(batch: dict, mesh, plan: ShardingPlan, device=None):
-    """The host batch as tensors on the mesh's device (``mesh_device``)."""
+def batch_spec(key: str, shape, plan: ShardingPlan) -> tuple:
+    """The plan's spec of one batch leaf: its batch dim over the batch
+    axes (axis 1 of ``pos3``, axis 0 of the others)."""
+    dims: tuple = ("batch",) + (None,) * (len(shape) - 1)
+    if key == "pos3":
+        dims = (None, "batch", None)
+    return plan.spec(dims, tuple(shape))
+
+
+def device_batch(batch: dict, mesh, plan: ShardingPlan, device=None,
+                 grad_accum: int = 1):
+    """This rank's rows of the host batch as tensors on the mesh's device
+    (``mesh_device``).  With ``grad_accum = M > 1`` they are this rank's
+    block of each of the M contiguous microbatches of the global batch, in
+    microbatch order, so that the train step's split of its rows into M
+    gives each microbatch the reference's rows (it cuts the global batch
+    into M and then shards each microbatch over the batch axes)."""
     dev = mesh_device(mesh, device)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-            for k, v in batch.items()}
+    rm = as_rank_mesh(mesh)
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if rm is not None:
+            bd = 1 if k == "pos3" else 0
+            B, M = t.shape[bd], grad_accum
+            if B % M:
+                raise ValueError(f"batch {B} does not split into {M} "
+                                 "microbatches")
+            micro = t.unflatten(bd, (M, B // M))
+            spec = batch_spec(k, micro.shape[:bd] + micro.shape[bd + 1:],
+                              plan)
+            t = shard_of(micro, spec[:bd] + (None,) + spec[bd:],
+                         rm).flatten(bd, bd + 1)
+        out[k] = t.to(dev)
+    return out
 
 
 class DataLoader:
-    """Step-indexed iterator over ``device_batch(host_batch(...))``."""
+    """Step-indexed iterator over ``device_batch(host_batch(...))``, its
+    rows grouped by ``arch.grad_accum`` microbatches when ``arch`` is
+    given."""
 
     def __init__(self, cfg: DataConfig, mesh, plan: ShardingPlan,
                  arch: ArchConfig | None = None, start_step: int = 0,
@@ -93,6 +129,7 @@ class DataLoader:
 
     def __next__(self):
         b = device_batch(host_batch(self.cfg, self.step, self.arch),
-                         self.mesh, self.plan, self.device)
+                         self.mesh, self.plan, self.device,
+                         self.arch.grad_accum if self.arch else 1)
         self.step += 1
         return b

@@ -15,6 +15,12 @@ process per GPU::
     torchrun --nproc-per-node=4 my_script.py   # calls init_world(), then
                                                # MeshSpec.worker(4).build()
 
+The LM's layouts (``production``, ``local``, ``lm``) build the same way,
+on ``data × model`` (and ``pod``): the LM then stores its leaves as this
+rank's shards under ``plan_for_mesh`` of the mesh, and ``set_mesh`` (the
+reference's ``compat.set_mesh``) makes a built mesh the ambient one that
+the model's layers gather their weights on (``parallel.shard``).
+
 Functions, not module constants: importing this module touches no
 process group and no device.
 """
@@ -28,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.comm import AXIS, BATCH_AXIS, batch_axis_size
+from repro_torch.parallel.shard import current_mesh, set_mesh  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +76,14 @@ class MeshSpec:
     def local(cls) -> "MeshSpec":
         """Degenerate 1-device smoke mesh (both axes size 1)."""
         return cls((1, 1), ("data", "model"))
+
+    @classmethod
+    def lm(cls, data: int, model: int, pod: int = 1) -> "MeshSpec":
+        """An LM layout of ``pod × data × model`` ranks (no ``pod`` axis
+        when ``pod`` is 1)."""
+        if pod > 1:
+            return cls((pod, data, model), ("pod", "data", "model"))
+        return cls((data, model), ("data", "model"))
 
     @property
     def n_devices(self) -> int:

@@ -12,6 +12,12 @@ unless the caller passes ``params``.  The cache holds ``prompt_len`` slots
 (the reference's choice), so each decode step overwrites slot
 ``pos % prompt_len`` of the ring buffer.  Greedy tokens are the argmax over
 the padded vocabulary, ties to the lowest id.
+
+On a built ``DeviceMesh`` each rank keeps its shards of the weights (drawn
+leaf by leaf from the same generator, so the gathered weights are the
+one-device weights) and its rows of the prompt batch and the caches; the
+layers gather their weights as they run (``parallel.shard``), and the
+generated tokens are gathered over the batch ranks.
 """
 from __future__ import annotations
 
@@ -22,9 +28,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, plan_for_mesh, smoke_of
-from repro_torch.core.speculative import resolve_device
+from repro_torch.data.pipeline import batch_spec, mesh_device
 from repro_torch.launch.mesh import MeshSpec
+from repro_torch.parallel.shard import (as_rank_mesh, batch_rows, set_mesh,
+                                      shard_of, unshard)
 from repro_torch.models import decode_step, init_params, param_defs, prefill
+from repro_torch.models.layers import flatten, specs_of
 
 
 def _sync(device: torch.device) -> None:
@@ -50,34 +59,58 @@ def serve_inputs(arch, *, batch: int, prompt_len: int, seed: int,
     return {k: v.to(device) for k, v in out.items()}
 
 
+def init_params_placed(arch, plan, seed: int, mesh=None, device=None):
+    """The serving weights of ``seed`` (one generator, sorted leaf order):
+    whole on a ``MeshSpec``'s or no mesh's device, this rank's shards on a
+    built ``DeviceMesh``."""
+    device = mesh_device(mesh, device)
+    rm = as_rank_mesh(mesh)
+    defs = param_defs(arch)
+    place = None
+    if rm is not None:
+        specs = flatten(specs_of(defs, plan))
+
+        def place(name, t):
+            return shard_of(t, specs[name], rm)
+    gen_ = torch.Generator(device=device).manual_seed(seed)
+    return init_params(defs, gen_, device, place=place)
+
+
 def serve(arch, mesh, plan, *, batch: int, prompt_len: int, gen: int,
           seed: int = 0, params=None, device=None):
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
     ``gen - 1`` more greedy tokens.  Returns (tokens (batch, gen) int32,
     stats: prefill_s, decode_s, tok_per_s).  Runs on CUDA unless
-    ``device`` says otherwise (raises when CUDA is missing); ``mesh`` is
-    the one-device mesh the plan was made for."""
-    device = resolve_device(device)
+    ``device`` says otherwise (raises when CUDA is missing).  ``mesh`` is
+    the mesh the plan was made for: a ``MeshSpec`` (one device, whole
+    weights) or a built ``DeviceMesh`` (``params``, if given, are this
+    rank's shards; the tokens come back whole on every rank)."""
+    device = mesh_device(mesh, device)
+    rm = as_rank_mesh(mesh)
     if params is None:
-        gen_ = torch.Generator(device=device).manual_seed(seed)
-        params = init_params(param_defs(arch), gen_, device)
-    batch_in = serve_inputs(arch, batch=batch, prompt_len=prompt_len,
-                            seed=seed, device=device)
+        params = init_params_placed(arch, plan, seed, mesh, device)
+    batch_in = {k: batch_rows(v, batch_spec(k, v.shape, plan), rm)
+                for k, v in serve_inputs(arch, batch=batch,
+                                         prompt_len=prompt_len, seed=seed,
+                                         device=device).items()}
 
-    t0 = time.perf_counter()
-    cache, logits = prefill(params, batch_in, arch, plan, prompt_len)
-    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-    _sync(device)
-    t_prefill = time.perf_counter() - t0
-    out = [tok]
-    t0 = time.perf_counter()
-    for _ in range(gen - 1):
-        cache, logits = decode_step(params, cache, tok, arch, plan)
+    with set_mesh(rm):
+        t0 = time.perf_counter()
+        cache, logits = prefill(params, batch_in, arch, plan, prompt_len)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-        out.append(tok)
-    _sync(device)
-    t_decode = time.perf_counter() - t0
+        _sync(device)
+        t_prefill = time.perf_counter() - t0
+        out = [tok]
+        t0 = time.perf_counter()
+        for _ in range(gen - 1):
+            cache, logits = decode_step(params, cache, tok, arch, plan)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            out.append(tok)
+        _sync(device)
+        t_decode = time.perf_counter() - t0
     tokens = torch.cat(out, dim=1)
+    if rm is not None:
+        tokens = unshard(tokens, batch_spec("tokens", (batch, gen), plan), rm)
     return tokens, dict(
         prefill_s=t_prefill, decode_s=t_decode,
         tok_per_s=batch * (gen - 1) / max(t_decode, 1e-9))

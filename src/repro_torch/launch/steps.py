@@ -1,14 +1,33 @@
-"""Step functions of the LM scaffold (the port of ``repro.launch.steps``,
-its training, prefill and decode steps).
+"""Step functions of the LM scaffold and the dry run's input builders
+(the port of ``repro.launch.steps``).
 
 ``make_train_step`` is the reference's: gradients of ``loss_fn`` (here by
 ``torch.autograd`` on leaf copies of the parameters), then one AdamW
 step; with ``cfg.grad_accum = M > 1`` the batch is split into M
 microbatches whose gradients add up in float32 accumulators as ``g/M``,
-and whose losses as ``loss/M``.  The reference's sharding constraints are
-the port's no-op ``layers.constrain`` (one replica per rank).  The dry
-run's ``sds_tree``, ``shardings_of`` and ``input_specs`` come with the
-dry-run slice.
+and whose losses as ``loss/M``.
+
+On a mesh (run the steps inside ``parallel.shard.set_mesh``) the trees are
+this rank's shards under ``plan.spec`` and the batch this rank's rows.
+The gradients come out of the backward pass already reduced and sharded
+like the parameters (``parallel.shard.GatherLayer``: the reference's
+``constrain_grads``), AdamW runs on the shards, and the metrics are the
+mean over the batch ranks.  At ``grad_accum = M > 1`` the batch must
+hold this rank's block of each of the M global microbatches, in order
+(``data.pipeline.device_batch(..., grad_accum=M)``), so that each
+microbatch is made of the reference's rows: an MoE's load-balance term,
+taken per microbatch, depends on which rows those are.  The reference
+gathers the non-expert weights once a step; the port keeps its per-layer
+gather in every microbatch: the same result at M times the gather
+traffic.
+
+``input_specs(arch, shape, mesh)`` gives (step_fn, args) of one dry-run
+cell: the torch analogue of a ``ShapeDtypeStruct`` with a
+``NamedSharding`` is a tensor on the ``meta`` device at the leaf's
+per-rank shape (``sds_tree``) beside its spec (``shardings_of``), so
+nothing is allocated.  A cache is split along its batch dim only: the
+plan's sequence split of a batch-1 cache (``long_500k``) would need
+attention over a sharded sequence, which the port does not have.
 """
 from __future__ import annotations
 
@@ -16,11 +35,16 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs import ArchConfig, ShapeConfig
-from repro_torch.models import decode_step, loss_fn, prefill
-from repro_torch.models.layers import ParamDef
+from repro_torch.configs import ArchConfig, ShapeConfig, plan_for_mesh
+from repro_torch.parallel.shard import (RankMesh, ShardedLeaf, batch_mean,
+                                      current_mesh, local_shape, map_tree,
+                                      set_mesh)
+from repro_torch.models import (cache_defs, decode_step, loss_fn,
+                                param_defs, prefill)
+from repro_torch.models.layers import DTYPES, ParamDef, specs_of, tree_map
 from repro_torch.train.optimizer import (OptConfig, adamw_update, leaves,
-                                         unleaves, value_and_grad)
+                                         opt_state_defs, unleaves,
+                                         value_and_grad)
 
 
 def batch_defs(cfg: ArchConfig, shape: ShapeConfig, *, decode: bool = False):
@@ -59,6 +83,7 @@ def make_train_step(cfg: ArchConfig, plan, opt_cfg: OptConfig):
     metrics)``: new trees, the inputs left as they were; the metrics are
     0-d tensors on the parameters' device."""
     M = cfg.grad_accum
+    specs = specs_of(param_defs(cfg), plan)
 
     def loss(p, b):
         return loss_fn(p, b, cfg, plan)
@@ -86,8 +111,13 @@ def make_train_step(cfg: ArchConfig, plan, opt_cfg: OptConfig):
                        "zloss": torch.zeros((), dtype=torch.float32,
                                             device=dev)}
         params, opt_state, info = adamw_update(params, grads, opt_state,
-                                               opt_cfg)
-        return params, opt_state, {"loss": loss_v, **metrics, **info}
+                                               opt_cfg, specs=specs)
+        out = {"loss": loss_v, **metrics}
+        if current_mesh() is not None:     # the batch ranks' mean
+            keys = sorted(out)
+            got = batch_mean(torch.stack([out[k] for k in keys]), plan)
+            out = {k: got[i] for i, k in enumerate(keys)}
+        return params, opt_state, {**out, **info}
     return train_step
 
 
@@ -105,3 +135,70 @@ def make_decode_step(cfg: ArchConfig, plan):
                                         plan)
         return new_cache, torch.argmax(logits, dim=-1)
     return serve_step
+
+
+# --------------------------------------------------------------------------
+# Dry-run inputs
+
+
+def cache_specs(cdefs, plan) -> dict:
+    """Spec tree of a cache: its batch dim split, every other dim whole."""
+    return tree_map(lambda d: plan.spec(
+        tuple(x if x == "batch" else None for x in d.dims), d.shape), cdefs)
+
+
+def shardings_of(defs, mesh, plan, specs=None) -> dict:
+    """``ShardedLeaf`` of every definition (``specs``: a spec tree in
+    place of ``plan.spec`` of each, as for caches)."""
+    specs = specs if specs is not None else specs_of(defs, plan)
+    return map_tree(lambda d, sp: ShardedLeaf.of(d.shape, sp, mesh.names),
+                    defs, specs)
+
+
+def sds_tree(defs, mesh, plan, specs=None) -> dict:
+    """Tensors on the ``meta`` device at each leaf's per-rank shape on
+    ``mesh`` (a ``RankMesh``): nothing is allocated."""
+    specs = specs if specs is not None else specs_of(defs, plan)
+    return map_tree(lambda d, sp: torch.empty(
+        local_shape(d.shape, sp, mesh.sizes), dtype=DTYPES[d.dtype],
+        device="meta"), defs, specs)
+
+
+def _on_mesh(rm: RankMesh, fn):
+    def run(*args):
+        with set_mesh(rm):
+            return fn(*args)
+    return run
+
+
+def input_specs(arch: ArchConfig, shape: ShapeConfig, mesh,
+                opt_cfg: OptConfig | None = None):
+    """(step_fn, args) of one dry-run cell: ``args`` are ``meta`` tensors
+    at the per-rank shapes of a rank of ``mesh`` (a ``MeshSpec``, or a
+    ``RankMesh`` such as ``RankMesh.dry(spec)``, whose ``log`` then
+    records the step's collectives), and ``step_fn`` runs on that mesh."""
+    rm = mesh if isinstance(mesh, RankMesh) else RankMesh.dry(mesh)
+    plan = plan_for_mesh(rm)
+    opt_cfg = opt_cfg or OptConfig(state_dtype=arch.opt_state_dtype)
+    pdefs = param_defs(arch)
+    params = sds_tree(pdefs, rm, plan)
+
+    if shape.kind == "train":
+        opt = sds_tree(opt_state_defs(pdefs, opt_cfg), rm, plan)
+        batch = sds_tree(batch_defs(arch, shape), rm, plan)
+        fn = make_train_step(arch, plan, opt_cfg)
+        return _on_mesh(rm, fn), (params, opt, batch)
+
+    if shape.kind == "prefill":
+        batch = sds_tree(batch_defs(arch, shape), rm, plan)
+        fn = make_prefill_step(arch, plan, shape.seq_len)
+        return _on_mesh(rm, fn), (params, batch)
+
+    if shape.kind == "decode":
+        cdefs = cache_defs(arch, shape.global_batch, shape.seq_len)
+        cache = sds_tree(cdefs, rm, plan, cache_specs(cdefs, plan))
+        batch = sds_tree(batch_defs(arch, shape, decode=True), rm, plan)
+        fn = make_decode_step(arch, plan)
+        return _on_mesh(rm, fn), (params, cache, batch)
+
+    raise ValueError(shape.kind)

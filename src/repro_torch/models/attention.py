@@ -40,7 +40,13 @@ def _pick(S: int, target: int) -> int:
 
 def _blockwise(q, k, v, *, causal: bool, scale: float, q_block: int = 512,
                kv_block: int = 512):
-    """q (B,Sq,H,D), k/v (B,Sk,Hkv,Dk/Dv) -> (B,Sq,H,Dv); online softmax."""
+    """q (B,Sq,H,D), k/v (B,Sk,Hkv,Dk/Dv) -> (B,Sq,H,Dv); online softmax.
+
+    Causal: a KV block after every query of the query block is skipped
+    and only a block across the diagonal is masked.  Both are exact: the
+    first KV block gives every row a finite max, so a masked block's
+    probabilities underflow to 0 and its rescale factor is 1, and an
+    all-true mask leaves the scores as they are."""
     B, Sq, H, D = q.shape
     Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
@@ -49,11 +55,16 @@ def _blockwise(q, k, v, *, causal: bool, scale: float, q_block: int = 512,
     dev = q.device
 
     qb = f32(q).reshape(B, nq, bq, Hkv, G, D)
-    kb = f32(k).reshape(B, nk, bk, Hkv, D)
-    vb = v.reshape(B, nk, bk, Hkv, Dv)
+    # each block pair's two batched matmuls, as ``torch.einsum`` lays them
+    # out ((B·Hkv, G·bq, D) @ (B·Hkv, D, bk), then @ (B·Hkv, bk, Dv)), with
+    # the key and value blocks laid out once rather than copied per pair
+    kt = f32(k).reshape(B, nk, bk, Hkv, D).permute(1, 0, 3, 4, 2).reshape(
+        nk, B * Hkv, D, bk)
+    vt = v.reshape(B, nk, bk, Hkv, Dv).permute(1, 0, 3, 2, 4).reshape(
+        nk, B * Hkv, bk, Dv)
     outs = []
     for qi in range(nq):
-        qblk = qb[:, qi]                                 # (B,bq,Hkv,G,D)
+        qt = qb[:, qi].permute(0, 2, 3, 1, 4).reshape(B * Hkv, G * bq, D)
         qpos = qi * bq + torch.arange(bq, device=dev)
         m = torch.full((B, Hkv, G, bq), NEG_INF, dtype=torch.float32,
                        device=dev)
@@ -61,8 +72,10 @@ def _blockwise(q, k, v, *, causal: bool, scale: float, q_block: int = 512,
         acc = torch.zeros((B, Hkv, G, bq, Dv), dtype=torch.float32,
                           device=dev)
         for ki in range(nk):
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kb[:, ki]) * scale
-            if causal:
+            if causal and ki * bk > qi * bq + bq - 1:
+                break    # every later key is after every query of the block
+            s = torch.bmm(qt, kt[ki]).view(B, Hkv, G, bq, bk) * scale
+            if causal and ki * bk + bk - 1 > qi * bq:   # the diagonal
                 kpos = ki * bk + torch.arange(bk, device=dev)
                 mask = qpos[:, None] >= kpos[None, :]
                 s = torch.where(mask, s, NEG_INF)
@@ -70,8 +83,8 @@ def _blockwise(q, k, v, *, causal: bool, scale: float, q_block: int = 512,
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(-1)
-            pv = torch.einsum("bhgqk,bkhd->bhgqd", f32(p.to(v.dtype)),
-                              f32(vb[:, ki]))
+            pv = torch.bmm(f32(p.to(v.dtype)).view(B * Hkv, G * bq, bk),
+                           f32(vt[ki])).view(B, Hkv, G, bq, Dv)
             acc = acc * alpha[..., None] + pv
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B,Hkv,G,bq,Dv)

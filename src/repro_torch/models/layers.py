@@ -82,13 +82,23 @@ def tree_map(fn, tree):
 
 
 def init_params(defs: dict, generator: torch.Generator | None,
-                device=None) -> dict:
+                device=None, place=None) -> dict:
     """Initialised tensors of a (nested or flat) ``ParamDef`` table, drawn
     from ``generator`` one definition after another in sorted path order
-    (the reference's order); returns the same nesting."""
+    (the reference's order); returns the same nesting.  ``place(path,
+    tensor)``, when given, is kept in place of each whole tensor as soon
+    as it is drawn (a rank's shard of it)."""
     flat = flatten(defs)
-    return unflatten({name: flat[name].initializer(generator, device)
-                      for name in sorted(flat)})
+    out = {}
+    for name in sorted(flat):
+        t = flat[name].initializer(generator, device)
+        out[name] = t if place is None else place(name, t)
+    return unflatten(out)
+
+
+def specs_of(defs: dict, plan: ShardingPlan) -> dict:
+    """``plan.spec`` of every definition of a (nested) ``ParamDef`` table."""
+    return tree_map(lambda d: plan.spec(d.dims, d.shape), defs)
 
 
 def count_params(defs: dict) -> int:
@@ -178,6 +188,9 @@ def geglu(x, w_gate, w_up, w_down):
 
 
 def constrain(x, plan: ShardingPlan, dims: tuple[str | None, ...]):
-    """The reference's sharding constraint: a no-op on the port's one
-    device (the tensor stays where it is)."""
+    """The reference's sharding constraint: a no-op in the port.  On a
+    mesh the placement is by storage, not by constraint: parameters,
+    optimizer state, batches and caches are stored as this rank's shards
+    (``parallel.shard``), and a layer's activations are this rank's batch
+    rows computed on its gathered weights."""
     return x

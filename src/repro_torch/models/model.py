@@ -18,6 +18,15 @@ Training recomputes instead of storing, as the reference does: with
 (the reference's ``jax.checkpoint`` with ``nothing_saveable`` around its
 scan body), so the backward pass keeps one residual per layer; the loss's
 (B, chunk, V) logits are recomputed per sequence chunk.
+
+On a mesh (``parallel.shard.set_mesh``) the parameters are this rank's
+shards under ``plan.spec`` and the batch (and caches) this rank's rows.
+A layer gathers its whole weights just before it runs and drops them
+after (``parallel.shard.GatherLayer``: all-gather forward, reduce-scatter
+backward), inside the remat region, so the recompute gathers again and
+at most one layer's whole weights are live; the embedding, the final
+norms and the unembedding gather the same way.  Without a mesh nothing
+is gathered.
 """
 from __future__ import annotations
 
@@ -31,11 +40,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShardingPlan
+from repro_torch.parallel.shard import current_mesh, gather_tree
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
 from .layers import (DTYPES, ParamDef, constrain, flatten, geglu, layer_norm,
-                     rms_norm, sinusoidal_from_pos, swiglu, tree_map)
+                     rms_norm, sinusoidal_from_pos, specs_of, swiglu,
+                     tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,8 +340,31 @@ def apply_block(spec: BlockSpec, p, x, pos, cfg, plan, *, mode,
 
 
 def _layer(tree, i: int):
-    """Layer ``i``'s slice of a stacked tree (views, no copy)."""
+    """Layer ``i``'s slice of a stacked tree (views, no copy); on a mesh,
+    of this rank's stacked shards (the L dim is never split)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def _whole(params, name: str, cfg: ArchConfig, plan: ShardingPlan):
+    """``params[name]`` (a leaf or a subtree) gathered whole on the ambient
+    mesh; as it is without one."""
+    p = params[name]
+    if current_mesh() is None:
+        return p
+    return gather_tree(p, specs_of(param_defs(cfg)[name], plan), plan)
+
+
+def _gathering(spec: BlockSpec, cfg: ArchConfig, plan: ShardingPlan):
+    """``apply_block`` on a mesh: the layer's shards are gathered inside
+    it (so a remat region saves the shards and its recompute gathers
+    again)."""
+    if current_mesh() is None:
+        return apply_block
+    specs = specs_of(block_defs(spec, cfg, cfg.params_dtype), plan)
+
+    def run(spec_, p, *args, **kw):
+        return apply_block(spec_, gather_tree(p, specs, plan), *args, **kw)
+    return run
 
 
 def _store(stacked: dict, i: int, new: dict) -> None:
@@ -354,8 +388,9 @@ def _run_stack(spec: BlockSpec, p_stacked, x, pos, cfg, plan, *, mode,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     made = []
     # remat: keep only each layer's input for the backward pass
-    block = (functools.partial(checkpoint, apply_block, use_reentrant=False)
-             if cfg.remat and mode == "train" else apply_block)
+    run = _gathering(spec, cfg, plan)
+    block = (functools.partial(checkpoint, run, use_reentrant=False)
+             if cfg.remat and mode == "train" else run)
     for i in range(L):
         c_l = _layer(cache, i) if cache is not None else None
         x, a, nc = block(spec, _layer(p_stacked, i), x, pos, cfg, plan,
@@ -381,17 +416,24 @@ def _stack_trees(trees: list[dict]) -> dict:
             for k, v in trees[0].items()}
 
 
-def _embed(params, tokens, cfg: ArchConfig):
-    x = params["embed"][tokens]
+def _embed(params, tokens, cfg: ArchConfig, plan: ShardingPlan):
+    x = _whole(params, "embed", cfg, plan)[tokens]
     if cfg.scale_embed:  # gemma convention
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x.to(DTYPES[cfg.compute_dtype])
 
 
 def _unembed(params, x, cfg: ArchConfig, plan: ShardingPlan):
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = _unembedding(params, cfg, plan)
     logits = torch.einsum("bsd,dv->bsv", x.float(), w.float())
     return constrain(logits, plan, ("batch", None, "tp"))
+
+
+def _unembedding(params, cfg: ArchConfig, plan: ShardingPlan):
+    """The (d, V) unembedding: the embedding's transpose when tied."""
+    if cfg.tie_embeddings:
+        return _whole(params, "embed", cfg, plan).T
+    return _whole(params, "lm_head", cfg, plan)
 
 
 def _encoder(params, batch, cfg, plan):
@@ -401,13 +443,13 @@ def _encoder(params, batch, cfg, plan):
     for r, (spec, L) in enumerate(encoder_runs(cfg)):
         x, _, _ = _run_stack(spec, params[f"enc_run{r}"], x, enc_pos[None],
                              cfg, plan, mode="train", cache=None)
-    return _apply_norm(params["enc_final_norm"], x, cfg)
+    return _apply_norm(_whole(params, "enc_final_norm", cfg, plan), x, cfg)
 
 
 def backbone(params, tokens, pos, cfg, plan, *, mode, cache=None,
              pos3=None, batch=None):
     """Shared trunk. Returns (hidden, aux, new_cache)."""
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, plan)
     if cfg.n_patches and batch is not None and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(x.dtype)
         x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
@@ -428,7 +470,7 @@ def backbone(params, tokens, pos, cfg, plan, *, mode, cache=None,
         aux = aux + a
         if nc is not None:
             new_cache[f"run{r}"] = nc
-    x = _apply_norm(params["final_norm"], x, cfg)
+    x = _apply_norm(_whole(params, "final_norm", cfg, plan), x, cfg)
     if mode != "train":
         step = 1 if mode == "decode" else tokens.shape[1]
         new_cache["pos"] = (cache_pos + step if cache_pos is not None else
@@ -478,7 +520,7 @@ def loss_fn(params, batch, cfg: ArchConfig, plan: ShardingPlan):
         pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
     x, aux, _ = backbone(params, tokens, pos, cfg, plan, mode="train",
                          pos3=batch.get("pos3"), batch=batch)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = _unembedding(params, cfg, plan)
     nll, z2 = _xent_chunked(x, w, batch["labels"], plan)
     z = 1e-4 * z2
     loss = nll + z + 1e-2 * aux

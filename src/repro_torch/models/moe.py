@@ -10,7 +10,9 @@ equal probabilities.  Each batch row is one dispatch group (the reference's
 ``vmap`` over rows is a leading batch dim here).
 
 Router: softmax gating over top-k with load-balance + z auxiliary losses,
-in float32.
+in float32.  On a mesh of several batch ranks, training takes the
+load-balance terms over the whole batch (``parallel.shard.batch_mean``), as
+the reference's global arrays do.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, ShardingPlan
+from repro_torch.parallel.shard import batch_mean
 from .layers import ParamDef, constrain, f32
 
 
@@ -98,6 +101,10 @@ def moe_apply(p, x, cfg: ArchConfig, plan: ShardingPlan):
     ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
         0, idx.reshape(-1), torch.full((idx.numel(),), 1.0 / (B * S * k),
                                        dtype=torch.float32, device=x.device))
+    if torch.is_grad_enabled():
+        # on a mesh, the load-balance terms of the whole batch: the mean of
+        # the batch ranks' (equal-sized) row means
+        me, ce = batch_mean(me, plan), batch_mean(ce, plan)
     aux = E * torch.sum(me * ce)
     zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     aux = aux + 1e-3 * zloss

@@ -1,0 +1,432 @@
+"""Per-rank shards of the LM's leaves under ``ShardingPlan.spec`` (the
+port's counterpart of the reference's ``NamedSharding`` placement).
+
+A spec is the plan's tuple with one entry per dim: ``None``, one mesh axis
+name, or a tuple of names.  Each mesh axis in a dim's entry splits that
+dim, in mesh-coordinate order (a dim over ``("pod", "data")`` is split
+pod-major, as ``NamedSharding`` lays it out), so a rank stores the block
+of every dim that its coordinates select: ``local_shape``, ``shard_of``
+(this rank's block of a whole tensor) and ``unshard`` (the whole tensor
+again, all-gathered over the group of each sharded dim).
+
+``RankMesh`` is one rank's view of a mesh: the axis names and sizes, the
+rank's coordinate, its process groups (each axis's, the batch axes' and
+all axes'), and an optional ``CollectiveLog``.  ``RankMesh.of`` takes
+them from a built ``DeviceMesh``; ``RankMesh.dry(spec)`` is the dry run's
+stand-in on ``meta`` tensors: every collective is recorded (op, bytes)
+and returns an empty ``meta`` tensor of the right shape, communicating
+nothing.
+
+The model reads the ambient mesh (``set_mesh`` / ``current_mesh``; the
+reference's ``compat.set_mesh``) and gathers each layer's weights just
+before the layer uses them through ``GatherLayer``: all-gather forward,
+and backward, for each mesh axis,
+
+- a batch axis (``plan.batch``: the ranks compute different batch rows)
+  that splits the leaf: reduce-scatter;
+- a batch axis that replicates the leaf: all-reduce;
+- any other axis (``model``): this rank's slice, no sum (its ranks
+  computed the same rows on the same gathered weights, so they hold the
+  same gradient);
+
+then one division by the batch axes' rank count, so that the gradients
+are those of the global mean loss.  ``batch_mean`` is the same mean for a
+statistic that the loss takes over the whole batch (the MoE router's
+load-balance terms).  Gradients thus leave the backward pass reduced and
+sharded like their parameters, as the reference pins them
+(``constrain_grads``: a reduce-scatter instead of an all-reduce).
+
+No DTensor and no FSDP wrapper: the placement stays visible, leaf by
+leaf, for the tests that hold it to the plan.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import itertools
+import math
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import plan_for_mesh
+from repro_torch.core.comm import shard_uniform
+
+# one entry per collective kind, named as the reference's HLO roofline names
+# them (``coll_bytes`` keys): bytes are per-rank output bytes
+ALL_GATHER, REDUCE_SCATTER, ALL_REDUCE = ("all-gather", "reduce-scatter",
+                                          "all-reduce")
+
+
+def spec_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry (``None``, a name, or names)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shape(shape, spec, sizes: dict) -> tuple[int, ...]:
+    """The per-rank shape of a leaf of global ``shape`` under ``spec``
+    (``sizes``: mesh axis name -> size).  Raises when a dim does not divide:
+    ``ShardingPlan.spec`` only keeps axes that divide."""
+    out = []
+    for n, entry in zip(shape, spec):
+        k = math.prod(sizes[a] for a in spec_axes(entry))
+        if n % k:
+            raise ValueError(f"dim {n} of {tuple(shape)} does not split "
+                             f"over {spec_axes(entry)} ({k} ranks)")
+        out.append(n // k)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedLeaf:
+    """What a rank's shard of a leaf is: the global ``shape``, the
+    ``spec``, and the mesh axes that replicate it (no dim is split over
+    them)."""
+    shape: tuple
+    spec: tuple
+    replicated: tuple
+
+    @classmethod
+    def of(cls, shape, spec, axis_names) -> "ShardedLeaf":
+        used = {a for e in spec for a in spec_axes(e)}
+        return cls(tuple(shape), tuple(spec),
+                   tuple(a for a in axis_names if a not in used))
+
+    @property
+    def split(self) -> tuple:
+        """The mesh axes whose ranks hold distinct blocks of the leaf."""
+        return tuple(a for e in self.spec for a in spec_axes(e))
+
+
+class CollectiveLog:
+    """Count and per-rank output bytes of each collective, by kind."""
+
+    def __init__(self):
+        self.count: dict[str, int] = {}
+        self.bytes: dict[str, int] = {}
+
+    def add(self, op: str, out: torch.Tensor) -> None:
+        self.count[op] = self.count.get(op, 0) + 1
+        self.bytes[op] = (self.bytes.get(op, 0)
+                          + out.numel() * out.element_size())
+
+
+class RankMesh:
+    """One rank of a mesh: ``names`` / ``sizes`` (mesh order), the rank's
+    ``coord``, its ``device``, its process groups by axes (``None`` in a
+    dry mesh) and ``log``, a ``CollectiveLog`` or ``None``."""
+
+    def __init__(self, names, sizes, coord, device, groups=None, log=None):
+        self.names = tuple(names)
+        self.sizes = dict(zip(self.names, (int(s) for s in sizes)))
+        self.coord = dict(zip(self.names, (int(c) for c in coord)))
+        self.device = torch.device(device)
+        self.groups = groups
+        self.log = log
+
+    @property
+    def is_dry(self) -> bool:
+        return self.groups is None
+
+    @property
+    def axes(self) -> tuple:      # a MeshSpec's geometry (plan_for_mesh)
+        return self.names
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.sizes[a] for a in self.names)
+
+    @property
+    def n_ranks(self) -> int:
+        return math.prod(self.sizes.values())
+
+    @classmethod
+    def of(cls, mesh) -> "RankMesh":
+        """The view of a built ``DeviceMesh`` (made once per mesh: new
+        groups are created by a collective call of every rank).  A single
+        axis's groups are the mesh's own (``get_group``); of the sets of
+        several axes only the two that the collectives here use get
+        groups: the plan's batch axes (a dim split over ``("pod",
+        "data")``, the batch mean) and all the mesh's axes (the global
+        norm's one sum)."""
+        got = getattr(mesh, "_repro_rank_mesh", None)
+        if got is not None:
+            return got
+        names = tuple(mesh.mesh_dim_names)
+        ids = mesh.mesh
+        coord = mesh.get_coordinate()
+
+        def ranks(axes, fixed) -> list:
+            """The group of ``axes`` at the other axes' coordinates
+            ``fixed`` (a dict), in mesh order (row-major over ``axes``)."""
+            index = tuple(slice(None) if a in axes else fixed[a]
+                          for a in names)
+            return ids[index].reshape(-1).tolist()
+
+        groups = {(a,): mesh.get_group(a) for a in names}
+        multi = sorted({tuple(plan_for_mesh(mesh).batch), names})
+        for axes in (s for s in multi if len(s) > 1):
+            rest = [a for a in names if a not in axes]
+            for fixed in itertools.product(*(range(ids.shape[names.index(a)])
+                                              for a in rest)):
+                members = ranks(axes, dict(zip(rest, fixed)))
+                g = dist.new_group(members)
+                if dist.get_rank() in members:
+                    groups[axes] = g
+        mine = dict(zip(names, coord))
+        for axes, g in groups.items():
+            want = ranks(axes, mine)
+            if [dist.get_global_rank(g, i) for i in range(len(want))] != want:
+                raise ValueError(f"the group of {axes}: its rank order is "
+                                 "not the mesh's coordinate order")
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if mesh.device_type == "cuda"
+               else torch.device(mesh.device_type))
+        rm = cls(names, ids.shape, coord, dev, groups)
+        mesh._repro_rank_mesh = rm
+        return rm
+
+    @classmethod
+    def dry(cls, spec, coord=None) -> "RankMesh":
+        """The dry stand-in of a ``MeshSpec`` (rank ``coord``, default the
+        first): ``meta`` tensors, collectives recorded in ``log``."""
+        coord = coord or (0,) * len(spec.axes)
+        return cls(spec.axes, spec.shape, coord, "meta", None,
+                   CollectiveLog())
+
+    def ordered(self, axes) -> tuple[str, ...]:
+        """``axes`` in mesh order (a spec entry's axes already are)."""
+        return tuple(a for a in self.names if a in axes)
+
+    def size(self, axes) -> int:
+        return math.prod(self.sizes[a] for a in axes)
+
+    def index(self, axes) -> int:
+        """This rank's block among ``size(axes)``: its coordinates on
+        ``axes``, the first the most significant."""
+        i = 0
+        for a in axes:
+            i = i * self.sizes[a] + self.coord[a]
+        return i
+
+    def group(self, axes):
+        key = self.ordered(axes)
+        if key not in self.groups:
+            raise KeyError(f"no process group over {key}: RankMesh.of makes "
+                           "single axes, the batch axes and all axes")
+        return self.groups[key]
+
+    def batch_axes(self, plan) -> tuple[str, ...]:
+        """The plan's batch axes that this mesh has."""
+        return self.ordered(a for a in plan.batch if a in self.sizes)
+
+
+# ----------------------------------------------------------- collectives --
+
+def _record(rm: RankMesh, op: str, out: torch.Tensor) -> None:
+    if rm.log is not None:
+        rm.log.add(op, out)
+
+
+def _all_gather(x, rm: RankMesh, axes, dim: int):
+    """Concatenate the ranks' ``x`` along ``dim`` in group order."""
+    n = rm.size(axes)
+    if shard_uniform(rm.is_dry):       # the same mesh on every rank
+        out = torch.empty(x.shape[:dim] + (n * x.shape[dim],)
+                          + x.shape[dim + 1:], dtype=x.dtype, device=x.device)
+        _record(rm, ALL_GATHER, out)
+        return out
+    src = torch.movedim(x, dim, 0).contiguous()
+    # the ranks' blocks one after another along dim 0
+    buf = src.new_empty((n,) + tuple(src.shape)).flatten(0, 1)
+    dist.all_gather_into_tensor(buf, src, group=rm.group(axes))
+    _record(rm, ALL_GATHER, buf)
+    return torch.movedim(buf, 0, dim).contiguous()
+
+
+def _reduce_scatter(x, rm: RankMesh, axes, dim: int):
+    """Sum over the group, each rank keeping its block of ``dim``."""
+    n = rm.size(axes)
+    blocks = torch.movedim(x, dim, 0).unflatten(0, (n, -1))
+    if shard_uniform(rm.is_dry):
+        out = torch.movedim(torch.empty_like(blocks[0]), 0, dim)
+        _record(rm, REDUCE_SCATTER, out)
+        return out
+    buf = blocks.new_empty(blocks.shape[1:])         # contiguous
+    dist.reduce_scatter_tensor(buf, blocks.flatten(0, 1).contiguous(),
+                               op=dist.ReduceOp.SUM, group=rm.group(axes))
+    _record(rm, REDUCE_SCATTER, buf)
+    return torch.movedim(buf, 0, dim).contiguous()
+
+
+def all_reduce(x, rm: RankMesh, axes):
+    """The sum of ``x`` over the group of ``axes`` (a new tensor)."""
+    if shard_uniform(rm.is_dry):
+        out = torch.empty_like(x)
+        _record(rm, ALL_REDUCE, out)
+        return out
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=rm.group(axes))
+    _record(rm, ALL_REDUCE, out)
+    return out
+
+
+# ---------------------------------------------------------------- shards --
+
+def _block(t: torch.Tensor, rm: RankMesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``dim`` split over ``axes`` (a view)."""
+    step = t.shape[dim] // rm.size(axes)
+    return t.narrow(dim, rm.index(axes) * step, step)
+
+
+def shard_of(t: torch.Tensor, spec, rm: RankMesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` (a contiguous copy)."""
+    if rm.is_dry:
+        return torch.empty(local_shape(t.shape, spec, rm.sizes),
+                           dtype=t.dtype, device="meta")
+    for dim, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if axes:
+            t = _block(t, rm, axes, dim)
+    return t.contiguous().clone()
+
+
+def unshard(t: torch.Tensor, spec, rm: RankMesh) -> torch.Tensor:
+    """The whole tensor from every rank's block: an all-gather over the
+    group of each sharded dim."""
+    for dim, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if axes:
+            t = _all_gather(t, rm, axes, dim)
+    return t
+
+
+def reduce_grad(g: torch.Tensor, spec, rm: RankMesh, batch) -> torch.Tensor:
+    """The gradient of a shard from the whole leaf's gradient ``g`` on
+    this rank: reduced over ``batch`` (mean), kept to this rank's block."""
+    used: set = set()
+    for dim, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if not axes:
+            continue
+        used.update(axes)
+        inb = [a in batch for a in axes]
+        if not any(inb):       # the same gradient on these ranks: slice
+            g = _block(g, rm, axes, dim)
+        elif all(inb):
+            g = _reduce_scatter(g, rm, axes, dim)
+        else:
+            raise ValueError(f"spec entry {entry} mixes batch and other "
+                             "mesh axes")
+    rest = tuple(a for a in batch if a not in used)
+    if rest:
+        g = all_reduce(g, rm, rest)
+    return g / rm.size(batch)
+
+
+class GatherLayer(torch.autograd.Function):
+    """``unshard`` forward; ``reduce_grad`` backward."""
+
+    @staticmethod
+    def forward(ctx, shard, spec, rm, batch):
+        ctx.spec, ctx.rm, ctx.batch = spec, rm, batch
+        return unshard(shard, spec, rm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_grad(g, ctx.spec, ctx.rm, ctx.batch), None, None, None
+
+
+class _BatchMean(torch.autograd.Function):
+    """The mean of ``x`` over the batch axes' ranks, forward and backward
+    (each rank's loss holds the same mean, and the parameters' gradients
+    are averaged over these ranks once more)."""
+
+    @staticmethod
+    def forward(ctx, x, rm, batch):
+        ctx.rm, ctx.batch = rm, batch
+        return all_reduce(x, rm, batch) / rm.size(batch)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.rm, ctx.batch) / ctx.rm.size(ctx.batch), \
+            None, None
+
+
+# --------------------------------------------------------- ambient mesh --
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
+                                                       default=None)
+
+
+def as_rank_mesh(mesh) -> RankMesh | None:
+    """A ``RankMesh`` of a built ``DeviceMesh`` or a ``RankMesh``; ``None``
+    for ``None`` and an unbuilt ``MeshSpec`` (no ranks: one device)."""
+    if mesh is None or isinstance(mesh, RankMesh):
+        return mesh
+    if hasattr(mesh, "mesh_dim_names"):
+        return RankMesh.of(mesh)
+    return None
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """Run the model on ``mesh`` (a ``DeviceMesh``, a ``RankMesh``, or
+    ``None``/a ``MeshSpec``: one device) inside the block."""
+    token = _MESH.set(as_rank_mesh(mesh))
+    try:
+        yield
+    finally:
+        _MESH.reset(token)
+
+
+def current_mesh() -> RankMesh | None:
+    return _MESH.get()
+
+
+def gather(t: torch.Tensor, spec, plan) -> torch.Tensor:
+    """The whole leaf of this rank's shard ``t`` under the ambient mesh
+    (``t`` itself without one)."""
+    rm = current_mesh()
+    if rm is None:
+        return t
+    return GatherLayer.apply(t, tuple(spec), rm, rm.batch_axes(plan))
+
+
+def gather_tree(tree, specs, plan):
+    """``gather`` over a nested dict and its spec tree."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, specs[k], plan) for k, v in tree.items()}
+    return gather(tree, specs, plan)
+
+
+def batch_mean(x: torch.Tensor, plan) -> torch.Tensor:
+    """The mean of ``x`` over the ambient mesh's batch ranks (``x`` itself
+    without a mesh)."""
+    rm = current_mesh()
+    if rm is None:
+        return x
+    return _BatchMean.apply(x, rm, rm.batch_axes(plan))
+
+
+def batch_rows(t: torch.Tensor, spec, rm: RankMesh | None) -> torch.Tensor:
+    """This rank's rows of a batch or cache leaf (``t`` without a mesh)."""
+    return t if rm is None else shard_of(t, spec, rm)
+
+
+def unshard_tree(tree, specs, rm: RankMesh):
+    """``unshard`` of every leaf with a spec; the others as they are."""
+    return map_tree(lambda t, sp: t if sp is None else unshard(t, sp, rm),
+                    tree, specs)
+
+
+def map_tree(fn, tree, specs):
+    """``fn(leaf, spec)`` over a nested dict; a leaf without a spec entry
+    is passed ``None``."""
+    if isinstance(tree, dict):
+        specs = specs if isinstance(specs, dict) else {}
+        return {k: map_tree(fn, v, specs.get(k)) for k, v in tree.items()}
+    return fn(tree, specs)

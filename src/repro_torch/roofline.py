@@ -20,11 +20,13 @@ layouts differ:
 - ``promoted_extra_bytes`` counts ``prio`` only (``gvid`` is not on the
   device).
 
-The reference's HLO roofline (``analyze_hlo``, ``roofline_terms``) parses
-XLA's compiled text and has no torch counterpart: the kernel table's
-bound column (``chip_smoke.py``) plays its role.  ``model_flops`` is the
-reference's count of an LM step (6·N·D to train, 2·N·D to infer), which
-``chip_smoke.py`` divides by the training step's time.
+The reference's HLO parse (``analyze_hlo``) has no torch counterpart:
+the LM dry run (``launch.dryrun``) counts the same quantities while it
+runs a step on ``meta`` tensors (matmul FLOPs and operand bytes, and each
+collective's bytes), and ``roofline_terms`` turns them into the three
+per-rank times against an H100 SXM's data-sheet peaks.  ``model_flops``
+is the reference's count of an LM step (6·N·D to train, 2·N·D to infer),
+which ``chip_smoke.py`` divides by the training step's time.
 """
 from __future__ import annotations
 
@@ -37,6 +39,15 @@ from repro_torch.core.graph import id_policy
 #: device memory of one NVIDIA H100 SXM5 80GB (NVIDIA's data sheet: 80 GB)
 H100_80GB_HBM_BYTES = 80 * 10**9
 HBM_BYTES = H100_80GB_HBM_BYTES
+#: dense bf16 tensor-core rate of one H100 SXM5 (NVIDIA's data sheet, at
+#: its 700 W limit)
+H100_BF16_FLOPS = 989.4e12
+#: HBM3 bandwidth of one H100 SXM5 (NVIDIA's data sheet)
+H100_HBM_BW = 3.35e12
+#: NVLink 4 of one H100 SXM5: 900 GB/s both ways together (NVIDIA's data
+#: sheet), 450 GB/s each way
+H100_NVLINK_BW = 450e9
+_AR_FACTOR = 2.0           # ring all-reduce = reduce-scatter + all-gather
 
 
 def _part(n: int, frac: float) -> int:
@@ -141,6 +152,26 @@ def device_bytes(arrs: dict) -> dict:
             out[name] = sum(arrs[k].numel() * arrs[k].element_size()
                             for k in keys) // P
     return out
+
+
+def roofline_terms(flops: float, hbm_bytes: float, coll_bytes: dict) -> dict:
+    """The reference's three per-rank roofline terms (seconds) and their
+    keys, from a step's matmul FLOPs, matmul operand and output bytes (the
+    reference's HBM-traffic proxy) and per-rank collective bytes by kind,
+    against the H100 SXM's data-sheet peaks."""
+    coll_eff = sum(v * (_AR_FACTOR if k == "all-reduce" else 1.0)
+                   for k, v in coll_bytes.items())
+    terms = dict(compute_s=flops / H100_BF16_FLOPS,
+                 memory_s=hbm_bytes / H100_HBM_BW,
+                 collective_s=coll_eff / H100_NVLINK_BW,
+                 collective_bytes=coll_eff, flops=flops,
+                 hbm_bytes=hbm_bytes)
+    dom = max(("compute_s", "memory_s", "collective_s"),
+              key=lambda k: terms[k])
+    terms["bottleneck"] = dom.replace("_s", "")
+    total = max(terms["compute_s"], terms["memory_s"], terms["collective_s"])
+    terms["roofline_fraction"] = terms["compute_s"] / total if total else 0.0
+    return terms
 
 
 def model_flops(arch, shape) -> float:

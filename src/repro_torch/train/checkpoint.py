@@ -13,9 +13,17 @@ manifest whose checksums verify.  The files are the reference's, byte for
 byte: a bfloat16 leaf is its raw 2-byte words under the ``.npy`` descr
 ``'<V2'`` (what numpy writes for ml_dtypes' bfloat16, which the port does
 not import) and ``"bfloat16"`` in the manifest; restore turns such data
-back into ``torch.bfloat16`` by the manifest's dtype.  ``restore(...,
-mesh=, specs=)`` places every leaf whole on the mesh's device: the port
-keeps one replica of the LM per rank.
+back into ``torch.bfloat16`` by the manifest's dtype.
+
+On a built ``DeviceMesh`` with a spec tree (``specs``: ``plan.spec`` per
+leaf of the parts that are sharded), ``save`` gathers the sharded leaves
+one at a time on every rank (``parallel.shard.unshard``), rank 0 copies
+each to the host before the next, and rank 0 writes: the files are
+those of the one-device tree, so a checkpoint moves between the packages
+and between mesh shapes.  ``restore(..., mesh=, specs=)`` gives each rank
+its shard of every leaf with a spec, and the other leaves whole: the
+reference's elastic re-mesh restore.  The caller makes every rank wait for
+rank 0's write before a restore (``Trainer.restore``).
 
 ``save_async`` copies the tree to the host synchronously (a copy even for
 CPU tensors, so a later in-place update cannot reach it) and writes on a
@@ -33,6 +41,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.core.comm import shard_uniform
+from repro_torch.parallel.shard import as_rank_mesh, shard_of, unshard
 
 _SEP = "."
 _BF16 = "bfloat16"
@@ -63,7 +75,7 @@ def _host(v) -> np.ndarray:
     """A leaf as a numpy array of its own memory: a tensor is copied to the
     host (bfloat16 as ``V2`` words), an array is copied."""
     if isinstance(v, torch.Tensor):
-        t = v.detach().to("cpu", copy=True)
+        t = v.detach().to("cpu", copy=True).contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view("V2")
         return t.numpy()
@@ -87,14 +99,25 @@ def _write_npy(path: Path, a: np.ndarray, bf16: bool) -> None:
         f.write(a.tobytes())
 
 
-def _snapshot(tree) -> tuple[dict, set]:
-    """(flat host arrays, the keys of bfloat16 leaves)."""
+def _snapshot(tree, mesh=None, specs=None) -> tuple[dict, set] | None:
+    """(flat host arrays, the keys of bfloat16 leaves).  On a built mesh
+    with ``specs`` each sharded leaf is gathered (a collective of every
+    rank) and copied to the host one leaf at a time, so at most one whole
+    leaf is on a device; rank 0 keeps the copies and the other ranks
+    return ``None``."""
+    rm = as_rank_mesh(mesh) if specs is not None else None
+    writer = rm is None or dist.get_rank() == 0
+    flat_specs = _flatten(specs) if rm is not None else {}
     flat, bf16 = {}, set()
     for k, v in _flatten(tree).items():
         if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
             bf16.add(k)
-        flat[k] = _host(v)
-    return flat, bf16
+        spec = shard_uniform(flat_specs.get(k))   # one tree on every rank
+        if spec is not None:
+            v = unshard(v, spec, rm)
+        if writer:
+            flat[k] = _host(v)
+    return (flat, bf16) if writer else None
 
 
 def _save_flat(ckpt_dir, step: int, flat: dict, bf16: set, keep: int,
@@ -122,21 +145,30 @@ def _save_flat(ckpt_dir, step: int, flat: dict, bf16: set, keep: int,
 
 
 def save(ckpt_dir, step: int, tree, *, keep: int = 3,
-         extra: dict | None = None) -> Path:
-    """Atomic synchronous checkpoint of a nested dict of tensors/arrays."""
-    flat, bf16 = _snapshot(tree)
-    return _save_flat(ckpt_dir, step, flat, bf16, keep, extra)
+         extra: dict | None = None, mesh=None, specs=None) -> Path | None:
+    """Atomic synchronous checkpoint of a nested dict of tensors/arrays
+    (on a mesh: of its gathered leaves, written by rank 0; the other
+    ranks return ``None``)."""
+    snap = _snapshot(tree, mesh, specs)
+    if snap is None:
+        return None
+    return _save_flat(ckpt_dir, step, *snap, keep, extra)
 
 
 def save_async(ckpt_dir, step: int, tree, *, keep: int = 3,
-               extra: dict | None = None) -> threading.Thread:
+               extra: dict | None = None, mesh=None,
+               specs=None) -> threading.Thread | None:
     """Snapshot to host now (a copy), write on a background thread.  The
-    thread's ``seconds`` is the write's duration once it has ended."""
-    flat, bf16 = _snapshot(tree)
+    thread's ``seconds`` is the write's duration once it has ended.  On a
+    mesh the leaves are gathered now and rank 0 writes; the other ranks
+    return ``None``."""
+    snap = _snapshot(tree, mesh, specs)
+    if snap is None:
+        return None
 
     def write():
         t0 = time.perf_counter()
-        _save_flat(ckpt_dir, step, flat, bf16, keep, extra)
+        _save_flat(ckpt_dir, step, *snap, keep, extra)
         t.seconds = time.perf_counter() - t0
 
     t = threading.Thread(target=write, daemon=True)
@@ -205,10 +237,12 @@ def _tensor(a: np.ndarray, dtype: str, device) -> torch.Tensor:
 def restore(ckpt_dir, step: int | None = None, *, mesh=None, specs=None,
             device="cpu"):
     """Load the newest verified checkpoint (or ``step``'s) as a nested dict
-    of tensors.  With ``mesh`` and ``specs`` every leaf lands whole on the
-    mesh's device (``data.pipeline.mesh_device``; ``device`` for a
-    ``MeshSpec``); without them, on ``device`` (the CPU by default).
-    Returns (step, tree) or (None, None)."""
+    of tensors.  With ``mesh`` and ``specs`` the leaves land on the mesh's
+    device (``data.pipeline.mesh_device``; ``device`` for a ``MeshSpec``):
+    on a built ``DeviceMesh`` this rank's shard of each leaf that
+    ``specs`` covers, the others whole.  Without them, every leaf whole on
+    ``device`` (the CPU by default).  Returns (step, tree) or (None,
+    None)."""
     from repro_torch.data.pipeline import mesh_device
     ckpt_dir = Path(ckpt_dir)
     if step is None:    # the newest that verifies, each read once
@@ -222,8 +256,15 @@ def restore(ckpt_dir, step: int | None = None, *, mesh=None, specs=None,
         if got is None:
             raise IOError(f"checkpoint {path} failed verification")
     manifest, flat = got
-    dev = (mesh_device(mesh, device) if mesh is not None and specs is not None
-           else torch.device(device))
+    placed = mesh is not None and specs is not None
+    dev = mesh_device(mesh, device) if placed else torch.device(device)
+    rm = as_rank_mesh(mesh) if placed else None
+    flat_specs = _flatten(specs) if rm is not None else {}
+
+    def leaf(k, meta):
+        if k not in flat_specs:
+            return _tensor(flat[k], meta["dtype"], dev)
+        return shard_of(_tensor(flat[k], meta["dtype"], "cpu"),
+                        flat_specs[k], rm).to(dev)
     return manifest["step"], _unflatten({
-        k: _tensor(flat[k], meta["dtype"], dev)
-        for k, meta in manifest["keys"].items()})
+        k: leaf(k, meta) for k, meta in manifest["keys"].items()})

@@ -12,6 +12,11 @@ Every walk over a tree goes in sorted-key order, the order of the
 reference's ``jax.tree.leaves``, so float32 sums add their terms in the
 reference's order.  The count and the learning rate stay 0-d tensors on
 the parameters' device: a step reads nothing back to the host.
+
+On a mesh every tree holds this rank's shards (``init_opt_state`` makes m
+and v like the parameters, ``opt_state_defs`` carries their dims): the
+update is elementwise and runs on the shards as it is; only the clip's
+global norm reduces over the ranks.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import math
 
 import torch
 
+from repro_torch.parallel.shard import ShardedLeaf, all_reduce, current_mesh
 from repro_torch.models.layers import DTYPES, ParamDef, tree_map
 
 
@@ -105,21 +111,40 @@ def init_opt_state(params, cfg: OptConfig):
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def _over_shards(sums: list, specs: list, rm) -> list:
+    """Each leaf's sum of squares over its whole tensor: one all-reduce
+    over all the mesh's axes, in which each leaf's sum counts on the
+    ranks at coordinate 0 of the axes that replicate it (one copy of each
+    distinct shard) and is 0 on the others."""
+    keep = [s if all(rm.coord[a] == 0 for a in ShardedLeaf.of(
+        (), spec, rm.names).replicated) else torch.zeros_like(s)
+        for s, spec in zip(sums, specs)]
+    return list(all_reduce(torch.stack(keep), rm, rm.names).unbind(0))
+
+
+def global_norm(tree, specs=None) -> torch.Tensor:
     """sqrt of the sum of squares over the leaves, in float32, summed leaf
-    by leaf in sorted-key order."""
+    by leaf in sorted-key order.  On the ambient mesh (``parallel.shard``)
+    with the leaves' ``specs``, each leaf's sum is over its whole tensor:
+    its distinct shards' sums added over the mesh (``_over_shards``)."""
+    sums = [torch.sum(torch.square(x.to(torch.float32)))
+            for x in leaves(tree)]
+    rm = current_mesh()
+    if rm is not None and specs is not None:
+        sums = _over_shards(sums, leaves(specs), rm)
     total = None
-    for x in leaves(tree):
-        s = torch.sum(torch.square(x.to(torch.float32)))
+    for s in sums:
         total = s if total is None else total + s
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt_state, cfg: OptConfig):
-    """One AdamW step; returns (params, opt_state, info) as new trees."""
+def adamw_update(params, grads, opt_state, cfg: OptConfig, *, specs=None):
+    """One AdamW step; returns (params, opt_state, info) as new trees.  On
+    a mesh, the trees are this rank's shards and ``specs`` the parameters'
+    spec tree (for the clip's global norm); the update is elementwise."""
     count = opt_state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = lr_at(count, cfg)

@@ -106,7 +106,8 @@ def test_port_sources_import_neither_jax_nor_repro():
             "launch/serve.py", "train/__init__.py", "train/optimizer.py",
             "train/checkpoint.py", "train/compression.py",
             "train/trainer.py", "data/pipeline.py", "launch/steps.py",
-            "launch/train.py", "roofline.py"} <= port
+            "launch/train.py", "roofline.py", "parallel/shard.py",
+            "launch/dryrun.py"} <= port
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     for path in files:
@@ -116,8 +117,8 @@ def test_port_sources_import_neither_jax_nor_repro():
 
 def test_port_runs_with_jax_blocked():
     """With jax made unimportable, the port still imports, colors a
-    small graph, serves a small LM and takes one training step of it on
-    the CPU."""
+    small graph, serves a small LM, takes one training step of it on the
+    CPU and sizes a sharded step of it on meta tensors."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -153,6 +154,11 @@ def test_port_runs_with_jax_blocked():
         new, st, m = make_train_step(arch, NO_SHARDING, opt)(
             params, init_opt_state(params, opt), b)
         assert int(st["count"]) == 1 and bool(torch.isfinite(m["loss"]))
+        from repro_torch.configs import ShapeConfig
+        from repro_torch.launch.dryrun import lm_record
+        rec = lm_record(arch, ShapeConfig("t", "train", 16, 2),
+                        MeshSpec((2, 1), ("data", "model")), 60)
+        assert rec["status"] == "ok", rec
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
         print("ok")

@@ -178,8 +178,10 @@ def test_elastic_restore_from_two_ranks_to_four(worlds, tmp_path):
     assert worlds[2].run(W.ckpt_save, str(tmp_path), tree, 5) == [2, 2]
     outs = worlds[4].run(W.ckpt_restore, str(tmp_path),
                          {"params": {"w": ("data",), "b": (None,)}})
-    for step, back, devices in outs:
+    for step, back, devices, shapes in outs:
         assert step == 5 and devices == ["cpu"]
+        assert shapes["params"]["w"] == (2, 8)     # this rank's rows
+        assert shapes["params"]["b"] == (3,)
         np.testing.assert_array_equal(back["params"]["w"], x)
         np.testing.assert_array_equal(back["params"]["b"],
                                       tree["params"]["b"])

@@ -265,14 +265,19 @@ def ckpt_save(path: str, tree: dict, step: int) -> int:
 
 def ckpt_restore(path: str, specs: dict):
     """Restore the newest checkpoint onto this rank's ``(n,)`` ``data``
-    mesh: (step, the tree as numpy, the leaves' devices)."""
+    mesh: (step, the tree as numpy, the leaves' devices), the tree
+    gathered from the ranks' shards (the whole arrays, as ``np.asarray``
+    of the reference's placed arrays gives them), and the shards' shapes."""
     import torch.distributed as dist
+    from repro_torch.parallel.shard import RankMesh, unshard_tree
     from repro_torch.models.layers import flatten, tree_map
     from repro_torch.train import checkpoint as ckpt
     m = mesh((dist.get_world_size(),), ("data",))
     step, tree = ckpt.restore(path, mesh=m, specs=specs)
     devices = sorted({str(t.device) for t in flatten(tree).values()})
-    return step, tree_map(lambda t: t.numpy(), tree), devices
+    whole = unshard_tree(tree, specs, RankMesh.of(m))
+    return (step, tree_map(lambda t: t.numpy(), whole), devices,
+            tree_map(lambda t: tuple(t.shape), tree))
 
 
 def compressed_tree(grads_by_rank: list, errs_by_rank: list):
