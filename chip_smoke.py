@@ -182,7 +182,22 @@ before the final line):
    limit fails the phase); (c) the dry run at mesh (1, 1) on phase 13's and
    phase 12's own shapes, its predicted peak beside the peak those phases
    measured (``torch.cuda.max_memory_allocated``), within
-   ``DRY_PEAK_RATIO``.  No dry-run process initialises CUDA.
+   ``DRY_PEAK_RATIO``.  No dry-run process initialises CUDA.  The cells
+   run with the compute split along ``model`` (the query heads, MLP
+   columns, experts and vocabulary where the plan splits them); each line
+   prints the storage-only split's readings beside its own, and
+   ``qwen3-0.6b`` ``train_4k`` must stay within ``TP_DRY_LIMITS``;
+15. the compute split on a ``(1, 2)`` gloo world of two host processes
+   (one card cannot hold two NCCL ranks): ``qwen3-0.6b`` at its published
+   widths (d 1024, 16 query / 8 KV heads of 128, vocabulary 151936) cut
+   to ``TP_LAYERS`` layers, float32, seeded weights
+   (``launch.serve.init_params_placed``): one ``make_train_step`` on a
+   batch of ``TP_BATCH`` x ``TP_SEQ`` and ``launch.serve.serve``'s
+   prefill plus ``TP_GEN`` greedy tokens, each held to the same run in
+   one process within the CPU tests' tolerances (``TP_TOL``: the loss, the
+   gradient norm, every leaf's gradient, the prefill's logits; tokens
+   equal up to each row's first near-tie).  It replaces no phase on the
+   card.
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
 result line.
@@ -2954,6 +2969,17 @@ DRY_WORKERS = 5
 # 14(c): the dry run's predicted peak against the peaks phases 12 and 13
 # measured must lie within these factors
 DRY_PEAK_RATIO = (0.5, 2.0)
+# 14(b): the same cells' readings under the storage-only split, before
+# the compute split (PERF.md section 6: peak GiB a rank, FLOP a rank,
+# useful-flops ratio; what PERF.md did not record is None)
+DRY_STORAGE_SPLIT = {
+    ("qwen3-0.6b", "train_4k"): (40.644, 4.3953e14, 0.0333),
+    ("qwen3-0.6b", "prefill_32k"): (9.433, None, None),
+    ("qwen3-0.6b", "decode_32k"): (30.081, None, None),
+    ("minicpm3-4b", "decode_32k"): (9.822, None, None)}
+# 14(b): qwen3-0.6b train_4k with the split: at most this FLOP and peak
+# GiB a rank, at least this useful-flops ratio
+TP_DRY_LIMITS = dict(flops=5.5e13, peak_gib=20.3, useful=0.25)
 
 
 def dry_jobs() -> list:
@@ -3109,6 +3135,15 @@ def phase_dry(pool, pending, peak12: dict, peak13: int) -> None:
         line = f"  14b {r['arch']} {r['shape']} {r['mesh']}: {r['status']}"
         if r["status"] == "ok":
             ma, rf = r["memory_analysis"], r["roofline"]
+            if (r["arch"], r["shape"]) == ("qwen3-0.6b", "train_4k"):
+                lim = TP_DRY_LIMITS
+                check(rf["flops"] <= lim["flops"]
+                      and ma["total_per_device"] / 2**30 <= lim["peak_gib"]
+                      and r["useful_flops_ratio"] >= lim["useful"],
+                      f"14b {r['arch']} {r['shape']}: {rf['flops']:.4e} "
+                      f"FLOP, {ma['total_per_device'] / 2**30:.3f} GiB, "
+                      f"useful {r['useful_flops_ratio']:.4f} against "
+                      f"{lim}")
             line += (f" in {r['seconds']:.1f} s; per rank "
                      f"{ma['total_per_device'] / 2**30:.3f} GiB peak "
                      f"(arguments {ma['argument_size_in_bytes'] / 2**30:.3f}"
@@ -3117,9 +3152,15 @@ def phase_dry(pool, pending, peak12: dict, peak13: int) -> None:
                      f" (compute {rf['compute_s']:.4f} s, memory "
                      f"{rf['memory_s']:.4f} s, collective "
                      f"{rf['collective_s']:.4f} s); useful flops "
-                     f"{r['useful_flops_ratio']:.4f}")
+                     f"{r['useful_flops_ratio']:.4f}; collective bytes "
+                     f"{r['coll_bytes']}")
             if "cache_seq_replicated" in r:
                 line += f"; cache_seq_replicated {r['cache_seq_replicated']}"
+            was = [("not recorded" if v is None else f"{v:g}") for v in
+                   DRY_STORAGE_SPLIT.get((r["arch"], r["shape"]),
+                                         (None,) * 3)]
+            line += (f" [storage-only split: peak {was[0]} GiB, {was[1]} "
+                     f"FLOP, useful flops {was[2]}]")
         elif r["status"] == "skipped":
             line += f" ({r['reason']})"
         else:
@@ -3149,6 +3190,209 @@ def phase_dry(pool, pending, peak12: dict, peak13: int) -> None:
     print(f"  14 dry run: {len(recs)} jobs in {DRY_WORKERS} background "
           f"processes; waited {waited:.1f} s for them after 14(a)",
           flush=True)
+
+# -- phase 15: the compute split on a (1, 2) gloo world of host processes ------
+
+TP_ARCH, TP_LAYERS = "qwen3-0.6b", 2
+TP_BATCH, TP_SEQ, TP_GEN = 2, 256, 8
+TP_THREADS = 4            # torch threads of each of the two ranks
+# the CPU tests' tolerances for one train step and for serving
+# (tests/test_torch_tp.py): the loss and the gradient norm relative to
+# their own magnitude; every leaf's gradient (``m``: AdamW's first moment
+# after one step from zero, (1 - b1) times the clipped gradient) and
+# ``v`` each relative to the leaf's largest value; the prefill's logits
+# relative to the largest logit; greedy tokens equal up to each row's
+# first near-tie (top-two margin below ``tie`` of the logits' scale).
+# The stepped parameters are printed, not held: after one step from a
+# zero AdamW state every element moves by about the learning rate in the
+# sign of its gradient, so an element whose gradient is at rounding level
+# may move either way in the two runs.
+TP_TOL = dict(loss=3e-7, norm=6.3e-7, m=3e-6, v=3.3e-5, logits=1.6e-6,
+              tie=2e-5)
+
+
+def tp_arch():
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(TP_ARCH), n_layers=TP_LAYERS,
+                               params_dtype="float32",
+                               compute_dtype="float32")
+
+
+def tp_run(mesh):
+    """Phase 15's work on ``mesh`` (a built ``DeviceMesh``, or ``None``:
+    one process): one train step from the seeded weights, then serving.
+    Returns a dict: ``params0`` (the weights, this rank's shards),
+    ``loss``, ``norm``, the stepped ``params``, ``m`` and ``v``, the
+    prefill's ``logits`` of this rank's rows, the ``tokens`` (whole) and
+    the ``seconds``."""
+    from repro_torch.configs import plan_for_mesh
+    from repro_torch.data.pipeline import (DataConfig, batch_spec,
+                                           device_batch, host_batch)
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.serve import (init_params_placed, serve,
+                                          serve_inputs)
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.parallel.shard import as_rank_mesh, batch_rows, set_mesh
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    t = time.perf_counter()
+    arch = tp_arch()
+    plan = plan_for_mesh(mesh if mesh is not None else MeshSpec.local())
+    rm = as_rank_mesh(mesh)
+    params = init_params_placed(arch, plan, LM_SEED, mesh, "cpu")
+    opt_cfg = OptConfig(peak_lr=1e-3, warmup_steps=2)
+    hb = host_batch(DataConfig(arch.vocab_size, TP_SEQ, TP_BATCH), 0, arch)
+    with set_mesh(rm):
+        p, st, met = make_train_step(arch, plan, opt_cfg)(
+            params, init_opt_state(params, opt_cfg),
+            device_batch(hb, mesh, plan, "cpu", arch.grad_accum))
+    tokens, _ = serve(arch, mesh if mesh is not None else MeshSpec.local(),
+                      plan, batch=TP_BATCH, prompt_len=TP_SEQ, gen=TP_GEN,
+                      seed=LM_SEED, params=params, device="cpu")
+    inp = {k: batch_rows(v, batch_spec(k, v.shape, plan), rm)
+           for k, v in serve_inputs(arch, batch=TP_BATCH, prompt_len=TP_SEQ,
+                                    seed=LM_SEED, device="cpu").items()}
+    with set_mesh(rm):
+        _, logits = make_prefill_step(arch, plan, TP_SEQ)(params, inp)
+    return dict(params0=params, loss=float(met["loss"]),
+                norm=float(met["grad_norm"]), params=p, m=st["m"],
+                v=st["v"], logits=logits, tokens=tokens,
+                seconds=time.perf_counter() - t)
+
+
+def tp_margins(params) -> np.ndarray:
+    """(batch, gen) top-two logit margins over the logits' scale of the
+    one-process greedy run on the whole ``params`` (its own tokens fed
+    back)."""
+    from repro_torch.configs import NO_SHARDING
+    from repro_torch.launch.serve import serve_inputs
+    from repro_torch.models import decode_step, prefill
+    arch = tp_arch()
+    inp = serve_inputs(arch, batch=TP_BATCH, prompt_len=TP_SEQ, seed=LM_SEED,
+                       device="cpu")
+    with torch.no_grad():
+        cache, logits = prefill(params, inp, arch, NO_SHARDING, TP_SEQ)
+        out = []
+        for _ in range(TP_GEN):
+            lg = logits[:, -1].double()
+            top = torch.topk(lg, 2, dim=-1).values
+            out.append(((top[:, 0] - top[:, 1]) / lg.abs().amax(-1)).numpy())
+            tok = lg.argmax(-1).to(torch.int32)[:, None]
+            cache, logits = decode_step(params, cache, tok, arch, NO_SHARDING)
+    return np.stack(out, axis=1)
+
+
+def tp_rank_job(rank: int, store: str, plain_path: str, out_q) -> None:
+    """One rank of phase 15's world: the split run, then each leaf's
+    largest gap to the one-process run (``plain_path``) on this rank's
+    shard, beside the whole leaf's largest value."""
+    import torch.distributed as dist
+    torch.set_num_threads(TP_THREADS)
+    from repro_torch.launch.mesh import MeshSpec, init_world
+    from repro_torch.models import param_defs
+    from repro_torch.models.layers import flatten, specs_of
+    from repro_torch.configs import plan_for_mesh
+    from repro_torch.parallel.shard import RankMesh, shard_of
+    try:
+        init_world("gloo", f"file://{store}", rank=rank, world_size=2,
+                   timeout_s=600)
+        mesh = MeshSpec((1, 2), ("data", "model")).build("cpu")
+        got = tp_run(mesh)
+        want = torch.load(plain_path, mmap=True)
+        rm = RankMesh.of(mesh)
+        specs = flatten(specs_of(param_defs(tp_arch()), plan_for_mesh(mesh)))
+        gaps = {}
+        for part in ("params", "m", "v"):
+            mine, whole = flatten(got[part]), flatten(want[part])
+            gaps[part] = {k: (float((mine[k] - shard_of(whole[k], specs[k], rm))
+                                    .abs().max()),
+                              float(whole[k].abs().max())) for k in whole}
+        lg = got["logits"][:, -1].double()
+        ref = want["logits"][:, -1].double()
+        gaps["logits"] = {"last": (float((lg - ref).abs().max()),
+                                   float(ref.abs().max()))}
+        out_q.put((rank, dict(loss=got["loss"], norm=got["norm"], gaps=gaps,
+                              tokens=got["tokens"].numpy(),
+                              seconds=got["seconds"])))
+        dist.destroy_process_group()
+    except Exception:
+        import traceback
+        out_q.put((rank, traceback.format_exc()))
+
+
+def phase_tp() -> None:
+    """15: the split run on a ``(1, 2)`` gloo world against one process."""
+    import multiprocessing
+    import queue
+    import shutil
+    import tempfile
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="tp15-", dir=root)
+    try:
+        t = time.perf_counter()
+        plain = tp_run(None)
+        plain_path = f"{work}/plain.pt"
+        torch.save({k: plain[k] for k in ("params", "m", "v", "logits")},
+                   plain_path)
+        margin = tp_margins(plain["params0"])
+        t_plain = time.perf_counter() - t
+        ctx = multiprocessing.get_context("spawn")
+        out_q = ctx.Queue()
+        procs = [ctx.Process(target=tp_rank_job,
+                             args=(r, f"{work}/store", plain_path, out_q))
+                 for r in range(2)]
+        t = time.perf_counter()
+        for pr in procs:
+            pr.start()
+        res = {}
+        try:
+            for _ in procs:
+                r, val = out_q.get(timeout=600)
+                res[r] = val
+        except queue.Empty:
+            res["timeout"] = "a rank gave no result in 600 s"
+        for pr in procs:
+            pr.join(timeout=30)
+            if pr.is_alive():
+                pr.terminate()
+                pr.join()
+        t_world = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    errors = [v for v in res.values() if isinstance(v, str)]
+    check(not errors and len(res) == 2, f"15: {errors}")
+    tol = TP_TOL
+    gaps = {}
+    for r in (0, 1):
+        got = res[r]
+        for k in ("loss", "norm"):
+            gaps.setdefault(k, []).append(abs(got[k] - plain[k])
+                                          / abs(plain[k]))
+        for part, leaf in got["gaps"].items():
+            for k, (d, scale) in leaf.items():
+                gaps.setdefault(part, []).append(d / max(scale, 1e-30))
+        want = plain["tokens"].numpy()
+        for b in range(TP_BATCH):
+            ties = np.flatnonzero(margin[b] < tol["tie"])
+            upto = int(ties[0]) + 1 if ties.size else TP_GEN
+            check(np.array_equal(got["tokens"][b, :upto], want[b, :upto]),
+                  f"15 rank {r} row {b}: tokens {got['tokens'][b]} against "
+                  f"one process {want[b]} (first near-tie at {upto - 1})")
+    worst = {k: max(v) for k, v in gaps.items()}
+    line = " ".join(f"{k} {v:.3e}" for k, v in worst.items())
+    for k in worst.keys() & tol.keys():
+        check(worst[k] <= tol[k],
+              f"15 {k}: gap {worst[k]:.3e} > {tol[k]} (gaps {line})")
+    print(f"  15 {TP_ARCH} at published widths, {TP_LAYERS} layers, float32,"
+          f" batch {TP_BATCH} x {TP_SEQ}, gen {TP_GEN}: a (1, 2) gloo world "
+          f"of two host processes ({TP_THREADS} threads each) against one "
+          f"process; loss {res[0]['loss']:.6f} (one process "
+          f"{plain['loss']:.6f}); gaps {line} (limits {tol}; params not "
+          f"held); tokens {plain['tokens'].tolist()}; seconds: "
+          f"one process {t_plain:.1f} (its run {plain['seconds']:.1f}), the "
+          f"world "
+          f"{t_world:.1f} (rank runs {res[0]['seconds']:.1f}, "
+          f"{res[1]['seconds']:.1f})", flush=True)
 
 
 def main() -> int:
@@ -3240,6 +3484,10 @@ def main() -> int:
     t = time.perf_counter()
     phase_dry(pool, pending, peak12, peak13)
     phase("14bc dry-run cells and predicted peaks", t)
+    t = time.perf_counter()
+    phase_tp()
+    phase(f"15 the compute split on a (1, 2) gloo world, {TP_ARCH} at "
+          f"published widths", t)
 
     kernels = []
     # launches: each kernel on its own path (the tile-form select and

@@ -97,6 +97,8 @@ def serve(arch, mesh, plan, *, batch: int, prompt_len: int, gen: int,
     with set_mesh(rm):
         t0 = time.perf_counter()
         cache, logits = prefill(params, batch_in, arch, plan, prompt_len)
+        # whole logits on every rank (gathered over a split vocabulary):
+        # argmax takes the lowest index among equal values, as ever
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         _sync(device)
         t_prefill = time.perf_counter() - t0

@@ -27,7 +27,10 @@ cell: the torch analogue of a ``ShapeDtypeStruct`` with a
 per-rank shape (``sds_tree``) beside its spec (``shardings_of``), so
 nothing is allocated.  A cache is split along its batch dim only: the
 plan's sequence split of a batch-1 cache (``long_500k``) would need
-attention over a sharded sequence, which the port does not have.
+attention over a sharded sequence, which the port does not have.  The
+step a cell meters is the split one: on a dry mesh with a ``model`` axis
+each region computes its own share (``models.model``), so the FLOPs and
+the collectives per rank are those of the split step.
 """
 from __future__ import annotations
 

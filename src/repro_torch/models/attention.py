@@ -18,12 +18,25 @@ Where the reference asks for float32 results of bf16 operands
 (``preferred_element_type``), the port upcasts the operands first: the
 products of bf16 values are exact in float32, so both accumulate the same
 terms in float32.
+
+On a mesh whose ``model`` axis splits the query heads (the reference's
+pin of ``q`` at ``("batch", None, "tp", None)``: ``parallel.shard.
+tp_ranks``), a rank runs its H/m query heads with the KV heads they use,
+on its columns of ``wq`` / ``wk`` / ``wv`` (MLA: ``wq_b`` / ``wkv_b``,
+after the replicated latents) and its rows of ``wo``, whose partial
+products ``reduce_from_model`` sums.  ``*_split`` say how such a block
+gathers its leaves.  The caches keep every KV head on every rank (the
+plan's ``("batch", "seq", None, None)``): a rank's new K / V heads are
+all-gathered over ``model`` before they are written, so the copies stay
+equal.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, ShardingPlan
+from repro_torch.configs.base import NO_SHARDING, ArchConfig, ShardingPlan
+from repro_torch.parallel.shard import (copy_to_model, gather_model,
+                                        reduce_from_model, tp_rank, tp_ranks)
 from .layers import (ParamDef, apply_m_rope, apply_rope, constrain, f32,
                      rms_norm)
 
@@ -146,18 +159,87 @@ def gqa_defs(cfg: ArchConfig, dt: str) -> dict:
     return defs
 
 
+def _kv_keep(n_kv: int, m: int) -> tuple[int, bool]:
+    """``(keep, summed)`` of ``wk`` / ``wv`` when ``m`` ranks split the
+    query heads: each rank's own KV heads, or, where ``m`` exceeds the KV
+    heads, the columns of the one KV head that ``m // n_kv`` consecutive
+    ranks share, gathered among them, its gradient summed over them."""
+    if n_kv % m == 0:
+        return 1, False
+    if m % n_kv == 0:
+        return m // n_kv, True
+    raise NotImplementedError(f"{n_kv} KV heads over {m} model ranks: a "
+                              "rank's query heads would span a KV head "
+                              "boundary")
+
+
+def gqa_split(cfg: ArchConfig, plan: ShardingPlan) -> dict:
+    """``gather_tree``'s split of a GQA block's leaves ({} when the block
+    runs whole on every rank)."""
+    m = tp_ranks(plan, "tp", cfg.n_heads)
+    if m == 1:
+        return {}
+    kv = _kv_keep(cfg.n_kv_heads, m)
+    return {"wq": (1, False), "wo": (1, False), "wk": kv, "wv": kv}
+
+
+def _heads(cfg: ArchConfig, m: int) -> tuple[int, int, int]:
+    """This rank's query heads' count, and its first KV head and their
+    count, under ``m`` ranks of ``model``."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    Hq, G = H // m, H // Hkv
+    _kv_keep(Hkv, m)            # raises where the heads do not nest
+    return Hq, tp_rank() * Hq // G, max(Hq // G, 1)
+
+
+def _kv_cols(w, kv0: int, n: int, hd: int):
+    """The ``wk`` / ``wv`` columns of this rank's ``n`` KV heads from
+    ``kv0``: ``w`` itself when it holds just these (its gathered block),
+    narrowed when it holds every KV head (``model`` replicates it)."""
+    return w if w.shape[-1] == n * hd else w.narrow(-1, kv0 * hd, n * hd)
+
+
+def _kv_heads(t, kv0: int, n: int):
+    """This rank's ``n`` KV heads from ``kv0`` of a (B, S, heads, D) K or V
+    that holds them or every KV head (a cache)."""
+    return t if t.shape[2] == n else t.narrow(2, kv0, n)
+
+
+def kv_whole(t, cfg: ArchConfig, plan: ShardingPlan):
+    """(B, S, Hkv, D) of a rank's KV heads (B, S, n, D): all-gathered over
+    ``model`` (every ``keep``-th block where ``keep`` ranks share a KV
+    head) where ``model`` splits the heads; ``t`` itself where it does
+    not."""
+    m = tp_ranks(plan, "tp", cfg.n_heads)
+    if m == 1:
+        return t
+    keep, _ = _kv_keep(cfg.n_kv_heads, m)
+    g = gather_model(t, 2)
+    return g[:, :, ::keep] if keep > 1 else g
+
+
 def gqa_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
               causal=True, mode="train", cache=None, cache_pos=None,
               pos3=None):
     """mode: train/prefill (blockwise) | decode (ring-buffer cache)."""
     B, S, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    wk, wv = p["wk"], p["wv"]
+    q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+    m = tp_ranks(plan, "tp", H)
+    kv0 = 0
+    if m > 1:        # this rank's heads; replicated inputs enter the split
+        H, kv0, Hkv = _heads(cfg, m)
+        x = copy_to_model(x)
+        wk, wv = _kv_cols(wk, kv0, Hkv, hd), _kv_cols(wv, kv0, Hkv, hd)
+        if cfg.qk_norm:      # applied to this rank's heads only
+            q_norm, k_norm = copy_to_model(q_norm), copy_to_model(k_norm)
     q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    k = (x @ wk).reshape(B, S, Hkv, hd)
+    v = (x @ wv).reshape(B, S, Hkv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
-        k = rms_norm(k, p["k_norm"], cfg.rms_eps)
+        q = rms_norm(q, q_norm, cfg.rms_eps)
+        k = rms_norm(k, k_norm, cfg.rms_eps)
     if cfg.m_rope and pos3 is not None:
         sections = _mrope_sections(hd)
         q = apply_m_rope(q, pos3, sections, cfg.rope_theta)
@@ -171,15 +253,17 @@ def gqa_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
     if mode == "decode":
         S_cache = cache["k"].shape[1]
         slot = cache_pos % S_cache
-        k_cache = _write_slot(cache["k"], k, slot)
-        v_cache = _write_slot(cache["v"], v, slot)
+        k_cache = _write_slot(cache["k"], kv_whole(k, cfg, plan), slot)
+        v_cache = _write_slot(cache["v"], kv_whole(v, cfg, plan), slot)
         n_valid = torch.clamp(cache_pos + 1, max=S_cache)
-        o = _decode_sdpa(q, k_cache, v_cache, scale, n_valid)
+        o = _decode_sdpa(q, _kv_heads(k_cache, kv0, Hkv),
+                         _kv_heads(v_cache, kv0, Hkv), scale, n_valid)
         new_cache = {"k": k_cache, "v": v_cache}
     else:
         o = _blockwise(q, k, v, causal=causal, scale=scale)
         new_cache = None
         if mode == "prefill":
+            k, v = kv_whole(k, cfg, plan), kv_whole(v, cfg, plan)
             if cache is not None:  # write prompt K/V into the cache buffer
                 new_cache = {"k": _write_prefix(cache["k"], k),
                              "v": _write_prefix(cache["v"], v)}
@@ -187,25 +271,44 @@ def gqa_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
                 new_cache = {"k": k.to(torch.bfloat16),
                              "v": v.to(torch.bfloat16)}
     out = o.reshape(B, S, H * hd) @ p["wo"]
+    if m > 1:
+        out = reduce_from_model(out)
     return constrain(out, plan, ("batch", None, "fsdp")), new_cache
 
 
 def gqa_cross_apply(p, x, enc_kv, cfg: ArchConfig, plan: ShardingPlan):
-    """Cross-attention against precomputed encoder K/V (whisper decoder)."""
+    """Cross-attention against precomputed encoder K/V (whisper decoder):
+    ``enc_kv`` holds this rank's KV heads (``encode_kv``) or every KV head
+    (the cache)."""
     B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.head_dim_
+    k, v = enc_kv["k"], enc_kv["v"]
+    m = tp_ranks(plan, "tp", H)
+    if m > 1:
+        H, kv0, n = _heads(cfg, m)
+        x = copy_to_model(x)
+        k, v = _kv_heads(k, kv0, n), _kv_heads(v, kv0, n)
     q = (x @ p["wq"]).reshape(B, S, H, hd)
-    o = _blockwise(q, enc_kv["k"], enc_kv["v"], causal=False,
-                   scale=hd ** -0.5)
+    o = _blockwise(q, k, v, causal=False, scale=hd ** -0.5)
     out = o.reshape(B, S, H * hd) @ p["wo"]
+    if m > 1:
+        out = reduce_from_model(out)
     return constrain(out, plan, ("batch", None, "fsdp"))
 
 
-def encode_kv(p, x_enc, cfg: ArchConfig):
+def encode_kv(p, x_enc, cfg: ArchConfig, plan: ShardingPlan = NO_SHARDING):
+    """The encoder's K/V of this rank's KV heads (every KV head unless
+    ``model`` splits the heads)."""
     B, S, _ = x_enc.shape
     Hkv, hd = cfg.n_kv_heads, cfg.head_dim_
-    return {"k": (x_enc @ p["wk"]).reshape(B, S, Hkv, hd),
-            "v": (x_enc @ p["wv"]).reshape(B, S, Hkv, hd)}
+    wk, wv = p["wk"], p["wv"]
+    m = tp_ranks(plan, "tp", cfg.n_heads)
+    if m > 1:
+        _, kv0, Hkv = _heads(cfg, m)
+        x_enc = copy_to_model(x_enc)
+        wk, wv = _kv_cols(wk, kv0, Hkv, hd), _kv_cols(wv, kv0, Hkv, hd)
+    return {"k": (x_enc @ wk).reshape(B, S, Hkv, hd),
+            "v": (x_enc @ wv).reshape(B, S, Hkv, hd)}
 
 
 def _mrope_sections(head_dim: int) -> tuple[int, int, int]:
@@ -240,33 +343,47 @@ def mla_defs(cfg: ArchConfig, dt: str) -> dict:
     return defs
 
 
-def _mla_q(p, x, cfg: ArchConfig):
+def mla_split(cfg: ArchConfig, plan: ShardingPlan) -> dict:
+    """``gather_tree``'s split of an MLA block's leaves: the head-split
+    ones (the latents ``wq_a``, ``wkv_a`` and their norms run whole)."""
+    if tp_ranks(plan, "tp", cfg.n_heads) == 1:
+        return {}
+    own = (1, False)
+    return {"wkv_b": own, "wo": own,
+            ("wq_b" if cfg.q_lora_rank > 0 else "wq"): own}
+
+
+def _mla_q(p, x, cfg: ArchConfig, split: bool):
     B, S, _ = x.shape
-    H = cfg.n_heads
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
     if cfg.q_lora_rank > 0:
-        q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.rms_eps) @ p["wq_b"]
+        c_q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.rms_eps)
+        q = (copy_to_model(c_q) if split else c_q) @ p["wq_b"]
     else:
-        q = x @ p["wq"]
-    q = q.reshape(B, S, H, nope + rope)
+        q = (copy_to_model(x) if split else x) @ p["wq"]
+    q = q.reshape(B, S, -1, nope + rope)      # this rank's heads
     return q[..., :nope], q[..., nope:]
 
 
 def mla_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
               mode="train", cache=None, cache_pos=None):
     B, S, _ = x.shape
-    H = cfg.n_heads
+    m = tp_ranks(plan, "tp", cfg.n_heads)
+    H = cfg.n_heads // m
     nope, rope, vd, kvl = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
                            cfg.kv_lora_rank)
     scale = (nope + rope) ** -0.5
 
-    q_nope, q_rope = _mla_q(p, x, cfg)
+    q_nope, q_rope = _mla_q(p, x, cfg, m > 1)
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
 
     kv_a = x @ p["wkv_a"]                                 # (B,S,kvl+rope)
     c_kv = rms_norm(kv_a[..., :kvl], p["kv_norm"], cfg.rms_eps)
     k_rope = apply_rope(kv_a[..., kvl:][:, :, None, :], pos,
                         cfg.rope_theta)                   # (B,S,1,rope)
+    # the replicated latents enter the head split (the caches keep them)
+    c_in, r_in = ((copy_to_model(c_kv), copy_to_model(k_rope)) if m > 1
+                  else (c_kv, k_rope))
 
     wkv_b = p["wkv_b"].reshape(kvl, H, nope + vd)
     w_k, w_v = wkv_b[..., :nope], wkv_b[..., nope:]
@@ -290,9 +407,9 @@ def mla_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
         new_cache = {"c_kv": c_cache, "k_rope": r_cache}
     else:
         # materialized K/V + blockwise attention
-        k_nope = torch.einsum("btk,khn->bthn", c_kv, w_k)
-        v = torch.einsum("btk,khv->bthv", c_kv, w_v)
-        k = torch.cat([k_nope, k_rope.expand(B, S, H, rope)], dim=-1)
+        k_nope = torch.einsum("btk,khn->bthn", c_in, w_k)
+        v = torch.einsum("btk,khv->bthv", c_in, w_v)
+        k = torch.cat([k_nope, r_in.expand(B, S, H, rope)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         q = constrain(q, plan, ("batch", None, "tp", None))
         o = _blockwise(q, k, v, causal=True, scale=scale)
@@ -306,4 +423,6 @@ def mla_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
                 new_cache = {"c_kv": c_kv.to(torch.bfloat16),
                              "k_rope": k_rope[:, :, 0].to(torch.bfloat16)}
     out = o.reshape(B, S, H * vd) @ p["wo"]
+    if m > 1:
+        out = reduce_from_model(out)
     return constrain(out, plan, ("batch", None, "fsdp")), new_cache

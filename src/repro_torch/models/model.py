@@ -21,12 +21,21 @@ scan body), so the backward pass keeps one residual per layer; the loss's
 
 On a mesh (``parallel.shard.set_mesh``) the parameters are this rank's
 shards under ``plan.spec`` and the batch (and caches) this rank's rows.
-A layer gathers its whole weights just before it runs and drops them
-after (``parallel.shard.GatherLayer``: all-gather forward, reduce-scatter
+A layer gathers its weights just before it runs and drops them after
+(``parallel.shard.GatherLayer``: all-gather forward, reduce-scatter
 backward), inside the remat region, so the recompute gathers again and
-at most one layer's whole weights are live; the embedding, the final
+at most one layer's gathered weights are live; the embedding, the final
 norms and the unembedding gather the same way.  Without a mesh nothing
 is gathered.
+
+Where the mesh's ``model`` axis splits a region's compute (the query
+heads, the MLP's hidden columns, the experts, the vocabulary: wherever
+``plan.spec`` keeps ``model`` on the activation the reference pins, or,
+for the MLP, on its hidden dim), the region gathers its leaves only over
+the batch axes and runs on its own block (``_block_split``): the
+vocabulary-parallel lookup and cross entropy below, the head split in
+``attention``, the expert split in ``moe``.  ``prefill`` and
+``decode_step`` return logits gathered over ``model``.
 """
 from __future__ import annotations
 
@@ -40,7 +49,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShardingPlan
-from repro_torch.parallel.shard import current_mesh, gather_tree
+from repro_torch.parallel.shard import (copy_to_model, current_mesh,
+                                        gather_model, gather_tree,
+                                        max_over_model, reduce_from_model,
+                                        tp_rank, tp_ranks)
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
@@ -288,13 +300,26 @@ def _apply_mixer(spec: BlockSpec, p, h, pos, cfg, plan, mode, cache,
     raise ValueError(spec.mixer)
 
 
+def _dense_split(spec: BlockSpec, cfg: ArchConfig, plan: ShardingPlan) -> int:
+    """The ``model`` ranks that split a dense FFN's hidden columns (the
+    reference pins no activation there: its split follows the weights'
+    ``("fsdp", "tp")``, as GSPMD propagates it)."""
+    if spec.ffn not in ("swiglu", "geglu", "mlp"):
+        return 1
+    return tp_ranks(plan, "tp", cfg.d_ff)
+
+
 def _apply_ffn(spec: BlockSpec, p, h, cfg, plan, mode, cache):
-    if spec.ffn == "swiglu":
-        return swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0, None
-    if spec.ffn == "geglu":
-        return geglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0, None
-    if spec.ffn == "mlp":
-        return F.gelu(h @ p["w1"], approximate="tanh") @ p["w2"], 0.0, None
+    if spec.ffn in ("swiglu", "geglu", "mlp"):
+        split = _dense_split(spec, cfg, plan) > 1
+        if split:        # column-split up, row-split down
+            h = copy_to_model(h)
+        if spec.ffn == "mlp":
+            y = F.gelu(h @ p["w1"], approximate="tanh") @ p["w2"]
+        else:
+            y = (swiglu if spec.ffn == "swiglu" else geglu)(
+                h, p["w_gate"], p["w_up"], p["w_down"])
+        return (reduce_from_model(y) if split else y), 0.0, None
     if spec.ffn == "moe":
         y, aux = moe_mod.moe_apply(p, h, cfg, plan)
         return y, aux, None
@@ -323,13 +348,13 @@ def apply_block(spec: BlockSpec, p, x, pos, cfg, plan, *, mode,
     if spec.cross:
         h = _apply_norm(p["norm_x"], x, cfg)
         if mode == "train" or (mode == "prefill" and x_enc is not None):
-            enc_kv = attn.encode_kv(p["cross"], x_enc, cfg)
+            enc_kv = attn.encode_kv(p["cross"], x_enc, cfg, plan)
         else:
             enc_kv = {"k": cache["cross"]["k"], "v": cache["cross"]["v"]}
         x = x + attn.gqa_cross_apply(p["cross"], h, enc_kv, cfg, plan)
         if mode == "prefill":
-            new_cache["cross"] = {k: v.to(DTYPES[cfg.compute_dtype])
-                                  for k, v in enc_kv.items()}
+            new_cache["cross"] = {k: attn.kv_whole(v, cfg, plan).to(
+                DTYPES[cfg.compute_dtype]) for k, v in enc_kv.items()}
         elif mode == "decode":
             new_cache["cross"] = cache["cross"]
     h = _apply_norm(p["norm2"], x, cfg)
@@ -345,25 +370,55 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _vocab_split(cfg: ArchConfig, plan: ShardingPlan) -> int:
+    """The ``model`` ranks that split the vocabulary (the logits' pin at
+    ``("batch", None, "tp")``)."""
+    return tp_ranks(plan, "tp", cfg.vocab_padded())
+
+
 def _whole(params, name: str, cfg: ArchConfig, plan: ShardingPlan):
-    """``params[name]`` (a leaf or a subtree) gathered whole on the ambient
-    mesh; as it is without one."""
+    """``params[name]`` (a leaf or a subtree) gathered on the ambient mesh:
+    whole, or, for the (un)embedding of a split vocabulary, this rank's
+    vocabulary block; as it is without a mesh."""
     p = params[name]
     if current_mesh() is None:
         return p
-    return gather_tree(p, specs_of(param_defs(cfg)[name], plan), plan)
+    split = None
+    if name in ("embed", "lm_head") and _vocab_split(cfg, plan) > 1:
+        split = (1, False)
+    return gather_tree(p, specs_of(param_defs(cfg)[name], plan), plan, split)
+
+
+def _block_split(spec: BlockSpec, cfg: ArchConfig, plan: ShardingPlan):
+    """How a block's leaves are gathered where ``model`` splits its
+    regions (``gather_tree``'s split; the SSM mixers and FFN run whole)."""
+    out = {}
+    mixer = {"gqa": attn.gqa_split, "mla": attn.mla_split}.get(spec.mixer)
+    if mixer is not None:
+        out["mixer"] = mixer(cfg, plan)
+    if spec.ffn == "moe":
+        out["ffn"] = moe_mod.moe_split(cfg, plan)
+    elif _dense_split(spec, cfg, plan) > 1:
+        own = (1, False)
+        out["ffn"] = ({"w1": own, "w2": own} if spec.ffn == "mlp" else
+                      {"w_gate": own, "w_up": own, "w_down": own})
+    if spec.cross:
+        out["cross"] = attn.gqa_split(cfg, plan)
+    return out
 
 
 def _gathering(spec: BlockSpec, cfg: ArchConfig, plan: ShardingPlan):
     """``apply_block`` on a mesh: the layer's shards are gathered inside
     it (so a remat region saves the shards and its recompute gathers
-    again)."""
+    again), over ``model`` only where no region of it splits."""
     if current_mesh() is None:
         return apply_block
     specs = specs_of(block_defs(spec, cfg, cfg.params_dtype), plan)
+    split = _block_split(spec, cfg, plan)
 
     def run(spec_, p, *args, **kw):
-        return apply_block(spec_, gather_tree(p, specs, plan), *args, **kw)
+        return apply_block(spec_, gather_tree(p, specs, plan, split), *args,
+                           **kw)
     return run
 
 
@@ -417,20 +472,35 @@ def _stack_trees(trees: list[dict]) -> dict:
 
 
 def _embed(params, tokens, cfg: ArchConfig, plan: ShardingPlan):
-    x = _whole(params, "embed", cfg, plan)[tokens]
+    w = _whole(params, "embed", cfg, plan)
+    if _vocab_split(cfg, plan) > 1:
+        # this rank's vocabulary rows, zero for the others' tokens, summed
+        v0 = tp_rank() * w.shape[0]
+        mine = (tokens >= v0) & (tokens < v0 + w.shape[0])
+        rows = w[torch.where(mine, tokens - v0, 0)]
+        x = reduce_from_model(torch.where(mine[..., None], rows, 0))
+    else:
+        x = w[tokens]
     if cfg.scale_embed:  # gemma convention
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x.to(DTYPES[cfg.compute_dtype])
 
 
 def _unembed(params, x, cfg: ArchConfig, plan: ShardingPlan):
+    """The logits of ``x``, whole (gathered over a split vocabulary)."""
     w = _unembedding(params, cfg, plan)
+    split = _vocab_split(cfg, plan) > 1
+    if split:
+        x = copy_to_model(x)
     logits = torch.einsum("bsd,dv->bsv", x.float(), w.float())
+    if split:
+        logits = gather_model(logits, 2)
     return constrain(logits, plan, ("batch", None, "tp"))
 
 
 def _unembedding(params, cfg: ArchConfig, plan: ShardingPlan):
-    """The (d, V) unembedding: the embedding's transpose when tied."""
+    """The (d, V) unembedding: the embedding's transpose when tied (this
+    rank's V block where ``model`` splits the vocabulary)."""
     if cfg.tie_embeddings:
         return _whole(params, "embed", cfg, plan).T
     return _whole(params, "lm_head", cfg, plan)
@@ -491,20 +561,42 @@ def _xent_sums(xc, w, lc):
     return (lse - gold).sum(), (lse ** 2).sum()
 
 
-def _xent_chunked(x, w, labels, plan: ShardingPlan, chunk: int = 512):
+def _xent_sums_split(xc, w, lc):
+    """``_xent_sums`` of this rank's vocabulary block (columns from
+    ``tp_rank() * Vl``): the log-sum-exp from the max over ``model`` and
+    the sum of the ranks' sums of exp, the gold logit from the rank that
+    holds it."""
+    logits = torch.einsum("bsd,dv->bsv", xc.float(), w.float())
+    mx = max_over_model(logits.amax(-1))
+    lse = mx + torch.log(reduce_from_model(
+        torch.exp(logits - mx[..., None]).sum(-1)))
+    v0 = tp_rank() * logits.shape[-1]
+    mine = (lc >= v0) & (lc < v0 + logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(mine, lc - v0, 0)[
+        ..., None].long())[..., 0]
+    gold = reduce_from_model(torch.where(mine, gold, 0.0))
+    return (lse - gold).sum(), (lse ** 2).sum()
+
+
+def _xent_chunked(x, w, labels, plan: ShardingPlan, chunk: int = 512,
+                  split: bool = False):
     """Sequence-chunked softmax xent: never keeps (B,S,V) logits alive.
 
     Each chunk's (B,c,V) float32 logits are recomputed in the backward
     pass (``torch.utils.checkpoint``), bounding activation memory at
-    (B,chunk,V).  Returns (Σ nll, Σ lse²), each over B·S."""
+    (B,chunk,V/tp): with ``split``, ``w`` is this rank's vocabulary block
+    (``_xent_sums_split``).  Returns (Σ nll, Σ lse²), each over B·S."""
     B, S, d = x.shape
     c = min(chunk, S)
     n = S // c
     assert S % c == 0
+    sums = _xent_sums_split if split else _xent_sums
+    if split:
+        x = copy_to_model(x)
     nll = torch.zeros((), dtype=torch.float32, device=x.device)
     z2 = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
-        a, b = checkpoint(_xent_sums, x[:, i * c:(i + 1) * c], w,
+        a, b = checkpoint(sums, x[:, i * c:(i + 1) * c], w,
                           labels[:, i * c:(i + 1) * c], use_reentrant=False)
         nll, z2 = nll + a, z2 + b
     denom = B * S
@@ -521,7 +613,8 @@ def loss_fn(params, batch, cfg: ArchConfig, plan: ShardingPlan):
     x, aux, _ = backbone(params, tokens, pos, cfg, plan, mode="train",
                          pos3=batch.get("pos3"), batch=batch)
     w = _unembedding(params, cfg, plan)
-    nll, z2 = _xent_chunked(x, w, batch["labels"], plan)
+    nll, z2 = _xent_chunked(x, w, batch["labels"], plan,
+                            split=_vocab_split(cfg, plan) > 1)
     z = 1e-4 * z2
     loss = nll + z + 1e-2 * aux
     return loss, {"nll": nll, "aux": aux, "zloss": z}

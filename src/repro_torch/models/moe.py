@@ -13,6 +13,14 @@ Router: softmax gating over top-k with load-balance + z auxiliary losses,
 in float32.  On a mesh of several batch ranks, training takes the
 load-balance terms over the whole batch (``parallel.shard.batch_mean``), as
 the reference's global arrays do.
+
+On a mesh whose ``model`` axis splits the experts (the reference's pin of
+the dispatch at ``("batch", "exp", None, None)``), each ``model`` rank
+runs its E/m experts on the slots of its own rows (the ``model`` ranks
+hold the same rows, so no all-to-all), adds their gated outputs up, and
+``reduce_from_model`` sums the ranks' partial outputs; the shared experts
+split their hidden columns as the dense MLP does.  The router, its
+top-k and the aux terms run whole on every rank.
 """
 from __future__ import annotations
 
@@ -20,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, ShardingPlan
-from repro_torch.parallel.shard import batch_mean
+from repro_torch.parallel.shard import (batch_mean, copy_to_model,
+                                        reduce_from_model, tp_rank, tp_ranks)
 from .layers import ParamDef, constrain, f32
 
 
@@ -44,6 +53,23 @@ def moe_defs(cfg: ArchConfig, dt: str) -> dict:
     return defs
 
 
+def _shared_ff(cfg: ArchConfig) -> int:
+    return (cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts
+
+
+def moe_split(cfg: ArchConfig, plan: ShardingPlan) -> dict:
+    """``gather_tree``'s split of an MoE block's leaves: the experts where
+    ``model`` splits them, the shared experts where it splits their
+    hidden columns."""
+    own = (1, False)
+    out = {}
+    if tp_ranks(plan, "exp", cfg.n_experts) > 1:
+        out["experts"] = {k: own for k in ("w_gate", "w_up", "w_down")}
+    if cfg.n_shared_experts and tp_ranks(plan, "tp", _shared_ff(cfg)) > 1:
+        out["shared"] = {k: own for k in ("w_gate", "w_up", "w_down")}
+    return out
+
+
 def capacity(n_tokens: int, cfg: ArchConfig) -> int:
     c = int(n_tokens * cfg.n_experts_per_tok * cfg.capacity_factor
             / cfg.n_experts)
@@ -57,11 +83,13 @@ def top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _dispatch_group(xg, idx, E: int, C: int):
+def _dispatch_group(xg, idx, E: int, C: int, experts=None):
     """Sort-based dispatch of the groups. xg (G,T,d), idx (G,T,k).
 
     Returns (dispatched (G, E*C, d), slot, keep, t_sorted, order), the last
-    four (G, T*k)."""
+    four (G, T*k).  ``experts`` = (first, count): only these experts'
+    slots are dispatched (slots numbered from the first's), ``keep`` false
+    for every other assignment."""
     G, T, d = xg.shape
     k = idx.shape[-1]
     dev = xg.device
@@ -75,6 +103,10 @@ def _dispatch_group(xg, idx, E: int, C: int):
     pos_in_e = (torch.arange(T * k, device=dev)
                 - torch.gather(starts, 1, e_sorted))
     keep = pos_in_e < C
+    if experts is not None:
+        e0, E = experts
+        e_sorted = e_sorted - e0
+        keep = keep & (e_sorted >= 0) & (e_sorted < E)
     slot = torch.where(keep, e_sorted * C + pos_in_e, E * C)  # dummy slot
     rows = torch.gather(xg, 1, t_sorted[..., None].expand(G, T * k, d))
     dispatched = torch.zeros((G, E * C + 1, d), dtype=xg.dtype, device=dev)
@@ -110,7 +142,14 @@ def moe_apply(p, x, cfg: ArchConfig, plan: ShardingPlan):
     aux = aux + 1e-3 * zloss
 
     # ---- per-group sort-based dispatch ------------------------------------
-    dispatched, slot, keep, t_sorted, order = _dispatch_group(x, idx, E, C)
+    m = tp_ranks(plan, "exp", E)
+    xe, mine = x, None
+    if m > 1:        # this rank's experts; the replicated input enters
+        E = E // m
+        xe, mine = copy_to_model(x), (tp_rank() * E, E)
+    dispatched, slot, keep, t_sorted, order = _dispatch_group(xe, idx,
+                                                              cfg.n_experts,
+                                                              C, mine)
     h = dispatched.reshape(B, E, C, d)
     h = constrain(h, plan, ("batch", "exp", None, None))
 
@@ -128,15 +167,26 @@ def moe_apply(p, x, cfg: ArchConfig, plan: ShardingPlan):
             B, S * k, d))
     gathered = torch.where(keep[..., None], picked, 0)
     g_sorted = torch.gather(gate.reshape(B, S * k), 1, order)
+    if m > 1:
+        g_sorted = copy_to_model(g_sorted)
     y = torch.zeros((B, S, d), dtype=torch.float32, device=x.device)
     y.scatter_add_(1, t_sorted[..., None].expand(B, S * k, d),
                    f32(gathered) * g_sorted[..., None])
 
+    # the ranks' partial sums (``part``) add up in one all-reduce
+    part, y = (y, 0.0) if m > 1 else (None, y)
     if cfg.n_shared_experts:
         sh = p["shared"]
-        xr = x.reshape(B * S, d)
-        y = y + f32(F.silu(xr @ sh["w_gate"]) * (xr @ sh["w_up"])
-                    @ sh["w_down"]).reshape(B, S, d)
+        split = tp_ranks(plan, "tp", _shared_ff(cfg)) > 1
+        xr = (copy_to_model(x) if split else x).reshape(B * S, d)
+        ys = f32(F.silu(xr @ sh["w_gate"]) * (xr @ sh["w_up"])
+                 @ sh["w_down"]).reshape(B, S, d)
+        if split:
+            part = ys if part is None else part + ys
+        else:
+            y = y + ys
+    if part is not None:
+        y = y + reduce_from_model(part)
 
     y = y.to(x.dtype).reshape(B, S, d)
     return constrain(y, plan, ("batch", None, "fsdp")), aux

@@ -36,6 +36,21 @@ load-balance terms).  Gradients thus leave the backward pass reduced and
 sharded like their parameters, as the reference pins them
 (``constrain_grads``: a reduce-scatter instead of an all-reduce).
 
+On a mesh with a ``model`` axis the model also splits its compute along
+that axis where the reference's plan splits the activation it pins (the
+query heads, the MLP's hidden columns, the experts, the vocabulary):
+``tp_ranks`` says whether a region splits, and a split region gathers its
+leaves only over the axes that it does not split (``gather(...,
+keep=1)``: the batch axes; the ``model`` block of each leaf stays this
+rank's).  Megatron's two region operators bracket such a region:
+``copy_to_model`` (identity forward, a sum over ``model`` backward) where
+a replicated activation or leaf enters it, ``reduce_from_model`` (a sum
+over ``model`` forward, identity backward) where its partial sums leave.
+Where ``model`` exceeds the KV heads, the ranks that share one KV head
+gather its ``wk`` / ``wv`` columns among themselves (``keep=s``, a
+sub-group of ``s`` consecutive ``model`` ranks) and sum their gradients
+(``summed``: a reduce-scatter over that sub-group, not a slice).
+
 No DTensor and no FSDP wrapper: the placement stays visible, leaf by
 leaf, for the tests that hold it to the plan.
 """
@@ -57,6 +72,7 @@ from repro_torch.core.comm import shard_uniform
 # them (``coll_bytes`` keys): bytes are per-rank output bytes
 ALL_GATHER, REDUCE_SCATTER, ALL_REDUCE = ("all-gather", "reduce-scatter",
                                           "all-reduce")
+MODEL = "model"      # the mesh axis of the plan's "tp" and "exp"
 
 
 def spec_axes(entry) -> tuple[str, ...]:
@@ -119,13 +135,16 @@ class RankMesh:
     ``coord``, its ``device``, its process groups by axes (``None`` in a
     dry mesh) and ``log``, a ``CollectiveLog`` or ``None``."""
 
-    def __init__(self, names, sizes, coord, device, groups=None, log=None):
+    def __init__(self, names, sizes, coord, device, groups=None, log=None,
+                 ids=None):
         self.names = tuple(names)
         self.sizes = dict(zip(self.names, (int(s) for s in sizes)))
         self.coord = dict(zip(self.names, (int(c) for c in coord)))
         self.device = torch.device(device)
         self.groups = groups
         self.log = log
+        self.ids = ids           # the mesh's global ranks (a built mesh)
+        self._sub: dict = {}
 
     @property
     def is_dry(self) -> bool:
@@ -185,7 +204,7 @@ class RankMesh:
         dev = (torch.device("cuda", torch.cuda.current_device())
                if mesh.device_type == "cuda"
                else torch.device(mesh.device_type))
-        rm = cls(names, ids.shape, coord, dev, groups)
+        rm = cls(names, ids.shape, coord, dev, groups, ids=ids)
         mesh._repro_rank_mesh = rm
         return rm
 
@@ -219,6 +238,28 @@ class RankMesh:
                            "single axes, the batch axes and all axes")
         return self.groups[key]
 
+    def subgroup(self, axis: str, size: int):
+        """The group of this rank's block of ``size`` consecutive ranks
+        along ``axis`` (the other coordinates fixed).  Made at first use,
+        every block of every rank's at once: the first use must come on
+        every rank at the same point of the program (a new group is a
+        collective call of every rank)."""
+        key = (axis, size)
+        if key not in self._sub:
+            rows = torch.movedim(self.ids, self.names.index(axis), -1)
+            mine = None
+            for row in rows.reshape(-1, rows.shape[-1]).tolist():
+                for b in range(0, len(row), size):
+                    members = row[b:b + size]
+                    g = dist.new_group(members)
+                    if dist.get_rank() in members:
+                        mine, want = g, members
+            if [dist.get_global_rank(mine, i) for i in range(size)] != want:
+                raise ValueError(f"a sub-group of {axis}: its rank order is "
+                                 "not the mesh's coordinate order")
+            self._sub[key] = mine
+        return self._sub[key]
+
     def batch_axes(self, plan) -> tuple[str, ...]:
         """The plan's batch axes that this mesh has."""
         return self.ordered(a for a in plan.batch if a in self.sizes)
@@ -231,9 +272,16 @@ def _record(rm: RankMesh, op: str, out: torch.Tensor) -> None:
         rm.log.add(op, out)
 
 
-def _all_gather(x, rm: RankMesh, axes, dim: int):
-    """Concatenate the ranks' ``x`` along ``dim`` in group order."""
-    n = rm.size(axes)
+def _group(rm: RankMesh, axes, sub: int | None):
+    """The group of ``axes``, or of this rank's block of ``sub`` ranks
+    along the one axis of ``axes``."""
+    return rm.group(axes) if sub is None else rm.subgroup(axes[0], sub)
+
+
+def _all_gather(x, rm: RankMesh, axes, dim: int, sub: int | None = None):
+    """Concatenate the ranks' ``x`` along ``dim`` in group order (the
+    group of ``axes``, or this rank's block of ``sub`` of its ranks)."""
+    n = sub or rm.size(axes)
     if shard_uniform(rm.is_dry):       # the same mesh on every rank
         out = torch.empty(x.shape[:dim] + (n * x.shape[dim],)
                           + x.shape[dim + 1:], dtype=x.dtype, device=x.device)
@@ -242,14 +290,14 @@ def _all_gather(x, rm: RankMesh, axes, dim: int):
     src = torch.movedim(x, dim, 0).contiguous()
     # the ranks' blocks one after another along dim 0
     buf = src.new_empty((n,) + tuple(src.shape)).flatten(0, 1)
-    dist.all_gather_into_tensor(buf, src, group=rm.group(axes))
+    dist.all_gather_into_tensor(buf, src, group=_group(rm, axes, sub))
     _record(rm, ALL_GATHER, buf)
     return torch.movedim(buf, 0, dim).contiguous()
 
 
-def _reduce_scatter(x, rm: RankMesh, axes, dim: int):
+def _reduce_scatter(x, rm: RankMesh, axes, dim: int, sub: int | None = None):
     """Sum over the group, each rank keeping its block of ``dim``."""
-    n = rm.size(axes)
+    n = sub or rm.size(axes)
     blocks = torch.movedim(x, dim, 0).unflatten(0, (n, -1))
     if shard_uniform(rm.is_dry):
         out = torch.movedim(torch.empty_like(blocks[0]), 0, dim)
@@ -257,29 +305,53 @@ def _reduce_scatter(x, rm: RankMesh, axes, dim: int):
         return out
     buf = blocks.new_empty(blocks.shape[1:])         # contiguous
     dist.reduce_scatter_tensor(buf, blocks.flatten(0, 1).contiguous(),
-                               op=dist.ReduceOp.SUM, group=rm.group(axes))
+                               op=dist.ReduceOp.SUM,
+                               group=_group(rm, axes, sub))
     _record(rm, REDUCE_SCATTER, buf)
     return torch.movedim(buf, 0, dim).contiguous()
 
 
-def all_reduce(x, rm: RankMesh, axes):
-    """The sum of ``x`` over the group of ``axes`` (a new tensor)."""
+def all_reduce(x, rm: RankMesh, axes, op=dist.ReduceOp.SUM):
+    """The sum (or ``op``) of ``x`` over the group of ``axes`` (a new
+    tensor)."""
     if shard_uniform(rm.is_dry):
         out = torch.empty_like(x)
         _record(rm, ALL_REDUCE, out)
         return out
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=rm.group(axes))
+    dist.all_reduce(out, op=op, group=rm.group(axes))
     _record(rm, ALL_REDUCE, out)
     return out
 
 
 # ---------------------------------------------------------------- shards --
 
-def _block(t: torch.Tensor, rm: RankMesh, axes, dim: int) -> torch.Tensor:
-    """This rank's block of ``dim`` split over ``axes`` (a view)."""
-    step = t.shape[dim] // rm.size(axes)
-    return t.narrow(dim, rm.index(axes) * step, step)
+def _block(t: torch.Tensor, rm: RankMesh, axes, dim: int,
+           sub: int | None = None) -> torch.Tensor:
+    """This rank's block of ``dim`` split over ``axes`` (or over its block
+    of ``sub`` ranks of the one axis of ``axes``; a view)."""
+    n = sub or rm.size(axes)
+    step = t.shape[dim] // n
+    return t.narrow(dim, rm.index(axes) % n * step, step)
+
+
+def _model_dims(spec, rm: RankMesh, keep: int | None):
+    """Per dim of ``spec``: (its axes, ``sub``, skip) under ``keep``, the
+    count of consecutive ``model`` ranks whose blocks a region gathers
+    (``None``: all of them, as every other axis).  ``skip``: the dim's
+    ``model`` block is this rank's alone (``keep == 1``)."""
+    for dim, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if not axes:
+            continue
+        if keep is None or MODEL not in axes:
+            yield dim, axes, None, False
+            continue
+        if axes != (MODEL,):
+            raise ValueError(f"spec entry {entry}: a compute split of "
+                             f"{MODEL} with other axes on one dim")
+        n = rm.sizes[MODEL]
+        yield dim, axes, (keep if 1 < keep < n else None), keep == 1
 
 
 def shard_of(t: torch.Tensor, spec, rm: RankMesh) -> torch.Tensor:
@@ -294,33 +366,40 @@ def shard_of(t: torch.Tensor, spec, rm: RankMesh) -> torch.Tensor:
     return t.contiguous().clone()
 
 
-def unshard(t: torch.Tensor, spec, rm: RankMesh) -> torch.Tensor:
+def unshard(t: torch.Tensor, spec, rm: RankMesh,
+            keep: int | None = None) -> torch.Tensor:
     """The whole tensor from every rank's block: an all-gather over the
-    group of each sharded dim."""
-    for dim, entry in enumerate(spec):
-        axes = spec_axes(entry)
-        if axes:
-            t = _all_gather(t, rm, axes, dim)
+    group of each sharded dim.  ``keep``: a compute split's gather (the
+    blocks of ``keep`` consecutive ``model`` ranks, ``_model_dims``)."""
+    for dim, axes, sub, skip in _model_dims(spec, rm, keep):
+        if not skip:
+            t = _all_gather(t, rm, axes, dim, sub)
     return t
 
 
-def reduce_grad(g: torch.Tensor, spec, rm: RankMesh, batch) -> torch.Tensor:
-    """The gradient of a shard from the whole leaf's gradient ``g`` on
-    this rank: reduced over ``batch`` (mean), kept to this rank's block."""
+def reduce_grad(g: torch.Tensor, spec, rm: RankMesh, batch,
+                keep: int | None = None, summed: bool = False) -> torch.Tensor:
+    """The gradient of a shard from the gathered leaf's gradient ``g`` on
+    this rank: reduced over ``batch`` (mean), kept to this rank's block.
+    Ranks of another axis that gathered the same block hold the same
+    gradient (sliced), or, with ``summed``, partial sums of it (summed: a
+    reduce-scatter, or an all-reduce over ``model`` for a leaf that
+    ``model`` replicates)."""
     used: set = set()
-    for dim, entry in enumerate(spec):
-        axes = spec_axes(entry)
-        if not axes:
-            continue
+    for dim, axes, sub, skip in _model_dims(spec, rm, keep):
         used.update(axes)
         inb = [a in batch for a in axes]
+        if skip:               # this rank's block alone: nothing to reduce
+            continue
         if not any(inb):       # the same gradient on these ranks: slice
-            g = _block(g, rm, axes, dim)
+            g = (_reduce_scatter if summed else _block)(g, rm, axes, dim, sub)
         elif all(inb):
             g = _reduce_scatter(g, rm, axes, dim)
         else:
-            raise ValueError(f"spec entry {entry} mixes batch and other "
+            raise ValueError(f"spec entry {spec[dim]} mixes batch and other "
                              "mesh axes")
+    if summed and MODEL in rm.sizes and MODEL not in used:
+        g = all_reduce(g, rm, (MODEL,))
     rest = tuple(a for a in batch if a not in used)
     if rest:
         g = all_reduce(g, rm, rest)
@@ -331,13 +410,15 @@ class GatherLayer(torch.autograd.Function):
     """``unshard`` forward; ``reduce_grad`` backward."""
 
     @staticmethod
-    def forward(ctx, shard, spec, rm, batch):
+    def forward(ctx, shard, spec, rm, batch, keep=None, summed=False):
         ctx.spec, ctx.rm, ctx.batch = spec, rm, batch
-        return unshard(shard, spec, rm)
+        ctx.keep, ctx.summed = keep, summed
+        return unshard(shard, spec, rm, keep)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_grad(g, ctx.spec, ctx.rm, ctx.batch), None, None, None
+        return (reduce_grad(g, ctx.spec, ctx.rm, ctx.batch, ctx.keep,
+                            ctx.summed), None, None, None, None, None)
 
 
 class _BatchMean(torch.autograd.Function):
@@ -387,20 +468,96 @@ def current_mesh() -> RankMesh | None:
     return _MESH.get()
 
 
-def gather(t: torch.Tensor, spec, plan) -> torch.Tensor:
+def gather(t: torch.Tensor, spec, plan, keep: int | None = None,
+           summed: bool = False) -> torch.Tensor:
     """The whole leaf of this rank's shard ``t`` under the ambient mesh
-    (``t`` itself without one)."""
+    (``t`` itself without one); ``keep`` / ``summed``: a compute split's
+    gather (``unshard``, ``reduce_grad``)."""
     rm = current_mesh()
     if rm is None:
         return t
-    return GatherLayer.apply(t, tuple(spec), rm, rm.batch_axes(plan))
+    return GatherLayer.apply(t, tuple(spec), rm, rm.batch_axes(plan), keep,
+                             summed)
 
 
-def gather_tree(tree, specs, plan):
-    """``gather`` over a nested dict and its spec tree."""
+def gather_tree(tree, specs, plan, split=None):
+    """``gather`` over a nested dict and its spec tree; ``split``, a
+    nested dict of the same paths, holds a leaf's ``(keep, summed)``
+    where a compute split gathers it (every other leaf whole)."""
     if isinstance(tree, dict):
-        return {k: gather_tree(v, specs[k], plan) for k, v in tree.items()}
-    return gather(tree, specs, plan)
+        split = split or {}
+        return {k: gather_tree(v, specs[k], plan, split.get(k))
+                for k, v in tree.items()}
+    return gather(tree, specs, plan, *(split or ()))
+
+
+# ------------------------------------------------- the compute split --
+
+def tp_ranks(plan, logical: str, n: int) -> int:
+    """The ``model`` ranks that split a region whose pinned activation has
+    a dim of ``n`` on ``logical`` (``"tp"``, ``"exp"``): the ambient
+    mesh's ``model`` size where ``plan.spec`` keeps ``model`` on that dim,
+    else 1 (no mesh, no ``model`` axis, or a dim it does not divide)."""
+    rm = current_mesh()
+    if rm is None or rm.sizes.get(MODEL, 1) == 1:
+        return 1
+    # the mesh's geometry and a config's dim: the same on every rank
+    return shard_uniform(rm.sizes[MODEL] if MODEL in spec_axes(
+        plan.spec((logical,), (n,))[0]) else 1)
+
+
+def tp_rank() -> int:
+    """This rank's ``model`` coordinate on the ambient mesh."""
+    return current_mesh().coord[MODEL]
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the sum over ``model`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, rm):
+        ctx.rm = rm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.rm, (MODEL,)), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over ``model`` forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, rm):
+        return all_reduce(x, rm, (MODEL,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Where a replicated ``x`` enters a region split over ``model``: each
+    rank's gradient of ``x`` is a partial sum, summed here."""
+    return _CopyToModel.apply(x, current_mesh())
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the ``model`` ranks' partial ``x`` (a split region's
+    output)."""
+    return _ReduceFromModel.apply(x, current_mesh())
+
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``model`` (no gradient)."""
+    return all_reduce(x.detach(), current_mesh(), (MODEL,),
+                      op=dist.ReduceOp.MAX)
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ``model`` ranks' ``x`` concatenated along ``dim`` in rank order
+    (no gradient: serving's logits and cache writes)."""
+    return _all_gather(x.detach(), current_mesh(), (MODEL,), dim)
 
 
 def batch_mean(x: torch.Tensor, plan) -> torch.Tensor:

@@ -334,3 +334,79 @@ def example_train(shape, axes, path: str, steps: int):
     params, _ = tr.init_state()
     return ([h["loss"] for h in tr.history], tr.restarts,
             tuple(params["embed"].shape))
+
+
+def tp_run(shape, axes, name: str, params: dict, batches: list, opt: dict,
+           serve_kw: dict):
+    """The compute split on the mesh from the whole numpy ``params``:
+    ``train``'s dict, plus the gradients of ``loss_fn`` at ``params`` on
+    ``batches[0]`` gathered (``grads``), and greedy serving through
+    ``launch.serve.serve`` on this rank's shards (``serve_kw``: batch,
+    prompt_len, gen, seed): the tokens and the prefill step's last logits,
+    gathered (``tokens``, ``logits``)."""
+    from repro_torch.configs import plan_for_mesh
+    from repro_torch.data.pipeline import batch_spec, device_batch
+    from repro_torch.launch.serve import serve, serve_inputs
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import loss_fn, param_defs, params_from_numpy
+    from repro_torch.models.layers import specs_of
+    from repro_torch.parallel.shard import (batch_rows, map_tree, set_mesh,
+                                            shard_of, unshard)
+    from repro_torch.train.optimizer import value_and_grad
+    m = mesh(tuple(shape), tuple(axes))
+    rm = _rm(shape, axes)
+    cfg = _arch(name)
+    plan = plan_for_mesh(m)
+    specs = specs_of(param_defs(cfg), plan)
+    p = map_tree(lambda t, sp: shard_of(t, sp, rm),
+                 params_from_numpy(params, "cpu"), specs)
+    b = device_batch(batches[0], m, plan, grad_accum=cfg.grad_accum)
+    with set_mesh(rm):
+        _, _, g = value_and_grad(lambda pp, bb: loss_fn(pp, bb, cfg, plan),
+                                 p, b)
+    out = train(shape, axes, name, params, batches, opt)
+    out["grads"] = _np(_gathered(g, specs, rm))
+    tokens, _ = serve(cfg, m, plan, params=p, device="cpu", **serve_kw)
+    inp = {k: batch_rows(v, batch_spec(k, v.shape, plan), rm)
+           for k, v in serve_inputs(cfg, batch=serve_kw["batch"],
+                                    prompt_len=serve_kw["prompt_len"],
+                                    seed=serve_kw["seed"],
+                                    device="cpu").items()}
+    with set_mesh(rm):
+        _, logits = make_prefill_step(cfg, plan, serve_kw["prompt_len"])(
+            p, inp)
+    whole = (serve_kw["batch"],) + tuple(logits.shape[1:])
+    out["logits"] = unshard(logits, plan.spec(("batch", None, None), whole),
+                            rm).numpy()
+    out["tokens"] = tokens.numpy()
+    return out
+
+
+def tp_ops(shape, axes):
+    """The region operators and a compute split's gather on the mesh, each
+    ``model`` rank r weighting its share by r + 1: (``copy_to_model``'s
+    gradient of ones, ``reduce_from_model`` of r + 1, a ``keep=2,
+    summed`` gather of a (2, 8) leaf split over ``model`` and its
+    gradient, a ``keep=1`` gather and its gradient, the coordinate)."""
+    import torch
+    from repro_torch.configs import plan_for_mesh
+    from repro_torch.parallel.shard import (copy_to_model, gather,
+                                            reduce_from_model, set_mesh,
+                                            shard_of)
+    m = mesh(tuple(shape), tuple(axes))
+    rm = _rm(shape, axes)
+    plan = plan_for_mesh(m)
+    wgt = float(rm.coord["model"] + 1)
+    x = torch.ones(3, requires_grad=True)
+    whole = torch.arange(16, dtype=torch.float32).reshape(2, 8)
+    spec = (None, "model")
+    out = []
+    with set_mesh(rm):
+        (gx,) = torch.autograd.grad((copy_to_model(x) * wgt).sum(), [x])
+        out += [gx.numpy(), reduce_from_model(torch.full((3,), wgt)).numpy()]
+        for keep, summed in ((2, True), (1, False)):
+            w = shard_of(whole, spec, rm).requires_grad_(True)
+            got = gather(w, spec, plan, keep, summed)
+            (gw,) = torch.autograd.grad((got * wgt).sum(), [w])
+            out += [got.detach().numpy(), gw.numpy()]
+    return (*out, dict(rm.coord))
