@@ -177,7 +177,7 @@ before the final line):
    restored bitwise; (b) ``launch.dryrun.dryrun_cell`` on ``pod16x16`` for
    ``qwen3-0.6b`` x the four shapes and ``minicpm3-4b`` x ``decode_32k``
    (``meta`` tensors only, in ``DRY_WORKERS`` background processes
-   started before phase 13, each cell limited to ``DRY_LIMIT_S``), with
+   started before phase 12, each cell limited to ``DRY_LIMIT_S``), with
    each cell's seconds, every cell ``ok`` or ``skipped`` (a cell past its
    limit fails the phase); (c) the dry run at mesh (1, 1) on phase 13's and
    phase 12's own shapes, its predicted peak beside the peak those phases
@@ -197,7 +197,39 @@ before the final line):
    one process within the CPU tests' tolerances (``TP_TOL``: the loss, the
    gradient norm, every leaf's gradient, the prefill's logits; tokens
    equal up to each row's first near-tie).  It replaces no phase on the
-   card.
+   card;
+16. the sub-quadratic models on a mesh (``models.ssm``'s split of RWKV-6's
+   heads, its channel mix and Mamba's ``di`` along ``model``; caches
+   stored by the plan's spec of every dim; decode over a cache whose
+   slots are split over ``data``; plain PyTorch, no TPU kernel): (a)
+   ``rwkv6-1.6b`` at its published width and depth (24 layers, d 2048,
+   d_ff 7168, vocabulary 65536) in bf16 on the card: served as phase 12
+   serves (batch 8, prompt 512, gen 64, the decode equivalence within
+   ``LM_BF16_TOL``), then a cold step and four warm ones (the last
+   profiled) of ``make_train_step`` at 8 x 1024 (remat, float32 AdamW):
+   step seconds,
+   tokens/s, the model-flops share, device idle and top consumers of a
+   profiled warm step, peak memory; (b) the SSM split on a ``(1, 2)``
+   gloo world of two host processes against one process, as phase 15:
+   ``rwkv6-1.6b``'s published widths cut to 2 layers and
+   ``jamba-v0.1-52b``'s cut to its first layer (Mamba with d 4096, di
+   8192, d_state 16, dt_rank 256, and its dense SwiGLU), float32, seeded
+   weights, one microbatch, batch 2 x ``SPLIT_SEQ``; the loss, the gradient norm, every leaf's
+   gradient (AdamW's m) and the prefill's logits within the CPU tests'
+   tolerances (``SSM_SPLIT_TOL``), tokens equal up to each row's first
+   near-tie, after a check of the host's free memory; (c) batch-1
+   serving of ``qwen3-0.6b``'s published widths cut to 2 layers, float32,
+   a ``SEQ_PROMPT``-token prompt in a ``SEQ_CACHE``-slot cache and
+   ``SEQ_GEN`` greedy tokens, on a ``(2, 1)`` gloo world (the cache's
+   slots split over ``data``) against one process fed the same tokens:
+   the gathered cache bitwise after the prefill and in the first layer
+   after the decode, the rest and the logits within ``SEQ_TOL``, the
+   tokens equal; (d) the dry cells ``SSM_DRY_CELLS`` (``rwkv6-1.6b`` x the
+   four shapes, ``jamba-v0.1-52b`` x ``decode_32k`` and ``long_500k`` on
+   ``pod16x16``; started before phase 12, beside phases 12-16(a)) beside PR
+   24's readings (``SSM_DRY_PR24``), within ``SSM_DRY_LIMITS``, every
+   decode cell's ``cache_seq_replicated`` false.  They run in the order
+   16(a), 14(b, c), 16(d), 15, 16(b), 16(c).
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
 result line.
@@ -2516,8 +2548,9 @@ def lm_decode_equivalence(M, arch, params, inputs, first, plan) -> tuple:
     return rel_err(got, want), agree, finite
 
 
-def lm_full(dev, name: str) -> int:
-    """12(a)/(b): one architecture at its published width and depth."""
+def lm_full(dev, name: str, label: str = "12") -> int:
+    """12(a)/(b) (16(a): ``label``): one architecture at its published
+    width and depth, served."""
     from repro_torch.configs import get_arch, plan_for_mesh
     from repro_torch.launch import serve as S
     from repro_torch.launch.mesh import MeshSpec
@@ -2535,45 +2568,45 @@ def lm_full(dev, name: str) -> int:
     leaves = flatten(params).values()
     n = sum(p.numel() for p in leaves)
     w_bytes = sum(p.numel() * p.element_size() for p in leaves)
-    check(n == arch.n_params(), f"12 {name}: {n} parameters, the table says "
+    check(n == arch.n_params(), f"{label} {name}: {n} parameters, the table says "
           f"{arch.n_params()}")
     torch.cuda.reset_peak_memory_stats()
     kw = dict(batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, seed=LM_SEED,
               params=params, device=dev)
     runs = [S.serve(arch, mesh, plan, **kw) for _ in range(2)]  # cold, warm
     tokens = runs[1][0]
-    check(torch.equal(runs[0][0], tokens), f"12 {name}: the warm serve gave "
+    check(torch.equal(runs[0][0], tokens), f"{label} {name}: the warm serve gave "
           "other tokens than the cold one")
     check(tokens.shape == (LM_BATCH, LM_GEN) and int(tokens.min()) >= 0
           and int(tokens.max()) < arch.vocab_padded(),
-          f"12 {name}: tokens {tuple(tokens.shape)} out of range")
+          f"{label} {name}: tokens {tuple(tokens.shape)} out of range")
     inputs = S.serve_inputs(arch, batch=LM_BATCH, prompt_len=LM_PROMPT,
                             seed=LM_SEED, device=dev)
     err, agree, finite = lm_decode_equivalence(M, arch, params, inputs,
                                                tokens[:, :1], plan)
     peak = torch.cuda.max_memory_allocated()
     dt = lm_device_time(M, arch, plan, params, inputs, tokens)
-    check(finite, f"12 {name}: non-finite logits")
-    check(err <= LM_BF16_TOL, f"12 {name}: prefill + decode against the "
+    check(finite, f"{label} {name}: non-finite logits")
+    check(err <= LM_BF16_TOL, f"{label} {name}: prefill + decode against the "
           f"full forward {err:.3e} > {LM_BF16_TOL}")
     bound_ms = w_bytes / HBM_BYTES_PER_S * 1e3
-    for label, (_, st) in zip(("cold", "warm"), runs):
+    for run, (_, st) in zip(("cold", "warm"), runs):
         step_ms = st["decode_s"] / (LM_GEN - 1) * 1e3
-        print(f"  12 {name} {label}: prefill {st['prefill_s']:.4f} s, decode "
+        print(f"  {label} {name} {run}: prefill {st['prefill_s']:.4f} s, decode "
               f"{st['decode_s']:.4f} s ({step_ms:.3f} ms per step, "
               f"{step_ms / bound_ms:.1f}x the weight-bytes bound "
               f"{bound_ms:.4f} ms), {st['tok_per_s']:.1f} tokens/s",
               flush=True)
     warm = runs[1][1]
     warm_step = warm["decode_s"] / (LM_GEN - 1)
-    print(f"  12 {name} device time (profiled): prefill {dt['prefill_s']:.4f}"
+    print(f"  {label} {name} device time (profiled): prefill {dt['prefill_s']:.4f}"
           f" s (idle {1 - dt['prefill_s'] / warm['prefill_s']:.3f} of the "
           f"warm prefill), decode {dt['step_s'] * 1e3:.3f} ms a step (idle "
           f"{1 - dt['step_s'] / warm_step:.3f} of the warm step), "
           f"{dt['step_kernels']:.0f} device kernels a step "
           f"({dt['step_kernels'] / arch.n_layers:.1f} a layer); per decode "
           f"step: {dt['top']}", flush=True)
-    print(f"  12 {name}: {arch.n_layers} layers, d_model {arch.d_model}, "
+    print(f"  {label} {name}: {arch.n_layers} layers, d_model {arch.d_model}, "
           f"vocab {arch.vocab_size} (padded {arch.vocab_padded()}), {n:,} "
           f"parameters, {w_bytes / 1e9:.3f} GB bf16, drawn in {t_init:.3f} s; "
           f"batch {LM_BATCH}, prompt {LM_PROMPT}, gen {LM_GEN}; peak "
@@ -3003,7 +3036,8 @@ def dry_job(job) -> dict:
         out = Path(__file__).resolve().parent / "build" / "dryrun"
         rec = dryrun.dryrun_cell(job[1], job[2], multi_pod=False,
                                  out_dir=out, force=True,
-                                 limit_s=DRY_LIMIT_S)
+                                 limit_s=job[3] if len(job) > 3
+                                 else DRY_LIMIT_S)
     else:
         _, name, kind, seq, batch = job
         rec = dryrun.lm_record(get_arch(name),
@@ -3017,10 +3051,13 @@ def dry_job(job) -> dict:
 
 def start_dry():
     """The dry-run jobs in ``DRY_WORKERS`` background processes (CPU only;
-    they run while the card trains in phases 13 and 14(a))."""
+    they run while the card works through phases 12-16(a)): (the pool,
+    16(d)'s cells, 14(b, c)'s jobs)."""
     import multiprocessing
     pool = multiprocessing.get_context("spawn").Pool(DRY_WORKERS)
-    return pool, pool.map_async(dry_job, dry_jobs())
+    ssm = pool.map_async(dry_job, [("cell", a, sh, SSM_DRY_LIMIT_S)
+                                   for a, sh in SSM_DRY_CELLS], chunksize=1)
+    return pool, ssm, pool.map_async(dry_job, dry_jobs(), chunksize=1)
 
 
 def mesh_train(dev, M) -> None:
@@ -3119,14 +3156,15 @@ def mesh_train(dev, M) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_dry(pool, pending, peak12: dict, peak13: int) -> None:
-    """14(b), (c): the dry-run records from the background processes."""
+def phase_dry(pool, pending, early, peak12: dict, peak13: int) -> list:
+    """14(b), (c): the dry-run records from the background processes;
+    returns 16(d)'s (``early``)."""
     t0 = time.perf_counter()
-    recs = pending.get()
+    recs, ssm = pending.get(), early.get()
     pool.close()
     pool.join()
     waited = time.perf_counter() - t0
-    check(not any(r["cuda_initialized"] for r in recs),
+    check(not any(r["cuda_initialized"] for r in recs + ssm),
           "14b: a dry-run job initialised CUDA")
     cells = [r for r in recs if r["job"][0] == "cell"]
     for r in cells:
@@ -3144,23 +3182,8 @@ def phase_dry(pool, pending, peak12: dict, peak13: int) -> None:
                       f"FLOP, {ma['total_per_device'] / 2**30:.3f} GiB, "
                       f"useful {r['useful_flops_ratio']:.4f} against "
                       f"{lim}")
-            line += (f" in {r['seconds']:.1f} s; per rank "
-                     f"{ma['total_per_device'] / 2**30:.3f} GiB peak "
-                     f"(arguments {ma['argument_size_in_bytes'] / 2**30:.3f}"
-                     f" GiB, fits {ma['fits']}), {rf['flops']:.4e} FLOP, "
-                     f"collectives {r['coll_count']}; roofline {rf['bottleneck']}"
-                     f" (compute {rf['compute_s']:.4f} s, memory "
-                     f"{rf['memory_s']:.4f} s, collective "
-                     f"{rf['collective_s']:.4f} s); useful flops "
-                     f"{r['useful_flops_ratio']:.4f}; collective bytes "
-                     f"{r['coll_bytes']}")
-            if "cache_seq_replicated" in r:
-                line += f"; cache_seq_replicated {r['cache_seq_replicated']}"
-            was = [("not recorded" if v is None else f"{v:g}") for v in
-                   DRY_STORAGE_SPLIT.get((r["arch"], r["shape"]),
-                                         (None,) * 3)]
-            line += (f" [storage-only split: peak {was[0]} GiB, {was[1]} "
-                     f"FLOP, useful flops {was[2]}]")
+            line += dry_cell_line(r, DRY_STORAGE_SPLIT.get(
+                (r["arch"], r["shape"]), (None,) * 3))
         elif r["status"] == "skipped":
             line += f" ({r['reason']})"
         else:
@@ -3187,9 +3210,10 @@ def phase_dry(pool, pending, peak12: dict, peak13: int) -> None:
               f"{sec:.1f}", flush=True)
         check(DRY_PEAK_RATIO[0] <= ratio <= DRY_PEAK_RATIO[1],
               f"14c {what}: predicted/measured {ratio:.3f}")
-    print(f"  14 dry run: {len(recs)} jobs in {DRY_WORKERS} background "
-          f"processes; waited {waited:.1f} s for them after 14(a)",
-          flush=True)
+    print(f"  14 dry run: {len(recs) + len(ssm)} jobs in {DRY_WORKERS} "
+          f"background processes from phase 12 on; waited {waited:.1f} s "
+          f"for them after 16(a)", flush=True)
+    return ssm
 
 # -- phase 15: the compute split on a (1, 2) gloo world of host processes ------
 
@@ -3209,22 +3233,33 @@ TP_THREADS = 4            # torch threads of each of the two ranks
 # may move either way in the two runs.
 TP_TOL = dict(loss=3e-7, norm=6.3e-7, m=3e-6, v=3.3e-5, logits=1.6e-6,
               tie=2e-5)
+# the layers each architecture keeps in the split runs of phases 15 and
+# 16(b): qwen3-0.6b's first two; rwkv6-1.6b's first two; jamba-v0.1-52b's
+# first (a Mamba mixer and its dense SwiGLU)
+SPLIT_LAYERS = {"qwen3-0.6b": TP_LAYERS, "rwkv6-1.6b": 2,
+                "jamba-v0.1-52b": 1}
+# and the sequence length of their batch and prompt (16(b) at a quarter of
+# phase 15's: its two runs took 63 s and 150 s at 256, 69 s and 147 s at
+# 128 on the chip machine's host)
+SPLIT_SEQ = {"qwen3-0.6b": TP_SEQ, "rwkv6-1.6b": 64, "jamba-v0.1-52b": 64}
 
 
-def tp_arch():
+def tp_arch(name: str = TP_ARCH):
+    """``name`` at its published widths cut to ``SPLIT_LAYERS`` layers,
+    float32, one microbatch."""
     from repro_torch.configs import get_arch
-    return dataclasses.replace(get_arch(TP_ARCH), n_layers=TP_LAYERS,
+    return dataclasses.replace(get_arch(name), n_layers=SPLIT_LAYERS[name],
                                params_dtype="float32",
-                               compute_dtype="float32")
+                               compute_dtype="float32", grad_accum=1)
 
 
-def tp_run(mesh):
-    """Phase 15's work on ``mesh`` (a built ``DeviceMesh``, or ``None``:
-    one process): one train step from the seeded weights, then serving.
-    Returns a dict: ``params0`` (the weights, this rank's shards),
-    ``loss``, ``norm``, the stepped ``params``, ``m`` and ``v``, the
-    prefill's ``logits`` of this rank's rows, the ``tokens`` (whole) and
-    the ``seconds``."""
+def tp_run(mesh, name: str = TP_ARCH):
+    """The split runs' work on ``mesh`` (a built ``DeviceMesh``, or
+    ``None``: one process): one train step from the seeded weights, then
+    serving.  Returns a dict: ``params0`` (the weights, this rank's
+    shards), ``loss``, ``norm``, the stepped ``params``, ``m`` and ``v``,
+    the prefill's ``logits`` of this rank's rows, the ``tokens`` (whole)
+    and the ``seconds``."""
     from repro_torch.configs import plan_for_mesh
     from repro_torch.data.pipeline import (DataConfig, batch_spec,
                                            device_batch, host_batch)
@@ -3235,42 +3270,42 @@ def tp_run(mesh):
     from repro_torch.parallel.shard import as_rank_mesh, batch_rows, set_mesh
     from repro_torch.train.optimizer import OptConfig, init_opt_state
     t = time.perf_counter()
-    arch = tp_arch()
+    arch, seq = tp_arch(name), SPLIT_SEQ[name]
     plan = plan_for_mesh(mesh if mesh is not None else MeshSpec.local())
     rm = as_rank_mesh(mesh)
     params = init_params_placed(arch, plan, LM_SEED, mesh, "cpu")
     opt_cfg = OptConfig(peak_lr=1e-3, warmup_steps=2)
-    hb = host_batch(DataConfig(arch.vocab_size, TP_SEQ, TP_BATCH), 0, arch)
+    hb = host_batch(DataConfig(arch.vocab_size, seq, TP_BATCH), 0, arch)
     with set_mesh(rm):
         p, st, met = make_train_step(arch, plan, opt_cfg)(
             params, init_opt_state(params, opt_cfg),
             device_batch(hb, mesh, plan, "cpu", arch.grad_accum))
     tokens, _ = serve(arch, mesh if mesh is not None else MeshSpec.local(),
-                      plan, batch=TP_BATCH, prompt_len=TP_SEQ, gen=TP_GEN,
+                      plan, batch=TP_BATCH, prompt_len=seq, gen=TP_GEN,
                       seed=LM_SEED, params=params, device="cpu")
     inp = {k: batch_rows(v, batch_spec(k, v.shape, plan), rm)
-           for k, v in serve_inputs(arch, batch=TP_BATCH, prompt_len=TP_SEQ,
+           for k, v in serve_inputs(arch, batch=TP_BATCH, prompt_len=seq,
                                     seed=LM_SEED, device="cpu").items()}
     with set_mesh(rm):
-        _, logits = make_prefill_step(arch, plan, TP_SEQ)(params, inp)
+        _, logits = make_prefill_step(arch, plan, seq)(params, inp)
     return dict(params0=params, loss=float(met["loss"]),
                 norm=float(met["grad_norm"]), params=p, m=st["m"],
                 v=st["v"], logits=logits, tokens=tokens,
                 seconds=time.perf_counter() - t)
 
 
-def tp_margins(params) -> np.ndarray:
+def tp_margins(params, name: str = TP_ARCH) -> np.ndarray:
     """(batch, gen) top-two logit margins over the logits' scale of the
     one-process greedy run on the whole ``params`` (its own tokens fed
     back)."""
     from repro_torch.configs import NO_SHARDING
     from repro_torch.launch.serve import serve_inputs
     from repro_torch.models import decode_step, prefill
-    arch = tp_arch()
-    inp = serve_inputs(arch, batch=TP_BATCH, prompt_len=TP_SEQ, seed=LM_SEED,
+    arch, seq = tp_arch(name), SPLIT_SEQ[name]
+    inp = serve_inputs(arch, batch=TP_BATCH, prompt_len=seq, seed=LM_SEED,
                        device="cpu")
     with torch.no_grad():
-        cache, logits = prefill(params, inp, arch, NO_SHARDING, TP_SEQ)
+        cache, logits = prefill(params, inp, arch, NO_SHARDING, seq)
         out = []
         for _ in range(TP_GEN):
             lg = logits[:, -1].double()
@@ -3281,10 +3316,12 @@ def tp_margins(params) -> np.ndarray:
     return np.stack(out, axis=1)
 
 
-def tp_rank_job(rank: int, store: str, plain_path: str, out_q) -> None:
-    """One rank of phase 15's world: the split run, then each leaf's
-    largest gap to the one-process run (``plain_path``) on this rank's
-    shard, beside the whole leaf's largest value."""
+def tp_rank_job(rank: int, store: str, plain_path: str, name: str, parts,
+                out_q) -> None:
+    """One rank of a split world: the split run of ``name``, then each
+    leaf's largest gap to the one-process run (``plain_path``) on this
+    rank's shard, beside the whole leaf's largest value, for the trees of
+    ``parts``."""
     import torch.distributed as dist
     torch.set_num_threads(TP_THREADS)
     from repro_torch.launch.mesh import MeshSpec, init_world
@@ -3296,12 +3333,13 @@ def tp_rank_job(rank: int, store: str, plain_path: str, out_q) -> None:
         init_world("gloo", f"file://{store}", rank=rank, world_size=2,
                    timeout_s=600)
         mesh = MeshSpec((1, 2), ("data", "model")).build("cpu")
-        got = tp_run(mesh)
+        got = tp_run(mesh, name)
         want = torch.load(plain_path, mmap=True)
         rm = RankMesh.of(mesh)
-        specs = flatten(specs_of(param_defs(tp_arch()), plan_for_mesh(mesh)))
+        specs = flatten(specs_of(param_defs(tp_arch(name)),
+                                 plan_for_mesh(mesh)))
         gaps = {}
-        for part in ("params", "m", "v"):
+        for part in parts:
             mine, whole = flatten(got[part]), flatten(want[part])
             gaps[part] = {k: (float((mine[k] - shard_of(whole[k], specs[k], rm))
                                     .abs().max()),
@@ -3319,49 +3357,60 @@ def tp_rank_job(rank: int, store: str, plain_path: str, out_q) -> None:
         out_q.put((rank, traceback.format_exc()))
 
 
-def phase_tp() -> None:
-    """15: the split run on a ``(1, 2)`` gloo world against one process."""
+def two_ranks(target, args: tuple, work: str) -> tuple[dict, float]:
+    """``target(rank, store, *args, out_q)`` on two spawned host processes
+    (a gloo world through a ``file://`` store under ``work``): each rank's
+    result (a traceback string where it failed) and the world's
+    seconds."""
     import multiprocessing
     import queue
+    ctx = multiprocessing.get_context("spawn")
+    out_q = ctx.Queue()
+    procs = [ctx.Process(target=target,
+                         args=(r, f"{work}/store", *args, out_q))
+             for r in range(2)]
+    t = time.perf_counter()
+    for pr in procs:
+        pr.start()
+    res = {}
+    try:
+        for _ in procs:
+            r, val = out_q.get(timeout=600)
+            res[r] = val
+    except queue.Empty:
+        res["timeout"] = "a rank gave no result in 600 s"
+    for pr in procs:
+        pr.join(timeout=30)
+        if pr.is_alive():
+            pr.terminate()
+            pr.join()
+    return res, time.perf_counter() - t
+
+
+def split_world(name: str, tol: dict, parts, label: str) -> str:
+    """``name``'s split run on a ``(1, 2)`` gloo world of two host
+    processes against the same run in one process, held within ``tol``
+    (the trees of ``parts`` compared leaf by leaf); the line of what was
+    measured."""
     import shutil
     import tempfile
     root = Path(__file__).resolve().parent / "build"
     root.mkdir(exist_ok=True)
-    work = tempfile.mkdtemp(prefix="tp15-", dir=root)
+    work = tempfile.mkdtemp(prefix=f"split{label}-", dir=root)
     try:
         t = time.perf_counter()
-        plain = tp_run(None)
+        plain = tp_run(None, name)
         plain_path = f"{work}/plain.pt"
-        torch.save({k: plain[k] for k in ("params", "m", "v", "logits")},
-                   plain_path)
-        margin = tp_margins(plain["params0"])
+        torch.save({k: plain[k] for k in (*parts, "logits")}, plain_path)
+        margin = tp_margins(plain["params0"], name)
+        plain = {k: plain[k] for k in ("loss", "norm", "tokens", "seconds")}
         t_plain = time.perf_counter() - t
-        ctx = multiprocessing.get_context("spawn")
-        out_q = ctx.Queue()
-        procs = [ctx.Process(target=tp_rank_job,
-                             args=(r, f"{work}/store", plain_path, out_q))
-                 for r in range(2)]
-        t = time.perf_counter()
-        for pr in procs:
-            pr.start()
-        res = {}
-        try:
-            for _ in procs:
-                r, val = out_q.get(timeout=600)
-                res[r] = val
-        except queue.Empty:
-            res["timeout"] = "a rank gave no result in 600 s"
-        for pr in procs:
-            pr.join(timeout=30)
-            if pr.is_alive():
-                pr.terminate()
-                pr.join()
-        t_world = time.perf_counter() - t
+        res, t_world = two_ranks(tp_rank_job, (plain_path, name, parts),
+                                 work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     errors = [v for v in res.values() if isinstance(v, str)]
-    check(not errors and len(res) == 2, f"15: {errors}")
-    tol = TP_TOL
+    check(not errors and len(res) == 2, f"{label} {name}: {errors}")
     gaps = {}
     for r in (0, 1):
         got = res[r]
@@ -3376,23 +3425,351 @@ def phase_tp() -> None:
             ties = np.flatnonzero(margin[b] < tol["tie"])
             upto = int(ties[0]) + 1 if ties.size else TP_GEN
             check(np.array_equal(got["tokens"][b, :upto], want[b, :upto]),
-                  f"15 rank {r} row {b}: tokens {got['tokens'][b]} against "
-                  f"one process {want[b]} (first near-tie at {upto - 1})")
+                  f"{label} {name} rank {r} row {b}: tokens "
+                  f"{got['tokens'][b]} against one process {want[b]} "
+                  f"(first near-tie at {upto - 1})")
     worst = {k: max(v) for k, v in gaps.items()}
     line = " ".join(f"{k} {v:.3e}" for k, v in worst.items())
     for k in worst.keys() & tol.keys():
         check(worst[k] <= tol[k],
-              f"15 {k}: gap {worst[k]:.3e} > {tol[k]} (gaps {line})")
-    print(f"  15 {TP_ARCH} at published widths, {TP_LAYERS} layers, float32,"
-          f" batch {TP_BATCH} x {TP_SEQ}, gen {TP_GEN}: a (1, 2) gloo world "
-          f"of two host processes ({TP_THREADS} threads each) against one "
-          f"process; loss {res[0]['loss']:.6f} (one process "
-          f"{plain['loss']:.6f}); gaps {line} (limits {tol}; params not "
-          f"held); tokens {plain['tokens'].tolist()}; seconds: "
-          f"one process {t_plain:.1f} (its run {plain['seconds']:.1f}), the "
-          f"world "
+              f"{label} {name} {k}: gap {worst[k]:.3e} > {tol[k]} (gaps "
+              f"{line})")
+    arch = tp_arch(name)
+    return (f"{name} at published widths (d {arch.d_model}, d_ff "
+            f"{arch.d_ff}, vocabulary {arch.vocab_size}), {arch.n_layers} "
+            f"layer(s), float32, batch {TP_BATCH} x {SPLIT_SEQ[name]}, gen "
+            f"{TP_GEN}: "
+            f"a (1, 2) gloo world of two host processes ({TP_THREADS} "
+            f"threads each) against one process; loss {res[0]['loss']:.6f} "
+            f"(one process {plain['loss']:.6f}); gaps {line} (limits {tol}; "
+            f"params not held); tokens {plain['tokens'].tolist()}; seconds: "
+            f"one process {t_plain:.1f} (its run {plain['seconds']:.1f}), "
+            f"the world {t_world:.1f} (rank runs {res[0]['seconds']:.1f}, "
+            f"{res[1]['seconds']:.1f})")
+
+
+def phase_tp() -> None:
+    """15: the split run on a ``(1, 2)`` gloo world against one process."""
+    line = split_world(TP_ARCH, TP_TOL, ("params", "m", "v"), "15")
+    print(f"  15 {line}", flush=True)
+
+
+# -- phase 16: the sub-quadratic models on a mesh --------------------------------
+
+SSM_ARCH = "rwkv6-1.6b"
+SSM_TRAIN_STEPS = 4     # a cold step and three warm ones; a fourth, profiled
+# 16(b): the CPU tests' tolerances for each architecture
+# (tests/test_torch_tp_ssm.py's TOL: its gradient, v and logits limits
+# for m, v and logits; the loss and the norm as they are)
+SSM_SPLIT_TOL = {
+    "rwkv6-1.6b": dict(loss=3e-7, norm=2.9e-5, m=1.7e-5, logits=3.9e-6,
+                       tie=2e-5),
+    "jamba-v0.1-52b": dict(loss=1.2e-6, norm=5e-6, m=1.5e-5, logits=4e-6,
+                           tie=2e-5)}
+# the host memory 16(b) needs free: jamba's cut holds 3.3 GB of float32
+# weights, about five times that in one process with its gradients and
+# AdamW state, and half as much again in each of the two ranks
+SSM_SPLIT_FREE_GIB = 40.0
+# 16(c): batch-1 decode over a cache split over data on a (2, 1) world
+SEQ_ARCH, SEQ_PROMPT, SEQ_CACHE, SEQ_GEN = "qwen3-0.6b", 1024, 4096, 8
+# the CPU tests' tolerances (tests/test_torch_seq_cache.py): logits
+# relative to the largest logit; the cache after decode relative to each
+# leaf's largest value (the first layer's bitwise, as after the prefill)
+SEQ_TOL = dict(logits=1.6e-6, cache=3.1e-6, tie=2e-5)
+# 16(d): the sub-quadratic dry cells on pod16x16; PR 24's readings of the
+# same cells (peak GiB a rank, FLOP a rank, useful-flops ratio), taken
+# from PR 24's tree on the chip machine's host (PERF.md section 6, PR 25)
+SSM_DRY_CELLS = tuple(("rwkv6-1.6b", sh) for sh in (
+    "prefill_32k", "train_4k", "decode_32k", "long_500k")) + (
+    ("jamba-v0.1-52b", "decode_32k"), ("jamba-v0.1-52b", "long_500k"))
+SSM_DRY_PR24 = {
+    ("rwkv6-1.6b", "prefill_32k"): (6.644, 1.7339e14, 0.0748),
+    ("rwkv6-1.6b", "train_4k"): (28.461, 6.9794e14, 0.0558),
+    ("rwkv6-1.6b", "decode_32k"): (0.228, 2.1223e10, 0.0746),
+    ("rwkv6-1.6b", "long_500k"): (0.130, 2.6529e9, 0.0047),
+    ("jamba-v0.1-52b", "decode_32k"): (5.053, 4.1232e11, 0.0294),
+    ("jamba-v0.1-52b", "long_500k"): (8.933, 5.3554e10, 0.0018)}
+# 16(d)'s cells share the host's cores with phases 12-16(a) and phase
+# 14's cells: the longest (rwkv6-1.6b prefill_32k) took 368.7 s so before
+# its chunk terms were batched, 49.6 s after (PERF.md section 6, PR 25)
+SSM_DRY_LIMIT_S = 600.0
+# 16(d)'s limits: rwkv6-1.6b train_4k at most 1/8 of PR 24's FLOP a rank
+# and a useful-flops ratio of at least 0.25; jamba-v0.1-52b long_500k at
+# most 2.2 GiB a rank
+SSM_DRY_LIMITS = dict(flop_share=1 / 8, useful=0.25, long_gib=2.2)
+
+
+def ssm_train(dev) -> int:
+    """16(a), training: ``SSM_ARCH`` at its published width and depth
+    (bf16, remat, float32 AdamW) through ``make_train_step``, a cold step
+    and four warm ones at ``TRAIN_BATCH`` x ``TRAIN_SEQ`` (the last
+    profiled); returns the peak device bytes."""
+    from repro_torch.configs import ShapeConfig, get_arch, plan_for_mesh
+    from repro_torch.data.pipeline import DataConfig, device_batch, host_batch
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, param_defs
+    from repro_torch.roofline import model_flops
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    arch = get_arch(SSM_ARCH)
+    check(arch.params_dtype == arch.compute_dtype == "bfloat16" and arch.remat
+          and arch.grad_accum == 1, f"16a {SSM_ARCH}: not bf16 with remat")
+    plan = plan_for_mesh(MeshSpec.local())
+    opt_cfg = OptConfig(peak_lr=1e-3, warmup_steps=2,
+                        total_steps=SSM_TRAIN_STEPS + 1,
+                        state_dtype="float32")
+    params = init_params(param_defs(arch),
+                         torch.Generator(device=dev).manual_seed(LM_SEED), dev)
+    opt = init_opt_state(params, opt_cfg)
+    step = make_train_step(arch, plan, opt_cfg)
+    dc = DataConfig(arch.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(SSM_TRAIN_STEPS):
+        batch = device_batch(host_batch(dc, i, arch), None, plan, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    batch = device_batch(host_batch(dc, SSM_TRAIN_STEPS, arch), None, plan,
+                         dev)
+    dt = train_device_time(step, params, opt, batch)
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(losses)), f"16a {SSM_ARCH}: losses {losses}")
+    flops = model_flops(arch, ShapeConfig("train", "train", TRAIN_SEQ,
+                                          TRAIN_BATCH))
+    warm = statistics.median(times[1:])
+    print(f"  16a {SSM_ARCH} training: {arch.n_layers} layers, d_model "
+          f"{arch.d_model}, d_ff {arch.d_ff}, vocab {arch.vocab_size}, "
+          f"{arch.n_params():,} parameters, bf16, remat, float32 AdamW; "
+          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}; steps: cold "
+          f"{times[0]:.4f} s, warm median {warm:.4f} s "
+          f"({min(times[1:]):.4f}-{max(times[1:]):.4f} s over "
+          f"{len(times) - 1} unprofiled), {TRAIN_BATCH * TRAIN_SEQ / warm:.1f}"
+          f" tokens/s; model flops {flops:.4e} a step, "
+          f"{flops / warm / 1e12:.1f} TFLOP/s = "
+          f"{flops / warm / H100_BF16_PEAK:.4f} of the H100 SXM dense bf16 "
+          f"peak; peak {peak / 2**30:.3f} GiB; losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    print(f"  16a {SSM_ARCH} device time of a warm step (profiled): "
+          f"{dt['busy_s']:.4f} s, idle {1 - dt['busy_s'] / warm:.3f} of the "
+          f"warm median, {dt['kernels']} device kernels; top: {dt['top']}",
+          flush=True)
+    return peak
+
+
+def seq_run(mesh, feed=None) -> dict:
+    """16(c)'s work on ``mesh`` (a built ``DeviceMesh``, or ``None``: one
+    process): ``SEQ_ARCH``'s cut (``tp_arch``) prefills a batch of one
+    ``SEQ_PROMPT``-token prompt into a ``SEQ_CACHE``-slot cache, then
+    decodes, fed ``feed`` (1, SEQ_GEN - 1) or its own greedy tokens.
+    Returns the last logits of each step (``logits``, (SEQ_GEN, V)), the
+    ``tokens`` (1, SEQ_GEN), and the cache, whole, after the prefill and
+    after the last step (``prefill_cache``, ``cache``; each leaf a
+    tensor), and the ``seconds``."""
+    from repro_torch.configs import plan_for_mesh
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.serve import init_params_placed, serve_inputs
+    from repro_torch.models import cache_defs, decode_step, prefill
+    from repro_torch.models.layers import specs_of, tree_map
+    from repro_torch.parallel.shard import as_rank_mesh, set_mesh, unshard_tree
+    t = time.perf_counter()
+    arch = tp_arch(SEQ_ARCH)
+    plan = plan_for_mesh(mesh if mesh is not None else MeshSpec.local())
+    rm = as_rank_mesh(mesh)
+    params = init_params_placed(arch, plan, LM_SEED, mesh, "cpu")
+    prompt = serve_inputs(arch, batch=1, prompt_len=SEQ_PROMPT, seed=LM_SEED,
+                          device="cpu")
+    cspecs = specs_of(cache_defs(arch, 1, SEQ_CACHE), plan)
+
+    def whole(cache):
+        got = cache if rm is None else unshard_tree(cache, cspecs, rm)
+        return tree_map(lambda x: x.clone(), got)
+    kw = dict(global_batch=1, cache_len=SEQ_CACHE)
+    with torch.no_grad(), set_mesh(rm):
+        cache, lg = prefill(params, prompt, arch, plan, SEQ_CACHE, 1)
+        first = whole(cache)
+        logits = [lg[0, -1]]
+        toks = [int(lg[0, -1].argmax())]
+        for i in range(SEQ_GEN - 1):
+            tok = toks[-1] if feed is None else int(feed[0, i])
+            cache, lg = decode_step(params, cache, torch.tensor(
+                [[tok]], dtype=torch.int32), arch, plan, **kw)
+            logits.append(lg[0, -1])
+            toks.append(int(lg[0, -1].argmax()))
+    return dict(logits=torch.stack(logits), tokens=torch.tensor([toks]),
+                prefill_cache=first, cache=whole(cache),
+                seconds=time.perf_counter() - t)
+
+
+def seq_rank_job(rank: int, store: str, plain_path: str, out_q) -> None:
+    """One rank of 16(c)'s ``(2, 1)`` world, fed the one-process tokens:
+    its gaps to the one-process run (``plain_path``), its tokens and this
+    rank's filled slots after the prefill."""
+    import torch.distributed as dist
+    torch.set_num_threads(TP_THREADS)
+    from repro_torch.launch.mesh import MeshSpec, init_world
+    from repro_torch.models.layers import flatten
+    try:
+        init_world("gloo", f"file://{store}", rank=rank, world_size=2,
+                   timeout_s=600)
+        mesh = MeshSpec((2, 1), ("data", "model")).build("cpu")
+        want = torch.load(plain_path)
+        got = seq_run(mesh, want["tokens"][:, :-1])
+        pre, bpre = flatten(got["prefill_cache"]), flatten(
+            want["prefill_cache"])
+        end, bend = flatten(got["cache"]), flatten(want["cache"])
+        first = sorted(k for k in bend if k.endswith(("/k", "/v")))
+        out = dict(
+            prefill_bitwise=all(torch.equal(pre[k], bpre[k]) for k in bpre),
+            first_layer_bitwise=all(torch.equal(end[k][0], bend[k][0])
+                                    for k in first),
+            cache=max(float((end[k].float() - bend[k].float()).abs().max())
+                      / max(float(bend[k].float().abs().max()), 1e-30)
+                      for k in bend),
+            logits=max(float((a - b).abs().max()) / float(b.abs().max())
+                       for a, b in zip(got["logits"], want["logits"])),
+            tokens=got["tokens"].numpy(), seconds=got["seconds"],
+            filled=min(max(SEQ_PROMPT - rank * SEQ_CACHE // 2, 0),
+                       SEQ_CACHE // 2))
+        out_q.put((rank, out))
+        dist.destroy_process_group()
+    except Exception:
+        import traceback
+        out_q.put((rank, traceback.format_exc()))
+
+
+def seq_world() -> None:
+    """16(c): batch-1 decode over a cache split over ``data`` on a
+    ``(2, 1)`` gloo world against one process."""
+    import shutil
+    import tempfile
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="seq16-", dir=root)
+    try:
+        t = time.perf_counter()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(TP_THREADS)     # the ranks' (bitwise matmuls)
+        try:
+            plain = seq_run(None)
+        finally:
+            torch.set_num_threads(threads)
+        t_plain = time.perf_counter() - t
+        torch.save(plain, f"{work}/plain.pt")
+        res, t_world = two_ranks(seq_rank_job, (f"{work}/plain.pt",), work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    errors = [v for v in res.values() if isinstance(v, str)]
+    check(not errors and len(res) == 2, f"16c: {errors}")
+    lg = plain["logits"].double()
+    top = torch.topk(lg, 2, dim=-1).values
+    ties = np.flatnonzero(((top[:, 0] - top[:, 1]) / lg.abs().amax(-1))
+                          .numpy() < SEQ_TOL["tie"])
+    upto = int(ties[0]) + 1 if ties.size else SEQ_GEN
+    want = plain["tokens"].numpy()
+    for r in (0, 1):
+        got = res[r]
+        check(got["prefill_bitwise"], f"16c rank {r}: the gathered prefill "
+              "cache is not bitwise the one-process cache")
+        check(got["first_layer_bitwise"], f"16c rank {r}: the first layer's "
+              "cache after decode is not bitwise the one-process cache")
+        check(np.array_equal(got["tokens"][:, :upto], want[:, :upto]),
+              f"16c rank {r}: tokens {got['tokens']} against one process "
+              f"{want} (first near-tie at {upto - 1})")
+        for k in ("logits", "cache"):
+            check(got[k] <= SEQ_TOL[k], f"16c rank {r} {k}: {got[k]:.3e} > "
+                  f"{SEQ_TOL[k]}")
+    arch = tp_arch(SEQ_ARCH)
+    print(f"  16c {SEQ_ARCH} at published widths, {arch.n_layers} layers, "
+          f"float32: batch 1, a {SEQ_PROMPT}-token prompt in a "
+          f"{SEQ_CACHE}-slot cache, {SEQ_GEN} greedy tokens, on a (2, 1) "
+          f"gloo world (the slots split over data: {SEQ_CACHE // 2} a rank; "
+          f"filled after the prefill {res[0]['filled']} and "
+          f"{res[1]['filled']}) against one process: the gathered cache "
+          f"bitwise after the prefill and in the first layer after the "
+          f"decode, the rest within {max(res[r]['cache'] for r in (0, 1)):.3e}"
+          f" (tol {SEQ_TOL['cache']}); logits within "
+          f"{max(res[r]['logits'] for r in (0, 1)):.3e} of the largest (tol "
+          f"{SEQ_TOL['logits']}); tokens {want.tolist()} equal (up to "
+          f"{upto}); seconds: one process {t_plain:.1f}, the world "
           f"{t_world:.1f} (rank runs {res[0]['seconds']:.1f}, "
           f"{res[1]['seconds']:.1f})", flush=True)
+
+
+def host_free_gib() -> float:
+    """The host's available memory (``MemAvailable``), GiB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def phase_ssm_split() -> None:
+    """16(b): the SSM split of each sub-quadratic architecture on a
+    ``(1, 2)`` gloo world against one process."""
+    free = host_free_gib()
+    print(f"  16b host memory available: {free:.1f} GiB (needs "
+          f"{SSM_SPLIT_FREE_GIB})", flush=True)
+    check(free >= SSM_SPLIT_FREE_GIB, f"16b: {free:.1f} GiB of host memory "
+          f"available, {SSM_SPLIT_FREE_GIB} needed")
+    for name, tol in SSM_SPLIT_TOL.items():
+        t = time.perf_counter()
+        line = split_world(name, tol, ("m",), "16b")
+        print(f"  16b {line}", flush=True)
+        phase(f"16b the SSM split of {name} on a (1, 2) gloo world", t)
+
+
+def dry_cell_line(r: dict, was: tuple) -> str:
+    """One dry cell's readings beside an earlier reading ``was`` (peak
+    GiB, FLOP, useful-flops ratio; ``None`` where not recorded)."""
+    ma, rf = r["memory_analysis"], r["roofline"]
+    line = (f" in {r['seconds']:.1f} s; per rank "
+            f"{ma['total_per_device'] / 2**30:.3f} GiB peak "
+            f"(arguments {ma['argument_size_in_bytes'] / 2**30:.3f}"
+            f" GiB, fits {ma['fits']}), {rf['flops']:.4e} FLOP, "
+            f"collectives {r['coll_count']}; roofline {rf['bottleneck']}"
+            f" (compute {rf['compute_s']:.4f} s, memory "
+            f"{rf['memory_s']:.4f} s, collective "
+            f"{rf['collective_s']:.4f} s); useful flops "
+            f"{r['useful_flops_ratio']:.4f}; collective bytes "
+            f"{r['coll_bytes']}")
+    if "cache_seq_replicated" in r:
+        line += f"; cache_seq_replicated {r['cache_seq_replicated']}"
+    was = [("not recorded" if v is None else f"{v:g}") for v in was]
+    return line + (f" [storage-only split: peak {was[0]} GiB, {was[1]} "
+                   f"FLOP, useful flops {was[2]}]")
+
+
+def phase_ssm_dry(recs: list) -> None:
+    """16(d): the sub-quadratic dry cells with the split, each beside PR
+    24's reading, against ``SSM_DRY_LIMITS``."""
+    lim = SSM_DRY_LIMITS
+    for r in recs:
+        key = (r["arch"], r["shape"])
+        check(r["status"] == "ok", f"16d {key}: {r.get('error', r['status'])}")
+        ma, rf = r["memory_analysis"], r["roofline"]
+        gib = ma["total_per_device"] / 2**30
+        was = SSM_DRY_PR24.get(key, (None,) * 3)
+        if "cache_seq_replicated" in r:
+            check(r["cache_seq_replicated"] is False,
+                  f"16d {key}: the cache keeps a split sequence whole")
+        if key == ("rwkv6-1.6b", "train_4k"):
+            check(was[1] is not None
+                  and rf["flops"] <= lim["flop_share"] * was[1]
+                  and r["useful_flops_ratio"] >= lim["useful"],
+                  f"16d {key}: {rf['flops']:.4e} FLOP against PR 24's "
+                  f"{was[1]}, useful {r['useful_flops_ratio']:.4f} ({lim})")
+        if key == ("jamba-v0.1-52b", "long_500k"):
+            check(gib <= lim["long_gib"], f"16d {key}: {gib:.3f} GiB a rank "
+                  f"> {lim['long_gib']}")
+        print(f"  16d {r['arch']} {r['shape']} {r['mesh']}: {r['status']}"
+              + dry_cell_line(r, was), flush=True)
 
 
 def main() -> int:
@@ -3469,10 +3846,10 @@ def main() -> int:
         phase_tools(core, dev, run10a, (mem3, mem5))
     gc.collect()
     torch.cuda.empty_cache()
+    pool, early, pending = start_dry()
     peak12 = phase_lm(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    pool, pending = start_dry()
     peak13 = phase_train(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3482,12 +3859,29 @@ def main() -> int:
         mesh_train(dev, M)
     phase("14a sharded training on a one-rank NCCL world, bitwise", t)
     t = time.perf_counter()
-    phase_dry(pool, pending, peak12, peak13)
+    lm_full(dev, SSM_ARCH, "16a")
+    ssm_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"16a {SSM_ARCH} served and trained at full width and depth, "
+          "bf16", t)
+    t = time.perf_counter()
+    ssm_recs = phase_dry(pool, pending, early, peak12, peak13)
     phase("14bc dry-run cells and predicted peaks", t)
+    t = time.perf_counter()
+    phase_ssm_dry(ssm_recs)
+    phase("16d the sub-quadratic dry cells with the split", t)
     t = time.perf_counter()
     phase_tp()
     phase(f"15 the compute split on a (1, 2) gloo world, {TP_ARCH} at "
           f"published widths", t)
+    t = time.perf_counter()
+    phase_ssm_split()
+    phase("16b the SSM splits on (1, 2) gloo worlds", t)
+    t = time.perf_counter()
+    seq_world()
+    phase("16c batch-1 decode over a sequence-split cache on a (2, 1) gloo "
+          "world", t)
 
     kernels = []
     # launches: each kernel on its own path (the tile-form select and

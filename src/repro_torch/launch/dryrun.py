@@ -29,9 +29,11 @@ peak of live bytes, arguments included; ``fits`` within the H100's
 ``seconds`` in place of ``lower_s`` / ``compile_s``.  What has no torch
 meaning is left out: the HLO text and its size (``hlo_bytes``), the raw
 ``cost_analysis``, and ``dynamic_whiles`` (the port's loops are Python
-loops, each iteration executed).  A decode cell whose plan would split
-the cache's sequence (batch 1, ``long_500k``) says
-``cache_seq_replicated``: the port keeps that dim whole.  A cell that
+loops, each iteration executed).  A decode cell says
+``cache_seq_replicated``: whether its cache keeps whole a sequence dim
+that the plan splits (batch 1, ``long_500k``).  It reads false: the
+cache is placed by ``plan.spec`` of every dim (``steps.cache_specs``), and
+decode attends over the split slots.  A cell that
 runs past ``--limit`` seconds stops and is written with
 ``status="error"`` and the reason, as is any other failure.
 
@@ -74,11 +76,11 @@ from repro_torch.core import (ColorConfig, PipelineConfig, RecolorConfig,
                               plan_signature, resolve_scheme, rmat)
 from repro_torch.launch.mesh import MeshSpec
 from repro_torch.parallel.shard import RankMesh
-from repro_torch.launch.steps import input_specs
+from repro_torch.launch.steps import cache_specs, input_specs
 from repro_torch.models import cache_defs
+from repro_torch.models.layers import flatten
 from repro_torch.roofline import (HBM_BYTES, model_flops, projection_of,
                                   roofline_terms)
-from repro_torch.train.optimizer import leaves
 
 DEFAULT_OUT = "experiments/dryrun_torch"
 
@@ -173,12 +175,17 @@ def measure(fn, args, rm: RankMesh, limit_s: float | None = None) -> dict:
         coll_count=dict(rm.log.count), coll_bytes=dict(rm.log.bytes))
 
 
-def _cache_seq_split(arch, shape, plan) -> bool:
-    """Whether the plan splits a cache's sequence dim in this cell."""
-    for d in leaves(cache_defs(arch, shape.global_batch, shape.seq_len)):
-        if "seq" in d.dims and plan.spec(d.dims, d.shape)[
-                d.dims.index("seq")] is not None:
-            return True
+def _cache_seq_replicated(arch, shape, plan) -> bool:
+    """Whether the cell's cache (``steps.cache_specs``) keeps whole a
+    sequence dim that ``plan.spec`` splits."""
+    cdefs = cache_defs(arch, shape.global_batch, shape.seq_len)
+    placed = flatten(cache_specs(cdefs, plan))
+    for k, d in flatten(cdefs).items():
+        if "seq" in d.dims:
+            i = d.dims.index("seq")
+            if plan.spec(d.dims, d.shape)[i] is not None and \
+                    placed[k][i] is None:
+                return True
     return False
 
 
@@ -212,7 +219,7 @@ def lm_record(arch, shape, spec: MeshSpec,
                useful_flops_ratio=(mf / n_chips) / terms["flops"]
                if terms["flops"] else 0.0)
     if shape.kind == "decode":
-        rec["cache_seq_replicated"] = _cache_seq_split(
+        rec["cache_seq_replicated"] = _cache_seq_replicated(
             arch, shape, plan_for_mesh(spec))
     return rec
 

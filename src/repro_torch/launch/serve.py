@@ -15,9 +15,12 @@ the padded vocabulary, ties to the lowest id.
 
 On a built ``DeviceMesh`` each rank keeps its shards of the weights (drawn
 leaf by leaf from the same generator, so the gathered weights are the
-one-device weights) and its rows of the prompt batch and the caches; the
-layers gather their weights as they run (``parallel.shard``), and the
-generated tokens are gathered over the batch ranks.
+one-device weights), its rows of the prompt batch and its block of the
+caches under the plan; the layers gather their weights as they run
+(``parallel.shard``), and the generated tokens are gathered over the batch
+ranks.  A batch the plan does not split over ``data`` (batch 1 on a mesh
+with ``data`` > 1) is whole on every data rank, and the attention caches'
+slots are split over ``data`` instead.
 """
 from __future__ import annotations
 
@@ -96,7 +99,8 @@ def serve(arch, mesh, plan, *, batch: int, prompt_len: int, gen: int,
 
     with set_mesh(rm):
         t0 = time.perf_counter()
-        cache, logits = prefill(params, batch_in, arch, plan, prompt_len)
+        cache, logits = prefill(params, batch_in, arch, plan, prompt_len,
+                                batch)
         # whole logits on every rank (gathered over a split vocabulary):
         # argmax takes the lowest index among equal values, as ever
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
@@ -105,7 +109,9 @@ def serve(arch, mesh, plan, *, batch: int, prompt_len: int, gen: int,
         out = [tok]
         t0 = time.perf_counter()
         for _ in range(gen - 1):
-            cache, logits = decode_step(params, cache, tok, arch, plan)
+            cache, logits = decode_step(params, cache, tok, arch, plan,
+                                        global_batch=batch,
+                                        cache_len=prompt_len)
             tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
             out.append(tok)
         _sync(device)

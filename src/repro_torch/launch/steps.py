@@ -25,12 +25,13 @@ traffic.
 cell: the torch analogue of a ``ShapeDtypeStruct`` with a
 ``NamedSharding`` is a tensor on the ``meta`` device at the leaf's
 per-rank shape (``sds_tree``) beside its spec (``shardings_of``), so
-nothing is allocated.  A cache is split along its batch dim only: the
-plan's sequence split of a batch-1 cache (``long_500k``) would need
-attention over a sharded sequence, which the port does not have.  The
-step a cell meters is the split one: on a dry mesh with a ``model`` axis
-each region computes its own share (``models.model``), so the FLOPs and
-the collectives per rank are those of the split step.
+nothing is allocated.  A cache is placed by the plan's spec of all its
+dims, as the reference places it (``sds_tree(cdefs, mesh, plan)``): its
+batch, its ``"tp"`` dims (RWKV-6's heads, Mamba's ``di``) and, for a
+batch of one (``long_500k``), its slots over ``data``.  The step a cell
+meters is the split one: on a dry mesh with a ``model`` axis each region
+computes its own share (``models.model``), so the FLOPs and the
+collectives per rank are those of the split step.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ from repro_torch.parallel.shard import (RankMesh, ShardedLeaf, batch_mean,
                                       set_mesh)
 from repro_torch.models import (cache_defs, decode_step, loss_fn,
                                 param_defs, prefill)
-from repro_torch.models.layers import DTYPES, ParamDef, specs_of, tree_map
+from repro_torch.models.layers import DTYPES, ParamDef, specs_of
 from repro_torch.train.optimizer import (OptConfig, adamw_update, leaves,
                                          opt_state_defs, unleaves,
                                          value_and_grad)
@@ -124,18 +125,23 @@ def make_train_step(cfg: ArchConfig, plan, opt_cfg: OptConfig):
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig, plan, cache_len: int):
+def make_prefill_step(cfg: ArchConfig, plan, cache_len: int,
+                      global_batch: int | None = None):
     @torch.no_grad()
     def prefill_step(params, batch):
-        return prefill(params, batch, cfg, plan, cache_len)
+        return prefill(params, batch, cfg, plan, cache_len, global_batch)
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, plan):
+def make_decode_step(cfg: ArchConfig, plan, global_batch: int | None = None,
+                     cache_len: int | None = None):
+    """``serve_step(params, cache, batch)``; on a mesh ``global_batch`` and
+    ``cache_len`` give the cache's layout (``models.decode_step``)."""
     @torch.no_grad()
     def serve_step(params, cache, batch):
         new_cache, logits = decode_step(params, cache, batch["tokens"], cfg,
-                                        plan)
+                                        plan, global_batch=global_batch,
+                                        cache_len=cache_len)
         return new_cache, torch.argmax(logits, dim=-1)
     return serve_step
 
@@ -145,9 +151,8 @@ def make_decode_step(cfg: ArchConfig, plan):
 
 
 def cache_specs(cdefs, plan) -> dict:
-    """Spec tree of a cache: its batch dim split, every other dim whole."""
-    return tree_map(lambda d: plan.spec(
-        tuple(x if x == "batch" else None for x in d.dims), d.shape), cdefs)
+    """Spec tree of a cache: ``plan.spec`` of every dim of each leaf."""
+    return specs_of(cdefs, plan)
 
 
 def shardings_of(defs, mesh, plan, specs=None) -> dict:
@@ -194,14 +199,14 @@ def input_specs(arch: ArchConfig, shape: ShapeConfig, mesh,
 
     if shape.kind == "prefill":
         batch = sds_tree(batch_defs(arch, shape), rm, plan)
-        fn = make_prefill_step(arch, plan, shape.seq_len)
+        fn = make_prefill_step(arch, plan, shape.seq_len, shape.global_batch)
         return _on_mesh(rm, fn), (params, batch)
 
     if shape.kind == "decode":
         cdefs = cache_defs(arch, shape.global_batch, shape.seq_len)
         cache = sds_tree(cdefs, rm, plan, cache_specs(cdefs, plan))
         batch = sds_tree(batch_defs(arch, shape, decode=True), rm, plan)
-        fn = make_decode_step(arch, plan)
+        fn = make_decode_step(arch, plan, shape.global_batch, shape.seq_len)
         return _on_mesh(rm, fn), (params, cache, batch)
 
     raise ValueError(shape.kind)

@@ -19,6 +19,16 @@ Where the reference asks for float32 results of bf16 operands
 products of bf16 values are exact in float32, so both accumulate the same
 terms in float32.
 
+Where the plan splits a cache's slots (``seq``: a batch too small for
+``data``, the reference's ``("batch", "seq", ...)`` cache spec), a rank
+holds slots ``[s0, s0 + S/n)`` of the ring buffer.  Prefill writes the
+prompt's positions that fall in that range; in decode the rank that owns
+slot ``pos % S`` writes the new K / V (MLA: ``c_kv``, ``k_rope``) and the
+others write nothing; each rank attends to its valid slots and keeps its
+partial ``(o, m, l)`` in float32, and the ranks merge them by a max and a
+sum over ``seq`` (flash decoding's log-sum-exp merge).  A rank with no
+valid slot contributes ``m = -inf``, ``l = 0``.
+
 On a mesh whose ``model`` axis splits the query heads (the reference's
 pin of ``q`` at ``("batch", None, "tp", None)``: ``parallel.shard.
 tp_ranks``), a rank runs its H/m query heads with the KV heads they use,
@@ -36,7 +46,9 @@ import torch
 
 from repro_torch.configs.base import NO_SHARDING, ArchConfig, ShardingPlan
 from repro_torch.parallel.shard import (copy_to_model, gather_model,
-                                        reduce_from_model, tp_rank, tp_ranks)
+                                        max_over, reduce_from_model,
+                                        seq_block, sum_over, tp_rank,
+                                        tp_ranks)
 from .layers import (ParamDef, apply_m_rope, apply_rope, constrain, f32,
                      rms_norm)
 
@@ -106,20 +118,52 @@ def _blockwise(q, k, v, *, causal: bool, scale: float, q_block: int = 512,
     return torch.cat(outs, dim=1).reshape(B, Sq, H, Dv)
 
 
-def _valid_mask(S: int, n_valid, device):
-    """(S,) True for the filled cache slots (``n_valid`` a 0-d tensor)."""
-    return torch.arange(S, device=device) < n_valid
+def _valid_mask(S: int, n_valid, device, s0: int = 0):
+    """(S,) True for the filled cache slots among ``s0 .. s0 + S - 1``
+    (``n_valid`` a 0-d tensor: the filled slots are ``0 .. n_valid - 1``)."""
+    return torch.arange(s0, s0 + S, device=device) < n_valid
 
 
-def _decode_sdpa(q, k, v, scale: float, n_valid=None):
+def _n_valid(cache_pos, S: int):
+    """The filled slots of a ring buffer of ``S`` after writing slot
+    ``cache_pos % S``."""
+    return torch.clamp(cache_pos + 1, max=S)
+
+
+def _merge_split(s, valid, values, seq):
+    """Softmax-weighted values over slots split over the mesh axes
+    ``seq``: ``s`` (..., Sl) float32 scores of this rank's slots, ``valid``
+    (Sl,) its filled ones, ``values(e)`` the product of weights ``e``
+    (..., Sl) with its values (..., Dv).  The rank's partial ``(o, m, l)``
+    (m = -inf, l = 0 where no slot is valid) are merged by a max and a
+    sum over ``seq``."""
+    s = torch.where(valid, s, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    e = torch.where(valid, torch.exp(s - torch.where(torch.isfinite(m), m,
+                                                     0.0)), 0.0)
+    o, l = values(e), e.sum(-1, keepdim=True)
+    a = torch.exp(m - max_over(m, seq))           # 0 where m = -inf
+    tot = sum_over(torch.cat([o * a, l * a], dim=-1), seq)
+    return tot[..., :-1] / tot[..., -1:]
+
+
+def _decode_sdpa(q, k, v, scale: float, n_valid=None, seq=(), s0: int = 0):
     """q (B,1,H,D) vs cache k/v (B,S,Hkv,D*) -> (B,1,H,Dv).
 
-    `n_valid`: number of filled cache slots (unfilled ones are masked)."""
+    `n_valid`: number of filled cache slots (unfilled ones are masked);
+    ``seq``: the mesh axes that split the slots (this rank's from
+    ``s0``)."""
     B, _, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     qh = q.reshape(B, Hkv, G, D)
     s = torch.einsum("bhgd,bkhd->bhgk", f32(qh), f32(k)) * scale
+    if seq:
+        o = _merge_split(s, _valid_mask(S, n_valid, s.device, s0),
+                         lambda e: torch.einsum("bhgk,bkhd->bhgd",
+                                                f32(e.to(v.dtype)), f32(v)),
+                         seq)
+        return o.reshape(B, 1, H, v.shape[3]).to(q.dtype)
     if n_valid is not None:
         s = torch.where(_valid_mask(S, n_valid, s.device), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -127,17 +171,32 @@ def _decode_sdpa(q, k, v, scale: float, n_valid=None):
     return o.reshape(B, 1, H, v.shape[3]).to(q.dtype)
 
 
-def _write_slot(buf, x, slot):
-    """Overwrite ``buf[:, slot]`` with ``x`` (B, 1, ...) in place;
-    ``slot`` a 0-d device tensor (no host read)."""
-    buf.index_copy_(1, slot.reshape(1).to(torch.long), x.to(buf.dtype))
+def _write_slot(buf, x, cache_pos, seq=()):
+    """Overwrite slot ``cache_pos % S`` of the ring buffer ``buf`` with
+    ``x`` (B, 1, ...) in place (``cache_pos`` a 0-d device tensor: no host
+    read).  With ``seq``, ``buf`` is this rank's block of the slots: the
+    rank that holds the slot writes it, the others leave ``buf`` as it
+    is."""
+    S, s0 = seq_block(seq, buf.shape[1])
+    slot = (cache_pos % S).reshape(()).to(torch.long)
+    x = x.to(buf.dtype)
+    if seq:
+        local = slot - s0
+        mine = (local >= 0) & (local < buf.shape[1])
+        slot = torch.clamp(local, 0, buf.shape[1] - 1)
+        x = torch.where(mine, x, buf.index_select(1, slot.reshape(1)))
+    buf.index_copy_(1, slot.reshape(1), x)
     return buf
 
 
-def _write_prefix(buf, x):
-    """Overwrite ``buf[:, :S]`` with the prompt's ``x`` (B, S, ...) in
-    place."""
-    buf[:, :x.shape[1]].copy_(x)
+def _write_prefix(buf, x, seq=()):
+    """Overwrite the first ``x.shape[1]`` slots with the prompt's ``x``
+    (B, S, ...) in place: of this rank's block of the slots with
+    ``seq``."""
+    _, s0 = seq_block(seq, buf.shape[1])
+    n = min(buf.shape[1], x.shape[1] - s0)
+    if n > 0:
+        buf[:, :n].copy_(x[:, s0:s0 + n])
     return buf
 
 
@@ -220,8 +279,9 @@ def kv_whole(t, cfg: ArchConfig, plan: ShardingPlan):
 
 def gqa_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
               causal=True, mode="train", cache=None, cache_pos=None,
-              pos3=None):
-    """mode: train/prefill (blockwise) | decode (ring-buffer cache)."""
+              pos3=None, seq=()):
+    """mode: train/prefill (blockwise) | decode (ring-buffer cache);
+    ``seq``: the mesh axes that split the cache's slots."""
     B, S, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     wk, wv = p["wk"], p["wv"]
@@ -251,13 +311,14 @@ def gqa_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
     scale = hd ** -0.5
 
     if mode == "decode":
-        S_cache = cache["k"].shape[1]
-        slot = cache_pos % S_cache
-        k_cache = _write_slot(cache["k"], kv_whole(k, cfg, plan), slot)
-        v_cache = _write_slot(cache["v"], kv_whole(v, cfg, plan), slot)
-        n_valid = torch.clamp(cache_pos + 1, max=S_cache)
+        S_cache, s0 = seq_block(seq, cache["k"].shape[1])
+        k_cache = _write_slot(cache["k"], kv_whole(k, cfg, plan), cache_pos,
+                              seq)
+        v_cache = _write_slot(cache["v"], kv_whole(v, cfg, plan), cache_pos,
+                              seq)
         o = _decode_sdpa(q, _kv_heads(k_cache, kv0, Hkv),
-                         _kv_heads(v_cache, kv0, Hkv), scale, n_valid)
+                         _kv_heads(v_cache, kv0, Hkv), scale,
+                         _n_valid(cache_pos, S_cache), seq, s0)
         new_cache = {"k": k_cache, "v": v_cache}
     else:
         o = _blockwise(q, k, v, causal=causal, scale=scale)
@@ -265,8 +326,8 @@ def gqa_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
         if mode == "prefill":
             k, v = kv_whole(k, cfg, plan), kv_whole(v, cfg, plan)
             if cache is not None:  # write prompt K/V into the cache buffer
-                new_cache = {"k": _write_prefix(cache["k"], k),
-                             "v": _write_prefix(cache["v"], v)}
+                new_cache = {"k": _write_prefix(cache["k"], k, seq),
+                             "v": _write_prefix(cache["v"], v, seq)}
             else:
                 new_cache = {"k": k.to(torch.bfloat16),
                              "v": v.to(torch.bfloat16)}
@@ -366,7 +427,7 @@ def _mla_q(p, x, cfg: ArchConfig, split: bool):
 
 
 def mla_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
-              mode="train", cache=None, cache_pos=None):
+              mode="train", cache=None, cache_pos=None, seq=()):
     B, S, _ = x.shape
     m = tp_ranks(plan, "tp", cfg.n_heads)
     H = cfg.n_heads // m
@@ -389,20 +450,28 @@ def mla_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
     w_k, w_v = wkv_b[..., :nope], wkv_b[..., nope:]
 
     if mode == "decode":
-        S_cache = cache["c_kv"].shape[1]
-        slot = cache_pos % S_cache
-        c_cache = _write_slot(cache["c_kv"], c_kv, slot)
-        r_cache = _write_slot(cache["k_rope"], k_rope[:, :, 0], slot)
+        S_cache, s0 = seq_block(seq, cache["c_kv"].shape[1])
+        c_cache = _write_slot(cache["c_kv"], c_kv, cache_pos, seq)
+        r_cache = _write_slot(cache["k_rope"], k_rope[:, :, 0], cache_pos,
+                              seq)
         # absorbed scores: q_nope' = q_nope @ w_k^T  -> (B,1,H,kvl)
         q_abs = torch.einsum("bshn,khn->bshk", q_nope, w_k)
         s = (torch.einsum("bshk,btk->bhst", f32(q_abs), f32(c_cache))
              + torch.einsum("bshr,btr->bhst", f32(q_rope), f32(r_cache))
              ) * scale
-        n_valid = torch.clamp(cache_pos + 1, max=S_cache)
-        s = torch.where(_valid_mask(S_cache, n_valid, s.device), s, NEG_INF)
-        pr = torch.softmax(s, dim=-1)
-        o_lat = torch.einsum("bhst,btk->bshk", f32(pr.to(c_cache.dtype)),
-                             f32(c_cache))
+        n_valid = _n_valid(cache_pos, S_cache)
+        if seq:
+            o_lat = _merge_split(
+                s, _valid_mask(c_cache.shape[1], n_valid, s.device, s0),
+                lambda e: torch.einsum("bhst,btk->bhsk",
+                                       f32(e.to(c_cache.dtype)),
+                                       f32(c_cache)), seq).transpose(1, 2)
+        else:
+            s = torch.where(_valid_mask(S_cache, n_valid, s.device), s,
+                            NEG_INF)
+            pr = torch.softmax(s, dim=-1)
+            o_lat = torch.einsum("bhst,btk->bshk",
+                                 f32(pr.to(c_cache.dtype)), f32(c_cache))
         o = torch.einsum("bshk,khv->bshv", o_lat.to(x.dtype), w_v)
         new_cache = {"c_kv": c_cache, "k_rope": r_cache}
     else:
@@ -416,9 +485,9 @@ def mla_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
         new_cache = None
         if mode == "prefill":
             if cache is not None:
-                new_cache = {"c_kv": _write_prefix(cache["c_kv"], c_kv),
+                new_cache = {"c_kv": _write_prefix(cache["c_kv"], c_kv, seq),
                              "k_rope": _write_prefix(cache["k_rope"],
-                                                     k_rope[:, :, 0])}
+                                                     k_rope[:, :, 0], seq)}
             else:
                 new_cache = {"c_kv": c_kv.to(torch.bfloat16),
                              "k_rope": k_rope[:, :, 0].to(torch.bfloat16)}

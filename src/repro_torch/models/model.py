@@ -34,8 +34,19 @@ heads, the MLP's hidden columns, the experts, the vocabulary: wherever
 for the MLP, on its hidden dim), the region gathers its leaves only over
 the batch axes and runs on its own block (``_block_split``): the
 vocabulary-parallel lookup and cross entropy below, the head split in
-``attention``, the expert split in ``moe``.  ``prefill`` and
-``decode_step`` return logits gathered over ``model``.
+``attention``, the expert split in ``moe``, the head and channel splits of
+RWKV-6 and Mamba in ``ssm``.  ``prefill`` and ``decode_step`` return
+logits gathered over ``model``.
+
+The decode caches are stored as the reference's plan places them: each
+leaf at this rank's block of ``plan.spec`` of all its dims
+(``init_cache``), so a rank holds its heads of RWKV-6's ``state``, its
+``di`` channels of Mamba's ``conv`` and ``h``, and, where the batch is
+too small for ``data`` (batch 1 on a mesh with ``data`` > 1), its block
+of the attention caches' slots, over which ``attention`` decodes (the
+``seq`` axes).  A cache's layout follows from the global batch and the
+cache length, which ``prefill`` and ``decode_step`` take beside this
+rank's rows.
 """
 from __future__ import annotations
 
@@ -48,11 +59,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig, ShardingPlan
+from repro_torch.configs.base import NO_SHARDING, ArchConfig, ShardingPlan
 from repro_torch.parallel.shard import (copy_to_model, current_mesh,
                                         gather_model, gather_tree,
-                                        max_over_model, reduce_from_model,
-                                        tp_rank, tp_ranks)
+                                        local_shape, max_over_model,
+                                        reduce_from_model, seq_axes, tp_rank,
+                                        tp_ranks)
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
@@ -254,10 +266,44 @@ def cache_defs(cfg: ArchConfig, B: int, S: int) -> dict:
     return out
 
 
-def init_cache(cfg: ArchConfig, B: int, S: int, device=None):
-    return tree_map(lambda d: torch.zeros(d.shape, dtype=DTYPES[d.dtype],
-                                          device=device),
-                    cache_defs(cfg, B, S))
+def init_cache(cfg: ArchConfig, B: int, S: int, device=None,
+               plan: ShardingPlan = NO_SHARDING):
+    """Zero caches for a batch of ``B`` and ``S`` slots (both global): on
+    the ambient mesh each leaf at this rank's block of ``plan.spec`` of
+    its dims."""
+    rm = current_mesh()
+
+    def zeros(d):
+        shape = d.shape
+        if rm is not None:
+            shape = local_shape(shape, plan.spec(d.dims, d.shape), rm.sizes)
+        return torch.zeros(shape, dtype=DTYPES[d.dtype], device=device)
+    return tree_map(zeros, cache_defs(cfg, B, S))
+
+
+def cache_seq(cfg: ArchConfig, plan: ShardingPlan, B: int,
+              S: int | None) -> tuple[str, ...]:
+    """The mesh axes that split the attention caches' slots for a global
+    batch ``B`` and ``S`` slots (``seq_axes`` of their dims).  ``S=None``:
+    the cache length is not known; raises if the plan could split it."""
+    for d in flatten(cache_defs(cfg, B, S or 0)).values():
+        if "seq" in d.dims:
+            axes = seq_axes(plan, d.dims, d.shape)
+            if S is None and axes:
+                raise ValueError("this cache's slots may be split over "
+                                 f"{axes}: pass its cache_len")
+            return axes
+    return ()
+
+
+def batch_size(B: int, plan: ShardingPlan, given: int | None = None) -> int:
+    """The global batch of this rank's ``B`` rows: ``given``, else ``B``
+    times the ambient mesh's batch ranks (the batch split over all of
+    them)."""
+    rm = current_mesh()
+    if given is not None or rm is None:
+        return given or B
+    return B * rm.size(rm.batch_axes(plan))
 
 
 # --------------------------------------------------------------------------
@@ -265,19 +311,20 @@ def init_cache(cfg: ArchConfig, B: int, S: int, device=None):
 
 
 def _apply_mixer(spec: BlockSpec, p, h, pos, cfg, plan, mode, cache,
-                 cache_pos, pos3):
+                 cache_pos, pos3, seq=()):
     if spec.mixer == "gqa":
         return attn.gqa_apply(p, h, pos, cfg, plan, causal=spec.causal,
                               mode=mode, cache=cache, cache_pos=cache_pos,
-                              pos3=pos3)
+                              pos3=pos3, seq=seq)
     if spec.mixer == "mla":
         return attn.mla_apply(p, h, pos, cfg, plan, mode=mode, cache=cache,
-                              cache_pos=cache_pos)
+                              cache_pos=cache_pos, seq=seq)
     if spec.mixer == "rwkv6":
         x_prev = cache["x_prev"].to(h.dtype) if cache is not None else \
             torch.zeros_like(h[:, :1])
+        H, dk = ssm.rwkv6_heads(cfg), cfg.d_model // ssm.rwkv6_heads(cfg)
         state = cache["state"] if cache is not None else torch.zeros(
-            (h.shape[0], max(cfg.d_model // 64, 1), 64, 64),
+            (h.shape[0], H // ssm.rwkv6_ranks(cfg, plan), dk, dk),
             dtype=torch.float32, device=h.device)
         if mode == "decode":
             y, (xl, st) = ssm.rwkv6_step(p, h, x_prev, state, cfg, plan)
@@ -287,7 +334,7 @@ def _apply_mixer(spec: BlockSpec, p, h, pos, cfg, plan, mode, cache,
                       "state": st} if mode != "train" else None)
         return y, new_cache
     if spec.mixer == "mamba":
-        di = cfg.expand * cfg.d_model
+        di = cfg.expand * cfg.d_model // ssm.mamba_ranks(cfg, plan)
         conv = cache["conv"] if cache is not None else torch.zeros(
             (h.shape[0], cfg.d_conv - 1, di), dtype=torch.bfloat16,
             device=h.device)
@@ -334,13 +381,14 @@ def _apply_ffn(spec: BlockSpec, p, h, cfg, plan, mode, cache):
 
 
 def apply_block(spec: BlockSpec, p, x, pos, cfg, plan, *, mode,
-                cache=None, cache_pos=None, pos3=None, x_enc=None):
-    """One transformer/SSM block. Returns (x, aux, new_cache)."""
+                cache=None, cache_pos=None, pos3=None, x_enc=None, seq=()):
+    """One transformer/SSM block. Returns (x, aux, new_cache).  ``seq``:
+    the mesh axes that split the attention caches' slots."""
     c_mix = cache.get("mixer") if cache else None
     c_ffn = cache.get("ffn") if cache else None
     h = _apply_norm(p["norm1"], x, cfg)
     y, new_mix = _apply_mixer(spec, p["mixer"], h, pos, cfg, plan, mode,
-                              c_mix, cache_pos, pos3)
+                              c_mix, cache_pos, pos3, seq)
     x = x + y
     new_cache: dict[str, Any] = {}
     if new_mix is not None:
@@ -391,13 +439,17 @@ def _whole(params, name: str, cfg: ArchConfig, plan: ShardingPlan):
 
 def _block_split(spec: BlockSpec, cfg: ArchConfig, plan: ShardingPlan):
     """How a block's leaves are gathered where ``model`` splits its
-    regions (``gather_tree``'s split; the SSM mixers and FFN run whole)."""
+    regions (``gather_tree``'s split)."""
     out = {}
-    mixer = {"gqa": attn.gqa_split, "mla": attn.mla_split}.get(spec.mixer)
+    mixer = {"gqa": attn.gqa_split, "mla": attn.mla_split,
+             "rwkv6": ssm.rwkv6_split, "mamba": ssm.mamba_split}.get(
+                 spec.mixer)
     if mixer is not None:
         out["mixer"] = mixer(cfg, plan)
     if spec.ffn == "moe":
         out["ffn"] = moe_mod.moe_split(cfg, plan)
+    elif spec.ffn == "rwkv":
+        out["ffn"] = ssm.rwkv6_ffn_split(cfg, plan)
     elif _dense_split(spec, cfg, plan) > 1:
         own = (1, False)
         out["ffn"] = ({"w1": own, "w2": own} if spec.ffn == "mlp" else
@@ -435,7 +487,7 @@ def _store(stacked: dict, i: int, new: dict) -> None:
 
 
 def _run_stack(spec: BlockSpec, p_stacked, x, pos, cfg, plan, *, mode,
-               cache=None, cache_pos=None, pos3=None, x_enc=None):
+               cache=None, cache_pos=None, pos3=None, x_enc=None, seq=()):
     """One run, layer by layer (stacked params / caches). Returns (x, aux,
     new_cache): ``cache`` itself, updated in place, when one is given;
     else the layers' caches stacked (``None`` in train mode)."""
@@ -450,7 +502,7 @@ def _run_stack(spec: BlockSpec, p_stacked, x, pos, cfg, plan, *, mode,
         c_l = _layer(cache, i) if cache is not None else None
         x, a, nc = block(spec, _layer(p_stacked, i), x, pos, cfg, plan,
                          mode=mode, cache=c_l, cache_pos=cache_pos,
-                         pos3=pos3, x_enc=x_enc)
+                         pos3=pos3, x_enc=x_enc, seq=seq)
         aux = aux + a
         if nc is None:
             continue
@@ -517,8 +569,9 @@ def _encoder(params, batch, cfg, plan):
 
 
 def backbone(params, tokens, pos, cfg, plan, *, mode, cache=None,
-             pos3=None, batch=None):
-    """Shared trunk. Returns (hidden, aux, new_cache)."""
+             pos3=None, batch=None, seq=()):
+    """Shared trunk. Returns (hidden, aux, new_cache).  ``seq``: the mesh
+    axes that split the attention caches' slots (``cache_seq``)."""
     x = _embed(params, tokens, cfg, plan)
     if cfg.n_patches and batch is not None and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(x.dtype)
@@ -536,7 +589,7 @@ def backbone(params, tokens, pos, cfg, plan, *, mode, cache=None,
         c = cache.get(f"run{r}") if cache is not None else None
         x, a, nc = _run_stack(spec, params[f"run{r}"], x, pos, cfg, plan,
                               mode=mode, cache=c, cache_pos=cache_pos,
-                              pos3=pos3, x_enc=x_enc)
+                              pos3=pos3, x_enc=x_enc, seq=seq)
         aux = aux + a
         if nc is not None:
             new_cache[f"run{r}"] = nc
@@ -621,31 +674,41 @@ def loss_fn(params, batch, cfg: ArchConfig, plan: ShardingPlan):
 
 
 def prefill(params, batch, cfg: ArchConfig, plan: ShardingPlan,
-            cache_len: int):
-    """Build decode caches from a full prompt; returns (cache, last logits)."""
+            cache_len: int, global_batch: int | None = None):
+    """Build decode caches from a full prompt; returns (cache, last logits).
+    On a mesh, ``batch`` holds this rank's rows of a batch of
+    ``global_batch`` (default ``batch_size``) and the cache is this rank's
+    block of the whole."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     if S > cache_len:
         raise ValueError(f"prompt of {S} tokens is longer than the cache "
                          f"capacity {cache_len}")
-    cache = init_cache(cfg, B, cache_len, tokens.device)
+    Bg = batch_size(B, plan, global_batch)
+    cache = init_cache(cfg, Bg, cache_len, tokens.device, plan)
     pos = batch.get("pos", torch.arange(S, device=tokens.device)[None])
     x, _, new_cache = backbone(params, tokens, pos, cfg, plan, mode="prefill",
                                cache=cache, pos3=batch.get("pos3"),
-                               batch=batch)
+                               batch=batch,
+                               seq=cache_seq(cfg, plan, Bg, cache_len))
     logits = _unembed(params, x[:, -1:], cfg, plan)
     return new_cache, logits
 
 
 def decode_step(params, cache, tokens, cfg: ArchConfig, plan: ShardingPlan,
-                batch=None):
+                batch=None, global_batch: int | None = None,
+                cache_len: int | None = None):
     """One token for every sequence in the batch. tokens (B, 1).  The
     cache's tensors are updated in place; the returned cache holds them
-    and the advanced ``pos``."""
+    and the advanced ``pos``.  On a mesh, ``global_batch`` and
+    ``cache_len`` are those ``prefill`` was given (``cache_len`` is
+    needed where the plan may split the cache's slots)."""
     pos = cache["pos"] + torch.zeros(tokens.shape, dtype=torch.int32,
                                      device=tokens.device)
     pos3 = pos.expand((3,) + tuple(tokens.shape)) if cfg.m_rope else None
+    Bg = batch_size(tokens.shape[0], plan, global_batch)
     x, _, new_cache = backbone(params, tokens, pos, cfg, plan, mode="decode",
-                               cache=cache, pos3=pos3, batch=batch)
+                               cache=cache, pos3=pos3, batch=batch,
+                               seq=cache_seq(cfg, plan, Bg, cache_len))
     logits = _unembed(params, x, cfg, plan)
     return new_cache, logits

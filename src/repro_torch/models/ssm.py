@@ -11,6 +11,29 @@ Mamba is the classic selective SSM: causal depthwise conv + input-dependent
 (dt, B, C) and a diagonal state recurrence carried over the sequence in
 chunks of 128 steps; decode keeps (conv window, h) as cache.  States and
 the decay's clips are float32, as in the reference.
+
+On a mesh whose ``model`` axis splits the dim that the reference's plan
+splits in these blocks' states (RWKV-6's heads, Mamba's ``di``:
+``parallel.shard.tp_ranks``), a rank runs its own block of that dim, and
+its cache leaves hold just that block, as the plan stores them:
+
+- RWKV-6 time mix: ``r``, ``k``, ``v``, ``g`` and the decay on the rank's
+  columns of ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` / ``decay_b`` (its H/m
+  heads of 64 channels), the recurrence on those heads, ``ln_x``'s sum of
+  squares over all ``d`` channels summed across ranks both ways
+  (``sum_over_model``), its rows of ``w_o`` and a ``reduce_from_model``;
+- RWKV channel mix: its columns of ``w_k`` and ``w_r``, its rows of
+  ``w_v``;
+- Mamba: its ``di/m`` channels through the conv, the ``dt`` and B/C
+  projections (their partial products summed both ways over ``model``),
+  the scan and its rows of ``w_out``.
+
+The block's input enters through ``copy_to_model``; the leaves that
+``model`` replicates but that the rank uses only in part (the token-shift
+``mix``, the decay's LoRA and ``w0``, ``bonus_u``, ``ln_x``) and Mamba's
+``w_in`` are gathered whole with a summed gradient (``*_split``).  Where
+the plan does not split that dim (too few heads), the block runs whole on
+every rank, its weights gathered over ``model``.
 """
 from __future__ import annotations
 
@@ -18,7 +41,34 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, ShardingPlan
+from repro_torch.parallel.shard import (copy_to_model, gather_from_model,
+                                        reduce_from_model, sum_over_model,
+                                        tp_rank, tp_ranks)
 from .layers import ParamDef, constrain, f32, rms_norm
+
+OWN, SUMMED = (1, False), (None, True)     # gather_tree's split of a leaf
+
+
+def _cols(t, m: int):
+    """This rank's block of ``m`` along the last dim of ``t`` (``t``
+    itself for ``m == 1``)."""
+    if m == 1:
+        return t
+    n = t.shape[-1] // m
+    return t.narrow(-1, tp_rank() * n, n)
+
+
+def _norm_split(y, gamma, eps: float, d: int, m: int):
+    """``rms_norm`` over all ``d`` channels of which ``y`` holds this
+    rank's ``d/m`` (and ``gamma`` their scales): the sum of squares summed
+    over ``model`` both ways."""
+    if m == 1:
+        return rms_norm(y, gamma, eps)
+    dt = y.dtype
+    y = f32(y)
+    ss = sum_over_model(torch.sum(y * y, dim=-1, keepdim=True))
+    y = y * torch.rsqrt(ss / d + eps)
+    return (y * f32(gamma)).to(dt)
 
 # --------------------------------------------------------------------------
 # RWKV6
@@ -26,7 +76,6 @@ from .layers import ParamDef, constrain, f32, rms_norm
 
 def rwkv6_defs(cfg: ArchConfig, dt: str) -> dict:
     d = cfg.d_model
-    H = max(d // 64, 1)                      # head_size 64 (RWKV convention)
     lora = max(32, d // 32)
     return {
         "w_r": ParamDef((d, d), ("fsdp", "tp"), dtype=dt),
@@ -45,9 +94,31 @@ def rwkv6_defs(cfg: ArchConfig, dt: str) -> dict:
     }
 
 
-def _rwkv6_inputs(p, x, x_prev):
+def rwkv6_heads(cfg: ArchConfig) -> int:
+    return max(cfg.d_model // 64, 1)         # head_size 64 (RWKV convention)
+
+
+def rwkv6_ranks(cfg: ArchConfig, plan: ShardingPlan) -> int:
+    """The ``model`` ranks that split the time mix's heads (the state's
+    ``("batch", "tp", None, None)``)."""
+    return tp_ranks(plan, "tp", rwkv6_heads(cfg))
+
+
+def rwkv6_split(cfg: ArchConfig, plan: ShardingPlan) -> dict:
+    """``gather_tree``'s split of a time-mix block's leaves ({} when the
+    block runs whole)."""
+    if rwkv6_ranks(cfg, plan) == 1:
+        return {}
+    return {**{k: OWN for k in ("w_r", "w_k", "w_v", "w_g", "w_o")},
+            **{k: SUMMED for k in ("decay_w0", "decay_a", "decay_b",
+                                   "bonus_u", "mix", "ln_x")}}
+
+
+def _rwkv6_inputs(p, x, x_prev, m: int = 1):
     """Token-shifted projections. x (B,S,d); x_prev (B,1,d) last token of
-    previous segment (zeros at sequence start)."""
+    previous segment (zeros at sequence start).  On ``m`` ranks the
+    projections and the decay are this rank's channels (``w_*`` its
+    column blocks, ``decay_w0`` / ``decay_b`` whole and cut here)."""
     xs = torch.cat([x_prev, x[:, :-1]], dim=1)            # shifted
     mix = torch.sigmoid(p["mix"]).to(x.dtype)             # (5, d)
 
@@ -57,7 +128,8 @@ def _rwkv6_inputs(p, x, x_prev):
     k = mixed(1) @ p["w_k"]
     v = mixed(2) @ p["w_v"]
     g = F.silu(mixed(3) @ p["w_g"])
-    lw = p["decay_w0"] + torch.tanh(mixed(4) @ p["decay_a"]) @ p["decay_b"]
+    lw = _cols(p["decay_w0"], m) + torch.tanh(
+        mixed(4) @ p["decay_a"]) @ _cols(p["decay_b"], m)
     # log decay in [-5, 0): the lower clamp bounds the intra-chunk exponent
     # (chunk=16 -> |cum| <= 80 < log(f32 max)), exactly as chunked GLA does.
     log_w = -torch.clamp(torch.exp(torch.clamp(f32(lw), -10.0, 6.0)),
@@ -67,12 +139,15 @@ def _rwkv6_inputs(p, x, x_prev):
 
 def rwkv6_chunked(p, x, x_prev, state, cfg: ArchConfig,
                   plan: ShardingPlan, chunk: int = 16):
-    """x (B,S,d) -> (y, (x_last, state)). state (B,H,dk,dv) f32."""
+    """x (B,S,d) -> (y, (x_last, state)). state (B,H,dk,dv) f32 (this
+    rank's H/m heads on a split)."""
     B, S, d = x.shape
-    H = max(d // 64, 1)
-    dk = d // H
-    r, k, v, g, log_w = _rwkv6_inputs(p, x, x_prev)
-    u = p["bonus_u"].reshape(H, dk)
+    m = rwkv6_ranks(cfg, plan)
+    dk = d // rwkv6_heads(cfg)
+    H = rwkv6_heads(cfg) // m
+    x_in = copy_to_model(x) if m > 1 else x
+    r, k, v, g, log_w = _rwkv6_inputs(p, x_in, x_prev, m)
+    u = _cols(p["bonus_u"], m).reshape(H, dk)
 
     C = min(chunk, S)
     while S % C != 0:  # largest chunk <= requested that divides S
@@ -86,44 +161,49 @@ def rwkv6_chunked(p, x, x_prev, state, cfg: ArchConfig,
                        reshape_h(log_w))
     mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=x.device),
                       diagonal=-1)
-    ys = []
+    # every chunk's own terms at once; only the state runs chunk by chunk
+    cum = torch.cumsum(lws, dim=3)                        # inclusive Σ log w
+    total = cum[..., -1:, :]                              # (N,B,H,1,dk)
+    # decay of state contribution up to each position (exclusive)
+    r_dec = rs * torch.exp(cum - lws)                     # r_t Π_{s<t} w_s
+    # intra-chunk: pairwise decays Π_{s<t..} via cum differences
+    ki = ks * torch.exp(-cum)                             # k_s / Π_{u<=s} w
+    att = torch.where(mask, torch.einsum("nbhck,nbhsk->nbhcs", r_dec, ki),
+                      0.0)
+    y_intra = torch.einsum("nbhcs,nbhsv->nbhcv", att, vs)
+    # current-token bonus u
+    y_diag = torch.einsum("nbhck,nbhck->nbhc", rs * u[:, None, :],
+                          ks)[..., None] * vs
+    # state update: S' = diag(Πw) S + Σ_s (Π_{u>s} w ⊙ k_s)^T v_s
+    k_dec_v = torch.einsum("nbhsk,nbhsv->nbhkv", ks * torch.exp(total - cum),
+                           vs)
+    decay = torch.exp(total).transpose(3, 4)              # (N,B,H,dk,1)
+    y_inter = []
     for n in range(N):
-        rc, kc, vc, lwc = rs[n], ks[n], vs[n], lws[n]    # (B,H,C,*)
-        cum = torch.cumsum(lwc, dim=2)                    # inclusive Σ log w
-        total = cum[:, :, -1:]                            # (B,H,1,dk)
-        # decay of state contribution up to each position (exclusive)
-        dec_q = torch.exp(cum - lwc)                      # Π_{s<t} w_s
-        r_dec = rc * dec_q
         # inter-chunk: r_t · (Π_{s<t} w) · state
-        y_inter = torch.einsum("bhck,bhkv->bhcv", r_dec, state)
-        # intra-chunk: pairwise decays Π_{s<t..} via cum differences
-        ki = kc * torch.exp(-cum)                         # k_s / Π_{u<=s} w
-        att = torch.einsum("bhck,bhsk->bhcs", r_dec, ki)
-        att = torch.where(mask, att, 0.0)
-        y_intra = torch.einsum("bhcs,bhsv->bhcv", att, vc)
-        # current-token bonus u
-        y_diag = torch.einsum("bhck,bhck->bhc", rc * u[None, :, None, :],
-                              kc)[..., None] * vc
-        # state update: S' = diag(Πw) S + Σ_s (Π_{u>s} w ⊙ k_s)^T v_s
-        k_dec = kc * torch.exp(total - cum)
-        state = (torch.exp(total).transpose(2, 3) * state
-                 + torch.einsum("bhsk,bhsv->bhkv", k_dec, vc))
-        ys.append(y_inter + y_intra + y_diag)
+        y_inter.append(torch.einsum("bhck,bhkv->bhcv", r_dec[n], state))
+        state = decay[n] * state + k_dec_v[n]
+    ys = torch.stack(y_inter) + y_intra + y_diag
     # (N,B,H,C,dv) -> (B,S,d)
-    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, S, d)
-    y = rms_norm(y.to(x.dtype), p["ln_x"], cfg.rms_eps) * g
+    y = ys.permute(1, 0, 3, 2, 4).reshape(B, S, H * dk)
+    y = _norm_split(y.to(x.dtype), _cols(p["ln_x"], m), cfg.rms_eps, d,
+                    m) * g
     out = y @ p["w_o"]
+    if m > 1:
+        out = reduce_from_model(out)
     out = constrain(out, plan, ("batch", None, "fsdp"))
     return out, (x[:, -1:], state)
 
 
 def rwkv6_step(p, x, x_prev, state, cfg: ArchConfig, plan: ShardingPlan):
-    """Single-token decode. x (B,1,d); state (B,H,dk,dv)."""
+    """Single-token decode. x (B,1,d); state (B,H,dk,dv) (H/m heads)."""
     B, _, d = x.shape
-    H = max(d // 64, 1)
-    dk = d // H
-    r, k, v, g, log_w = _rwkv6_inputs(p, x, x_prev)
-    u = p["bonus_u"].reshape(H, dk)
+    m = rwkv6_ranks(cfg, plan)
+    dk = d // rwkv6_heads(cfg)
+    H = rwkv6_heads(cfg) // m
+    x_in = copy_to_model(x) if m > 1 else x
+    r, k, v, g, log_w = _rwkv6_inputs(p, x_in, x_prev, m)
+    u = _cols(p["bonus_u"], m).reshape(H, dk)
     rh = f32(r).reshape(B, H, dk)
     kh = f32(k).reshape(B, H, dk)
     vh = f32(v).reshape(B, H, dk)
@@ -131,9 +211,10 @@ def rwkv6_step(p, x, x_prev, state, cfg: ArchConfig, plan: ShardingPlan):
     kv = torch.einsum("bhk,bhv->bhkv", kh, vh)
     y = torch.einsum("bhk,bhkv->bhv", rh, state + u[None, :, :, None] * kv)
     state = w[..., None] * state + kv
-    y = y.reshape(B, 1, d).to(x.dtype)
-    y = rms_norm(y, p["ln_x"], cfg.rms_eps) * g
-    return y @ p["w_o"], (x, state)
+    y = y.reshape(B, 1, H * dk).to(x.dtype)
+    y = _norm_split(y, _cols(p["ln_x"], m), cfg.rms_eps, d, m) * g
+    out = y @ p["w_o"]
+    return (reduce_from_model(out) if m > 1 else out), (x, state)
 
 
 def rwkv6_ffn_defs(cfg: ArchConfig, dt: str) -> dict:
@@ -146,14 +227,42 @@ def rwkv6_ffn_defs(cfg: ArchConfig, dt: str) -> dict:
     }
 
 
+def rwkv6_ffn_ranks(cfg: ArchConfig, plan: ShardingPlan) -> int:
+    """The ``model`` ranks that split the channel mix: its hidden columns
+    and the receptance's, where the plan splits both ``d_ff`` and ``d``."""
+    return min(tp_ranks(plan, "tp", cfg.d_ff), tp_ranks(plan, "tp",
+                                                        cfg.d_model))
+
+
+def rwkv6_ffn_split(cfg: ArchConfig, plan: ShardingPlan) -> dict:
+    """``gather_tree``'s split of a channel-mix block's leaves."""
+    if rwkv6_ffn_ranks(cfg, plan) == 1:
+        return {}
+    return {"w_k": OWN, "w_v": OWN, "w_r": OWN, "mix": SUMMED}
+
+
 def rwkv6_ffn(p, x, x_prev, cfg: ArchConfig, plan: ShardingPlan):
-    """RWKV channel-mix: relu² K, sigmoid receptance gate."""
-    xs = torch.cat([x_prev, x[:, :-1]], dim=1)
+    """RWKV channel-mix: relu² K, sigmoid receptance gate.
+
+    Split over ``model``, a rank computes ``relu(xk @ w_k)²`` on its
+    columns of ``w_k`` and its rows' partial product with ``w_v`` (summed
+    by ``reduce_from_model``), and the receptance on its columns of
+    ``w_r``, all-gathered over ``model`` (``gather_from_model``) before it
+    gates the sum.  Gathering ``w_r`` whole instead would have every rank
+    compute the whole (d, d) receptance: at ``rwkv6-1.6b``'s widths on 16
+    ranks that is 2.3x the rest of the rank's channel mix."""
+    m = rwkv6_ffn_ranks(cfg, plan)
+    x_in = copy_to_model(x) if m > 1 else x
+    xs = torch.cat([x_prev, x_in[:, :-1]], dim=1)
     mix = torch.sigmoid(p["mix"]).to(x.dtype)
-    xk = x + (xs - x) * mix[0]
-    xr = x + (xs - x) * mix[1]
+    xk = x_in + (xs - x_in) * mix[0]
+    xr = x_in + (xs - x_in) * mix[1]
     kk = torch.square(torch.relu(xk @ p["w_k"]))
-    out = torch.sigmoid(xr @ p["w_r"]) * (kk @ p["w_v"])
+    kv = kk @ p["w_v"]
+    rr = torch.sigmoid(xr @ p["w_r"])
+    if m > 1:
+        kv, rr = reduce_from_model(kv), gather_from_model(rr, -1)
+    out = rr * kv
     return constrain(out, plan, ("batch", None, "fsdp")), x[:, -1:]
 
 
@@ -181,24 +290,56 @@ def mamba_defs(cfg: ArchConfig, dt: str) -> dict:
     }
 
 
-def _mamba_bcdt(p, u):
-    """u (..., di) -> dt (softplus), B, C."""
+def mamba_ranks(cfg: ArchConfig, plan: ShardingPlan) -> int:
+    """The ``model`` ranks that split Mamba's ``di`` channels (the
+    caches' ``conv`` ``("batch", None, "tp")``, ``h`` ``("batch", "tp",
+    None)``)."""
+    return tp_ranks(plan, "tp", cfg.expand * cfg.d_model)
+
+
+def mamba_split(cfg: ArchConfig, plan: ShardingPlan) -> dict:
+    """``gather_tree``'s split of a Mamba block's leaves.  ``w_in``'s
+    ``model`` blocks cut the concatenated ``[u | z]`` columns (on 2 ranks
+    rank 0 stores all of ``u``), so it is gathered whole and each rank
+    takes its ``u`` and ``z`` columns; its gradient is summed over
+    ``model`` (a reduce-scatter), as each rank's covers only its own
+    columns."""
+    if mamba_ranks(cfg, plan) == 1:
+        return {}
+    out = {k: OWN for k in ("conv_w", "conv_b", "w_xdt", "w_dt", "dt_bias",
+                            "w_bc", "log_a", "d_skip", "w_out")}
+    out["w_in"] = SUMMED
+    return out
+
+
+def _mamba_bcdt(p, u, m: int = 1):
+    """u (..., di) -> dt (softplus), B, C.  On ``m`` ranks ``u`` is this
+    rank's ``di/m`` channels: the (…, dt_rank) and (…, 2·ds) projections
+    are partial sums, summed over ``model`` both ways."""
     ds = p["log_a"].shape[1]
-    dt = f32(F.softplus((u @ p["w_xdt"]) @ p["w_dt"]
-                        + p["dt_bias"].to(u.dtype)))
-    bc = u @ p["w_bc"]
+    a, bc = u @ p["w_xdt"], u @ p["w_bc"]
+    if m > 1:
+        a, bc = sum_over_model(a), sum_over_model(bc)
+    dt = f32(F.softplus(a @ p["w_dt"] + p["dt_bias"].to(u.dtype)))
     return dt, f32(bc[..., :ds]), f32(bc[..., ds:])
 
 
 def mamba_apply(p, x, conv_state, h_state, cfg: ArchConfig,
                 plan: ShardingPlan):
     """x (B,S,d) -> (y, (conv_state, h_state)). h (B,di,ds) f32,
-    conv_state (B, d_conv-1, di)."""
+    conv_state (B, d_conv-1, di) (their ``di/m`` channels on a split)."""
     B, S, d = x.shape
     di = cfg.expand * d
     dc = cfg.d_conv
-    xz = x @ p["w_in"]
-    u, z = xz[..., :di], xz[..., di:]
+    m = mamba_ranks(cfg, plan)
+    if m > 1:        # this rank's u and z columns of the whole w_in
+        x_in, n = copy_to_model(x), di // m
+        w_in = p["w_in"]
+        u = x_in @ w_in.narrow(-1, tp_rank() * n, n)
+        z = x_in @ w_in.narrow(-1, di + tp_rank() * n, n)
+    else:
+        xz = x @ p["w_in"]
+        u, z = xz[..., :di], xz[..., di:]
     # causal depthwise conv over the sequence
     u_pad = torch.cat([conv_state.to(u.dtype), u], dim=1)
     new_conv_state = u_pad[:, -(dc - 1):]
@@ -206,7 +347,7 @@ def mamba_apply(p, x, conv_state, h_state, cfg: ArchConfig,
     u = torch.einsum("bsdc,cd->bsd", stack, p["conv_w"]) + p["conv_b"]
     u = F.silu(u)
 
-    dt, Bm, Cm = _mamba_bcdt(p, u)                        # (B,S,di),(B,S,ds)
+    dt, Bm, Cm = _mamba_bcdt(p, u, m)                     # (B,S,di),(B,S,ds)
     A = -torch.exp(p["log_a"])                            # (di, ds)
     uf = f32(u)
 
@@ -227,6 +368,8 @@ def mamba_apply(p, x, conv_state, h_state, cfg: ArchConfig,
             ys.append(torch.einsum("bds,bs->bd", h_state, C_c[:, t]))
     y = torch.stack(ys, dim=1) + uf * p["d_skip"]         # (B,S,di)
     y = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+    if m > 1:
+        y = reduce_from_model(y)
     return constrain(y, plan, ("batch", None, "fsdp")), \
         (new_conv_state.to(x.dtype), h_state)
 

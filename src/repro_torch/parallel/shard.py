@@ -45,11 +45,21 @@ keep=1)``: the batch axes; the ``model`` block of each leaf stays this
 rank's).  Megatron's two region operators bracket such a region:
 ``copy_to_model`` (identity forward, a sum over ``model`` backward) where
 a replicated activation or leaf enters it, ``reduce_from_model`` (a sum
-over ``model`` forward, identity backward) where its partial sums leave.
+over ``model`` forward, identity backward) where its partial sums leave;
+``sum_over_model`` (a sum both ways) where a partial sum feeds a split
+region again (RWKV-6's norm over all channels, Mamba's ``dt`` and B/C
+projections), ``gather_from_model`` (the blocks concatenated forward,
+this rank's block backward) where a split result feeds computation that
+every ``model`` rank repeats.
 Where ``model`` exceeds the KV heads, the ranks that share one KV head
 gather its ``wk`` / ``wv`` columns among themselves (``keep=s``, a
 sub-group of ``s`` consecutive ``model`` ranks) and sum their gradients
 (``summed``: a reduce-scatter over that sub-group, not a slice).
+
+A cache's sequence dim is split where the plan splits it (a batch of
+one leaves ``data`` to the sequence): ``seq_axes`` names the axes,
+``seq_block`` this rank's slots, ``max_over`` / ``sum_over`` combine the
+ranks' partial attention in decode.
 
 No DTensor and no FSDP wrapper: the placement stays visible, leaf by
 leaf, for the tests that hold it to the plan.
@@ -548,6 +558,35 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     return _ReduceFromModel.apply(x, current_mesh())
 
 
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the ``model`` ranks' partial ``x``, forward and backward:
+    where the sum feeds a split region again, each rank's gradient of it
+    is partial too (``copy_to_model`` of ``reduce_from_model``)."""
+    return copy_to_model(reduce_from_model(x))
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The ``model`` ranks' blocks concatenated forward; this rank's block
+    of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, rm, dim):
+        ctx.rm, ctx.dim = rm, dim % x.dim()
+        return _all_gather(x, rm, (MODEL,), ctx.dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.rm, (MODEL,), ctx.dim).contiguous(), None, None
+
+
+def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ``model`` ranks' blocks of ``x`` concatenated along ``dim``,
+    where the whole result feeds computation that every ``model`` rank
+    repeats (so each rank's gradient of it is the whole gradient, and its
+    own block is its share)."""
+    return _GatherFromModel.apply(x, current_mesh(), dim)
+
+
 def max_over_model(x: torch.Tensor) -> torch.Tensor:
     """The elementwise max of ``x`` over ``model`` (no gradient)."""
     return all_reduce(x.detach(), current_mesh(), (MODEL,),
@@ -558,6 +597,39 @@ def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The ``model`` ranks' ``x`` concatenated along ``dim`` in rank order
     (no gradient: serving's logits and cache writes)."""
     return _all_gather(x.detach(), current_mesh(), (MODEL,), dim)
+
+
+# ------------------------------------------- a cache's split sequence --
+
+def seq_axes(plan, dims, shape) -> tuple[str, ...]:
+    """The mesh axes that split the ``"seq"`` dim of a cache leaf of
+    logical ``dims`` and global ``shape`` under the plan on the ambient
+    mesh (``plan.spec``: with a batch too small for ``data``, its sequence
+    takes ``data``); () without a mesh or a ``"seq"`` dim."""
+    if current_mesh() is None or "seq" not in dims:
+        return ()
+    return spec_axes(plan.spec(tuple(dims), tuple(shape))[
+        tuple(dims).index("seq")])
+
+
+def seq_block(axes, n_local: int) -> tuple[int, int]:
+    """(the whole length, this rank's first slot) of a sequence dim of
+    which this rank holds ``n_local`` slots, split over ``axes``."""
+    if not axes:
+        return n_local, 0
+    rm = current_mesh()
+    return n_local * rm.size(axes), rm.index(axes) * n_local
+
+
+def max_over(x: torch.Tensor, axes) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks of ``axes`` (no
+    gradient: decode only)."""
+    return all_reduce(x.detach(), current_mesh(), axes, op=dist.ReduceOp.MAX)
+
+
+def sum_over(x: torch.Tensor, axes) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes`` (no gradient)."""
+    return all_reduce(x.detach(), current_mesh(), axes)
 
 
 def batch_mean(x: torch.Tensor, plan) -> torch.Tensor:

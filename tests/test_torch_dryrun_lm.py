@@ -50,15 +50,12 @@ def _leaves(tree):
     return [tree]
 
 
-def _ref_bytes(defs, plan, amesh, cache: bool = False) -> int:
-    """Per-device bytes of a reference ``ParamDef`` table under its plan.
-    A cache is split along its batch dim only, as the port keeps it: a
-    rank computes whole heads on gathered weights, so its cache rows hold
-    every head (and the whole sequence)."""
+def _ref_bytes(defs, plan, amesh) -> int:
+    """Per-device bytes of a reference ``ParamDef`` table under its plan
+    (a cache too: the port places it by ``plan.spec`` of every dim)."""
     n = 0
     for d in _leaves(defs):
-        dims = tuple(None if cache and x != "batch" else x for x in d.dims)
-        s = NamedSharding(amesh, P(*plan.spec(dims, d.shape)))
+        s = NamedSharding(amesh, P(*plan.spec(d.dims, d.shape)))
         n += int(np.prod(s.shard_shape(d.shape))) * np.dtype(
             "float32" if d.dtype == "float32" else
             "int32" if d.dtype == "int32" else "float16").itemsize
@@ -81,7 +78,7 @@ def _reference_arg_bytes(name: str, shape) -> int:
     n += _ref_bytes(RS.batch_defs(rcfg, shape, decode=decode), rplan, amesh)
     if decode:
         n += _ref_bytes(RM.cache_defs(rcfg, shape.global_batch,
-                                      shape.seq_len), rplan, amesh, cache=True)
+                                      shape.seq_len), rplan, amesh)
     return n
 
 

@@ -73,13 +73,14 @@ def world1(tmp_path_factory):
     w.close()
 
 
-def _reference_run(name: str, steps: int, B: int, S: int, M: int = 1):
+def _reference_run(name: str, steps: int, B: int, S: int, M: int = 1,
+                   over: dict | None = None):
     """The reference's one-device ``make_train_step``, ``steps`` steps from
     its own initial parameters: (params0, batches, a dict of the
     ``losses`` and ``grad_norms`` of every step and the final ``params``,
-    ``m`` and ``v``)."""
+    ``m`` and ``v``).  ``over``: smoke-config fields replaced."""
     rcfg, _ = configs(name)
-    rcfg = dataclasses.replace(rcfg, grad_accum=M)
+    rcfg = dataclasses.replace(rcfg, grad_accum=M, **(over or {}))
     p = ref_params(rcfg)
     p0 = p
     opt_cfg = ROptConfig(**OPT)

@@ -34,6 +34,8 @@ gap measured over the five architectures and three worlds:
 - ``LOGIT_TOL``: the prefill's last logits within 1.6e-6 of the largest
   logit (measured 7.88e-7, ``moonshot-v1-16b-a3b`` on ``(1, 4)``).
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -86,16 +88,20 @@ def world4(tmp_path_factory):
     w.close()
 
 
-def reference(name: str) -> dict:
-    """The reference's one-device runs of ``name`` (smoke), once per
-    process: two train steps from its own parameters (``p0``, the
-    ``batches``), ``loss_fn``'s gradients at ``p0`` on the first batch,
-    and greedy serving on ``p0``: the prefill's last logits and the
-    tokens."""
-    if name in _REF:
-        return _REF[name]
+def reference(name: str, over: dict | None = None) -> dict:
+    """The reference's one-device runs of ``name`` (smoke, its fields
+    ``over`` replaced), once per process: two train steps from its own
+    parameters (``p0``, the ``batches``), ``loss_fn``'s gradients at
+    ``p0`` on the first batch, and greedy serving on ``p0``: the prefill's
+    last logits and the tokens."""
+    key = (name, tuple(sorted((over or {}).items())))
+    if key in _REF:
+        return _REF[key]
     rcfg, cfg = configs(name)
-    p0, batches, run = _reference_run(name, 2, 4, 32)
+    if over:
+        rcfg = dataclasses.replace(rcfg, **over)
+        cfg = dataclasses.replace(cfg, **over)
+    p0, batches, run = _reference_run(name, 2, 4, 32, over=over)
     (_, _), grads = jax.jit(jax.value_and_grad(
         lambda p, b: RM.loss_fn(p, b, rcfg, R_NO_SHARDING),
         has_aux=True))(p0, as_ref(batches[0]))
@@ -116,12 +122,12 @@ def reference(name: str) -> dict:
             toks.append(np.asarray(logits[:, -1]).argmax(-1).astype(
                 np.int32)[:, None])
     tokens = np.concatenate(toks, axis=1)
-    _REF[name] = dict(p0=p0, batches=batches, run=run, logits=first,
+    _REF[key] = dict(p0=p0, batches=batches, run=run, logits=first,
                       tokens=tokens, grads=jax.tree.map(np.asarray, grads),
                       margin=margins(cfg, params_from_numpy(p0, "cpu"),
                                      tokens, batch=SERVE["batch"],
                                      prompt_len=n, seed=SERVE["seed"]))
-    return _REF[name]
+    return _REF[key]
 
 
 def _gap(got: list, want: list) -> float:
@@ -133,33 +139,40 @@ def _worst(got: dict, want: dict) -> tuple[float, str]:
     return max((rel_err(flat[k], ref[k]), k) for k in ref)
 
 
-def check_split(world, name: str, shape) -> str:
+def check_split(world, name: str, shape, over: dict | None = None,
+                tol: dict | None = None) -> list:
     """``name`` on ``shape``: every rank's results against the reference's
-    one-device runs; the measured gaps as a line."""
-    ref = reference(name)
+    one-device runs (``over``: smoke-config fields replaced; ``tol``:
+    tolerances in place of this file's, by name: ``loss``, ``norm``,
+    ``grads``, ``params``, ``m``, ``v``, ``logits``); the measured gaps
+    as a line.  Returns the ranks' outputs."""
+    tol = {**dict(loss=LOSS_TOL, norm=NORM_TOL, grads=GRAD_TOL,
+                  params=PARAM_TOL, m=OPT_TOL, v=OPT_TOL, logits=LOGIT_TOL),
+           **(tol or {})}
+    ref = reference(name, over)
     outs = world.run(C.tp_run, shape, AXES, name, ref["p0"], ref["batches"],
-                     OPT, SERVE)
+                     OPT, SERVE, over)
     run = ref["run"]
     for got in outs:
         assert got["losses"] == outs[0]["losses"]
         gl = _gap(got["losses"], run["losses"])
         gn = _gap(got["grad_norms"], run["grad_norms"])
-        assert gl <= LOSS_TOL, (name, shape, got["losses"], run["losses"])
-        assert gn <= NORM_TOL, (name, shape, got["grad_norms"],
-                                run["grad_norms"])
+        assert gl <= tol["loss"], (name, shape, got["losses"], run["losses"])
+        assert gn <= tol["norm"], (name, shape, got["grad_norms"],
+                                   run["grad_norms"])
         worst = {"grads": _worst(got["grads"], ref["grads"])}
         for part in ("params", "m", "v"):
             worst[part] = _worst(got[part], run[part])
-        for part, tol in (("grads", GRAD_TOL), ("params", PARAM_TOL),
-                          ("m", OPT_TOL), ("v", OPT_TOL)):
-            assert worst[part][0] <= tol, (name, shape, part, worst[part])
+        for part in ("grads", "params", "m", "v"):
+            assert worst[part][0] <= tol[part], (name, shape, part,
+                                                 worst[part])
         le = rel_err(got["logits"], ref["logits"])
-        assert le <= LOGIT_TOL, (name, shape, "logits", le)
+        assert le <= tol["logits"], (name, shape, "logits", le)
         check_tokens(got["tokens"], ref["tokens"], ref["margin"])
     line = (f"{name} {shape}: loss {gl:.2e} norm {gn:.2e} logits {le:.2e} "
             + " ".join(f"{k} {v[0]:.2e} ({v[1]})" for k, v in worst.items()))
     print(line)
-    return line
+    return outs
 
 
 @pytest.mark.parametrize("shape", WORLDS, ids=lambda s: f"{s[0]}x{s[1]}")

@@ -180,7 +180,8 @@ def serve(shape, axes, name: str, batch: int, prompt_len: int, gen: int,
            for k, v in serve_inputs(cfg, batch=batch, prompt_len=prompt_len,
                                     seed=seed, device="cpu").items()}
     with set_mesh(rm):
-        _, logits = make_prefill_step(cfg, plan, prompt_len)(params, inp)
+        _, logits = make_prefill_step(cfg, plan, prompt_len, batch)(params,
+                                                                    inp)
     if rm is not None:
         whole = (batch,) + tuple(logits.shape[1:])
         logits = unshard(logits, plan.spec(("batch", None, None), whole), rm)
@@ -337,13 +338,15 @@ def example_train(shape, axes, path: str, steps: int):
 
 
 def tp_run(shape, axes, name: str, params: dict, batches: list, opt: dict,
-           serve_kw: dict):
+           serve_kw: dict, over: dict | None = None):
     """The compute split on the mesh from the whole numpy ``params``:
     ``train``'s dict, plus the gradients of ``loss_fn`` at ``params`` on
     ``batches[0]`` gathered (``grads``), and greedy serving through
     ``launch.serve.serve`` on this rank's shards (``serve_kw``: batch,
     prompt_len, gen, seed): the tokens and the prefill step's last logits,
-    gathered (``tokens``, ``logits``)."""
+    gathered (``tokens``, ``logits``), and the shapes of this rank's cache
+    leaves (``cache_shapes``).  ``over``: config fields replaced in the
+    smoke config."""
     from repro_torch.configs import plan_for_mesh
     from repro_torch.data.pipeline import batch_spec, device_batch
     from repro_torch.launch.serve import serve, serve_inputs
@@ -355,7 +358,7 @@ def tp_run(shape, axes, name: str, params: dict, batches: list, opt: dict,
     from repro_torch.train.optimizer import value_and_grad
     m = mesh(tuple(shape), tuple(axes))
     rm = _rm(shape, axes)
-    cfg = _arch(name)
+    cfg = _arch(name, **(over or {}))
     plan = plan_for_mesh(m)
     specs = specs_of(param_defs(cfg), plan)
     p = map_tree(lambda t, sp: shard_of(t, sp, rm),
@@ -364,7 +367,7 @@ def tp_run(shape, axes, name: str, params: dict, batches: list, opt: dict,
     with set_mesh(rm):
         _, _, g = value_and_grad(lambda pp, bb: loss_fn(pp, bb, cfg, plan),
                                  p, b)
-    out = train(shape, axes, name, params, batches, opt)
+    out = train(shape, axes, name, params, batches, opt, over)
     out["grads"] = _np(_gathered(g, specs, rm))
     tokens, _ = serve(cfg, m, plan, params=p, device="cpu", **serve_kw)
     inp = {k: batch_rows(v, batch_spec(k, v.shape, plan), rm)
@@ -373,13 +376,57 @@ def tp_run(shape, axes, name: str, params: dict, batches: list, opt: dict,
                                     seed=serve_kw["seed"],
                                     device="cpu").items()}
     with set_mesh(rm):
-        _, logits = make_prefill_step(cfg, plan, serve_kw["prompt_len"])(
-            p, inp)
+        cache, logits = make_prefill_step(cfg, plan, serve_kw["prompt_len"],
+                                          serve_kw["batch"])(p, inp)
     whole = (serve_kw["batch"],) + tuple(logits.shape[1:])
     out["logits"] = unshard(logits, plan.spec(("batch", None, None), whole),
                             rm).numpy()
     out["tokens"] = tokens.numpy()
+    out["cache_shapes"] = _shapes(cache)
     return out
+
+
+def seq_decode(shape, axes, name: str, params: dict, prompt, cache_len: int,
+               feed):
+    """Batch-1 serving on the mesh (``shape`` ``None``: one process, no
+    mesh) from the whole numpy ``params``: ``prefill`` of ``prompt`` (1,
+    P) into a cache of ``cache_len`` slots, then one ``decode_step`` for
+    each token of ``feed`` (1, G) in turn.  Returns the last logits of the
+    prefill and of every step (``logits``, (G + 1, V), whole), the cache
+    gathered after the prefill and after the last step (``prefill_cache``,
+    ``cache``), and the shapes of this rank's cache leaves
+    (``cache_shapes``)."""
+    import torch
+    from repro_torch.configs import plan_for_mesh
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models import (cache_defs, decode_step, param_defs,
+                                    params_from_numpy, prefill)
+    from repro_torch.models.layers import specs_of, tree_map
+    from repro_torch.parallel.shard import map_tree, set_mesh, shard_of
+    m = mesh(tuple(shape), tuple(axes)) if shape else None
+    rm = _rm(shape, axes) if shape else None
+    cfg = _arch(name)
+    plan = plan_for_mesh(m if m is not None else MeshSpec.local())
+    p = params_from_numpy(params, "cpu")
+    cspecs = specs_of(cache_defs(cfg, 1, cache_len), plan)
+    if rm is not None:
+        p = map_tree(lambda t, sp: shard_of(t, sp, rm), p,
+                     specs_of(param_defs(cfg), plan))
+
+    def whole(cache):
+        got = cache if rm is None else _gathered(cache, cspecs, rm)
+        return tree_map(lambda a: a.copy(), _np(got))
+    with torch.no_grad(), set_mesh(rm):
+        cache, lg = prefill(p, {"tokens": torch.from_numpy(prompt)}, cfg,
+                            plan, cache_len, global_batch=1)
+        logits, first = [lg[0, -1].numpy().copy()], whole(cache)
+        for i in range(feed.shape[1]):
+            cache, lg = decode_step(p, cache, torch.from_numpy(
+                feed[:, i:i + 1].copy()), cfg, plan, global_batch=1,
+                cache_len=cache_len)
+            logits.append(lg[0, -1].numpy().copy())
+    return dict(logits=np.stack(logits), prefill_cache=first,
+                cache=whole(cache), cache_shapes=_shapes(cache))
 
 
 def tp_ops(shape, axes):
