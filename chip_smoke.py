@@ -186,7 +186,12 @@ before the final line):
    run with the compute split along ``model`` (the query heads, MLP
    columns, experts and vocabulary where the plan splits them); each line
    prints the storage-only split's readings beside its own, and
-   ``qwen3-0.6b`` ``train_4k`` must stay within ``TP_DRY_LIMITS``;
+   ``qwen3-0.6b`` ``train_4k`` must stay within ``TP_DRY_LIMITS``; the same
+   cell again with the sequence-parallel residual (``seq_parallel_acts``:
+   a peak at least ``SP_DRY_LIMITS`` GiB lower, no all-reduce of a (B, S,
+   d) activation, FLOPs within 1%) and at ``grad_accum=4`` (the
+   non-expert weights gathered once a step: all-gather bytes no more than
+   at 1), each beside the cell (``DRY_VARIANTS``), with wire bytes;
 15. the compute split on a ``(1, 2)`` gloo world of two host processes
    (one card cannot hold two NCCL ranks): ``qwen3-0.6b`` at its published
    widths (d 1024, 16 query / 8 KV heads of 128, vocabulary 151936) cut
@@ -196,7 +201,9 @@ before the final line):
    prefill plus ``TP_GEN`` greedy tokens, each held to the same run in
    one process within the CPU tests' tolerances (``TP_TOL``: the loss, the
    gradient norm, every leaf's gradient, the prefill's logits; tokens
-   equal up to each row's first near-tie).  It replaces no phase on the
+   equal up to each row's first near-tie); then, on the same world, the
+   train step with the sequence-parallel residual against the same
+   one-process step within ``TP_TOL``.  It replaces no phase on the
    card;
 16. the sub-quadratic models on a mesh (``models.ssm``'s split of RWKV-6's
    heads, its channel mix and Mamba's ``di`` along ``model``; caches
@@ -228,7 +235,9 @@ before the final line):
    four shapes, ``jamba-v0.1-52b`` x ``decode_32k`` and ``long_500k`` on
    ``pod16x16``; started before phase 12, beside phases 12-16(a)) beside PR
    24's readings (``SSM_DRY_PR24``), within ``SSM_DRY_LIMITS``, every
-   decode cell's ``cache_seq_replicated`` false.  They run in the order
+   decode cell's ``cache_seq_replicated`` false, and ``rwkv6-1.6b``
+   ``train_4k`` with the sequence-parallel residual beside its cell
+   (``SSM_DRY_VARIANTS``: a peak at least ``SP_DRY_LIMITS`` GiB lower).  They run in the order
    16(a), 14(b, c), 16(d), 15, 16(b), 16(c).
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
@@ -3013,12 +3022,24 @@ DRY_STORAGE_SPLIT = {
 # 14(b): qwen3-0.6b train_4k with the split: at most this FLOP and peak
 # GiB a rank, at least this useful-flops ratio
 TP_DRY_LIMITS = dict(flops=5.5e13, peak_gib=20.3, useful=0.25)
+# 14(b), 16(d): cells of DRY_CELLS and SSM_DRY_CELLS again with config
+# fields replaced: the sequence-parallel residual (a peak a rank at least
+# ``gib`` GiB below the cell's, no all-reduce of a (B, S, d) activation,
+# FLOPs within ``flops`` of the cell's) and the once-a-step gather at
+# grad_accum 4 (all-gather bytes no more than the cell's at grad_accum 1)
+SP = (("seq_parallel_acts", True),)
+DRY_VARIANTS = (("qwen3-0.6b", "train_4k", SP),
+                ("qwen3-0.6b", "train_4k", (("grad_accum", 4),)))
+SSM_DRY_VARIANTS = (("rwkv6-1.6b", "train_4k", SP),)
+SP_DRY_LIMITS = {"qwen3-0.6b": dict(gib=1.6, flops=0.01),
+                 "rwkv6-1.6b": dict(gib=2.8, flops=0.01)}
 
 
 def dry_jobs() -> list:
     """14(b)'s production cells, then 14(c)'s one-rank cells on phase 13's
     and phase 12's own shapes."""
     jobs = [("cell", a, sh) for a, sh in DRY_CELLS]
+    jobs += [("variant", a, sh, over) for a, sh, over in DRY_VARIANTS]
     jobs.append(("local", TRAIN_ARCH, "train", TRAIN_SEQ, TRAIN_BATCH))
     for name in LM_FULL:
         jobs.append(("local", name, "prefill", LM_PROMPT, LM_BATCH))
@@ -3028,7 +3049,7 @@ def dry_jobs() -> list:
 
 def dry_job(job) -> dict:
     """One dry-run job in a worker process (``meta`` tensors only)."""
-    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.configs import SHAPES, ShapeConfig, get_arch
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import MeshSpec
     t = time.perf_counter()
@@ -3038,6 +3059,12 @@ def dry_job(job) -> dict:
                                  out_dir=out, force=True,
                                  limit_s=job[3] if len(job) > 3
                                  else DRY_LIMIT_S)
+    elif job[0] == "variant":
+        _, name, sh, over = job[:4]
+        rec = dryrun.lm_record(
+            dataclasses.replace(get_arch(name), **dict(over)), SHAPES[sh],
+            MeshSpec.production(), job[4] if len(job) > 4 else DRY_LIMIT_S)
+        rec.update(arch=name, shape=sh, mesh="pod16x16", over=dict(over))
     else:
         _, name, kind, seq, batch = job
         rec = dryrun.lm_record(get_arch(name),
@@ -3056,7 +3083,9 @@ def start_dry():
     import multiprocessing
     pool = multiprocessing.get_context("spawn").Pool(DRY_WORKERS)
     ssm = pool.map_async(dry_job, [("cell", a, sh, SSM_DRY_LIMIT_S)
-                                   for a, sh in SSM_DRY_CELLS], chunksize=1)
+                                   for a, sh in SSM_DRY_CELLS]
+                         + [("variant", a, sh, over, SSM_DRY_LIMIT_S)
+                            for a, sh, over in SSM_DRY_VARIANTS], chunksize=1)
     return pool, ssm, pool.map_async(dry_job, dry_jobs(), chunksize=1)
 
 
@@ -3189,6 +3218,8 @@ def phase_dry(pool, pending, early, peak12: dict, peak13: int) -> list:
         else:
             line += f" after {r['seconds']:.1f} s: {r['error'][:160]}"
         print(line, flush=True)
+    for r in (r for r in recs if r["job"][0] == "variant"):
+        print(f"  14b{dry_variant_line(r, cells, '14b')}", flush=True)
     local = {tuple(r["job"][1:3]): r for r in recs if r["job"][0] == "local"}
     for r in local.values():
         check(r["status"] == "ok", f"14c {r['job']}: {r.get('error')}")
@@ -3244,22 +3275,25 @@ SPLIT_LAYERS = {"qwen3-0.6b": TP_LAYERS, "rwkv6-1.6b": 2,
 SPLIT_SEQ = {"qwen3-0.6b": TP_SEQ, "rwkv6-1.6b": 64, "jamba-v0.1-52b": 64}
 
 
-def tp_arch(name: str = TP_ARCH):
+def tp_arch(name: str = TP_ARCH, **over):
     """``name`` at its published widths cut to ``SPLIT_LAYERS`` layers,
-    float32, one microbatch."""
+    float32, one microbatch (``over``: more fields replaced)."""
     from repro_torch.configs import get_arch
     return dataclasses.replace(get_arch(name), n_layers=SPLIT_LAYERS[name],
                                params_dtype="float32",
-                               compute_dtype="float32", grad_accum=1)
+                               compute_dtype="float32", grad_accum=1, **over)
 
 
-def tp_run(mesh, name: str = TP_ARCH):
+def tp_run(mesh, name: str = TP_ARCH, over: dict | None = None):
     """The split runs' work on ``mesh`` (a built ``DeviceMesh``, or
     ``None``: one process): one train step from the seeded weights, then
-    serving.  Returns a dict: ``params0`` (the weights, this rank's
-    shards), ``loss``, ``norm``, the stepped ``params``, ``m`` and ``v``,
-    the prefill's ``logits`` of this rank's rows, the ``tokens`` (whole)
-    and the ``seconds``."""
+    serving (with ``over``, config fields replaced for the train step,
+    the step alone).  Returns a dict: ``params0`` (the weights, this
+    rank's shards), ``loss``, ``norm``, the stepped ``params``, ``m`` and
+    ``v``, the prefill's ``logits`` of this rank's rows and the ``tokens``
+    (whole; not with ``over``), and the ``seconds`` of the whole, of the
+    weights' draw (``init_s``), the step (``step_s``) and serving
+    (``serve_s``)."""
     from repro_torch.configs import plan_for_mesh
     from repro_torch.data.pipeline import (DataConfig, batch_spec,
                                            device_batch, host_batch)
@@ -3270,16 +3304,23 @@ def tp_run(mesh, name: str = TP_ARCH):
     from repro_torch.parallel.shard import as_rank_mesh, batch_rows, set_mesh
     from repro_torch.train.optimizer import OptConfig, init_opt_state
     t = time.perf_counter()
-    arch, seq = tp_arch(name), SPLIT_SEQ[name]
+    arch, seq = tp_arch(name, **(over or {})), SPLIT_SEQ[name]
     plan = plan_for_mesh(mesh if mesh is not None else MeshSpec.local())
     rm = as_rank_mesh(mesh)
     params = init_params_placed(arch, plan, LM_SEED, mesh, "cpu")
     opt_cfg = OptConfig(peak_lr=1e-3, warmup_steps=2)
     hb = host_batch(DataConfig(arch.vocab_size, seq, TP_BATCH), 0, arch)
+    t_init = time.perf_counter()
     with set_mesh(rm):
         p, st, met = make_train_step(arch, plan, opt_cfg)(
             params, init_opt_state(params, opt_cfg),
             device_batch(hb, mesh, plan, "cpu", arch.grad_accum))
+    t_step = time.perf_counter()
+    out = dict(params0=params, loss=float(met["loss"]),
+               norm=float(met["grad_norm"]), params=p, m=st["m"], v=st["v"],
+               init_s=t_init - t, step_s=t_step - t_init)
+    if over:
+        return {**out, "seconds": time.perf_counter() - t}
     tokens, _ = serve(arch, mesh if mesh is not None else MeshSpec.local(),
                       plan, batch=TP_BATCH, prompt_len=seq, gen=TP_GEN,
                       seed=LM_SEED, params=params, device="cpu")
@@ -3288,10 +3329,9 @@ def tp_run(mesh, name: str = TP_ARCH):
                                     seed=LM_SEED, device="cpu").items()}
     with set_mesh(rm):
         _, logits = make_prefill_step(arch, plan, seq)(params, inp)
-    return dict(params0=params, loss=float(met["loss"]),
-                norm=float(met["grad_norm"]), params=p, m=st["m"],
-                v=st["v"], logits=logits, tokens=tokens,
-                seconds=time.perf_counter() - t)
+    return {**out, "logits": logits, "tokens": tokens,
+            "serve_s": time.perf_counter() - t_step,
+            "seconds": time.perf_counter() - t}
 
 
 def tp_margins(params, name: str = TP_ARCH) -> np.ndarray:
@@ -3317,11 +3357,13 @@ def tp_margins(params, name: str = TP_ARCH) -> np.ndarray:
 
 
 def tp_rank_job(rank: int, store: str, plain_path: str, name: str, parts,
-                out_q) -> None:
+                variants, out_q) -> None:
     """One rank of a split world: the split run of ``name``, then each
     leaf's largest gap to the one-process run (``plain_path``) on this
     rank's shard, beside the whole leaf's largest value, for the trees of
-    ``parts``."""
+    ``parts``; then, for each config override of ``variants``, its train
+    step alone and the same gaps (the one-process run has no mesh, so the
+    overrides of a mesh's layout leave it as it is)."""
     import torch.distributed as dist
     torch.set_num_threads(TP_THREADS)
     from repro_torch.launch.mesh import MeshSpec, init_world
@@ -3333,24 +3375,37 @@ def tp_rank_job(rank: int, store: str, plain_path: str, name: str, parts,
         init_world("gloo", f"file://{store}", rank=rank, world_size=2,
                    timeout_s=600)
         mesh = MeshSpec((1, 2), ("data", "model")).build("cpu")
-        got = tp_run(mesh, name)
         want = torch.load(plain_path, mmap=True)
         rm = RankMesh.of(mesh)
         specs = flatten(specs_of(param_defs(tp_arch(name)),
                                  plan_for_mesh(mesh)))
-        gaps = {}
-        for part in parts:
-            mine, whole = flatten(got[part]), flatten(want[part])
-            gaps[part] = {k: (float((mine[k] - shard_of(whole[k], specs[k], rm))
-                                    .abs().max()),
-                              float(whole[k].abs().max())) for k in whole}
+
+        def gaps_of(got) -> dict:
+            gaps = {}
+            for part in parts:
+                mine, whole = flatten(got[part]), flatten(want[part])
+                gaps[part] = {k: (float((mine[k] - shard_of(
+                    whole[k], specs[k], rm)).abs().max()),
+                    float(whole[k].abs().max())) for k in whole}
+            return gaps
+        got = tp_run(mesh, name)
+        gaps = gaps_of(got)
         lg = got["logits"][:, -1].double()
         ref = want["logits"][:, -1].double()
         gaps["logits"] = {"last": (float((lg - ref).abs().max()),
                                    float(ref.abs().max()))}
-        out_q.put((rank, dict(loss=got["loss"], norm=got["norm"], gaps=gaps,
-                              tokens=got["tokens"].numpy(),
-                              seconds=got["seconds"])))
+        times = {k: got[k] for k in ("seconds", "init_s", "step_s",
+                                     "serve_s")}
+        out = dict(loss=got["loss"], norm=got["norm"], gaps=gaps,
+                   tokens=got["tokens"].numpy(), **times, variants=[])
+        del got
+        for over in variants:
+            got = tp_run(mesh, name, over)
+            out["variants"].append(dict(loss=got["loss"], norm=got["norm"],
+                                        gaps=gaps_of(got),
+                                        seconds=got["seconds"]))
+            del got
+        out_q.put((rank, out))
         dist.destroy_process_group()
     except Exception:
         import traceback
@@ -3387,11 +3442,34 @@ def two_ranks(target, args: tuple, work: str) -> tuple[dict, float]:
     return res, time.perf_counter() - t
 
 
-def split_world(name: str, tol: dict, parts, label: str) -> str:
+def held_gaps(gaps: dict, got: dict, plain: dict) -> None:
+    """Add one rank's relative gaps to the one-process run (loss, norm, and
+    each leaf of each compared tree against its largest value) to
+    ``gaps``."""
+    for k in ("loss", "norm"):
+        gaps.setdefault(k, []).append(abs(got[k] - plain[k]) / abs(plain[k]))
+    for part, leaf in got["gaps"].items():
+        for k, (d, scale) in leaf.items():
+            gaps.setdefault(part, []).append(d / max(scale, 1e-30))
+
+
+def within(gaps: dict, tol: dict, what: str) -> str:
+    """The worst of each gap, checked against ``tol``; their line."""
+    worst = {k: max(v) for k, v in gaps.items()}
+    line = " ".join(f"{k} {v:.3e}" for k, v in worst.items())
+    for k in worst.keys() & tol.keys():
+        check(worst[k] <= tol[k], f"{what} {k}: gap {worst[k]:.3e} > "
+              f"{tol[k]} (gaps {line})")
+    return line
+
+
+def split_world(name: str, tol: dict, parts, label: str,
+                variants=()) -> str:
     """``name``'s split run on a ``(1, 2)`` gloo world of two host
     processes against the same run in one process, held within ``tol``
-    (the trees of ``parts`` compared leaf by leaf); the line of what was
-    measured."""
+    (the trees of ``parts`` compared leaf by leaf), and the train step of
+    each config override of ``variants`` in the same world against the
+    same one-process step; the line of what was measured."""
     import shutil
     import tempfile
     root = Path(__file__).resolve().parent / "build"
@@ -3405,21 +3483,18 @@ def split_world(name: str, tol: dict, parts, label: str) -> str:
         margin = tp_margins(plain["params0"], name)
         plain = {k: plain[k] for k in ("loss", "norm", "tokens", "seconds")}
         t_plain = time.perf_counter() - t
-        res, t_world = two_ranks(tp_rank_job, (plain_path, name, parts),
-                                 work)
+        res, t_world = two_ranks(tp_rank_job, (plain_path, name, parts,
+                                               tuple(variants)), work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     errors = [v for v in res.values() if isinstance(v, str)]
     check(not errors and len(res) == 2, f"{label} {name}: {errors}")
-    gaps = {}
+    gaps, extra = {}, [{} for _ in variants]
     for r in (0, 1):
         got = res[r]
-        for k in ("loss", "norm"):
-            gaps.setdefault(k, []).append(abs(got[k] - plain[k])
-                                          / abs(plain[k]))
-        for part, leaf in got["gaps"].items():
-            for k, (d, scale) in leaf.items():
-                gaps.setdefault(part, []).append(d / max(scale, 1e-30))
+        held_gaps(gaps, got, plain)
+        for g, v in zip(extra, got["variants"]):
+            held_gaps(g, v, plain)
         want = plain["tokens"].numpy()
         for b in range(TP_BATCH):
             ties = np.flatnonzero(margin[b] < tol["tie"])
@@ -3428,12 +3503,14 @@ def split_world(name: str, tol: dict, parts, label: str) -> str:
                   f"{label} {name} rank {r} row {b}: tokens "
                   f"{got['tokens'][b]} against one process {want[b]} "
                   f"(first near-tie at {upto - 1})")
-    worst = {k: max(v) for k, v in gaps.items()}
-    line = " ".join(f"{k} {v:.3e}" for k, v in worst.items())
-    for k in worst.keys() & tol.keys():
-        check(worst[k] <= tol[k],
-              f"{label} {name} {k}: gap {worst[k]:.3e} > {tol[k]} (gaps "
-              f"{line})")
+    line = within(gaps, tol, f"{label} {name}")
+    more = "".join(
+        f"; the train step with {over} on the same world: loss "
+        f"{res[0]['variants'][i]['loss']:.6f}, gaps "
+        f"{within(extra[i], tol, f'{label} {name} {over}')}, rank runs "
+        f"{res[0]['variants'][i]['seconds']:.1f}, "
+        f"{res[1]['variants'][i]['seconds']:.1f} s"
+        for i, over in enumerate(variants))
     arch = tp_arch(name)
     return (f"{name} at published widths (d {arch.d_model}, d_ff "
             f"{arch.d_ff}, vocabulary {arch.vocab_size}), {arch.n_layers} "
@@ -3445,12 +3522,16 @@ def split_world(name: str, tol: dict, parts, label: str) -> str:
             f"params not held); tokens {plain['tokens'].tolist()}; seconds: "
             f"one process {t_plain:.1f} (its run {plain['seconds']:.1f}), "
             f"the world {t_world:.1f} (rank runs {res[0]['seconds']:.1f}, "
-            f"{res[1]['seconds']:.1f})")
+            f"{res[1]['seconds']:.1f}: weights {res[0]['init_s']:.1f}, "
+            f"step {res[0]['step_s']:.1f}, serving {res[0]['serve_s']:.1f})"
+            + more)
 
 
 def phase_tp() -> None:
-    """15: the split run on a ``(1, 2)`` gloo world against one process."""
-    line = split_world(TP_ARCH, TP_TOL, ("params", "m", "v"), "15")
+    """15: the split run on a ``(1, 2)`` gloo world against one process,
+    and the same world's step with the sequence-parallel residual."""
+    line = split_world(TP_ARCH, TP_TOL, ("params", "m", "v"), "15",
+                       ({"seq_parallel_acts": True},))
     print(f"  15 {line}", flush=True)
 
 
@@ -3738,7 +3819,7 @@ def dry_cell_line(r: dict, was: tuple) -> str:
             f"{rf['memory_s']:.4f} s, collective "
             f"{rf['collective_s']:.4f} s); useful flops "
             f"{r['useful_flops_ratio']:.4f}; collective bytes "
-            f"{r['coll_bytes']}")
+            f"{r['coll_bytes']}, wire bytes {r['coll_wire_bytes']}")
     if "cache_seq_replicated" in r:
         line += f"; cache_seq_replicated {r['cache_seq_replicated']}"
     was = [("not recorded" if v is None else f"{v:g}") for v in was]
@@ -3746,11 +3827,55 @@ def dry_cell_line(r: dict, was: tuple) -> str:
                    f"FLOP, useful flops {was[2]}]")
 
 
+def dry_variant_line(r: dict, cells: list, label: str) -> str:
+    """A variant cell (``DRY_VARIANTS``) held beside its cell in
+    ``cells``: the sequence-parallel residual within ``SP_DRY_LIMITS``,
+    the once-a-step gather's all-gather bytes no more than the cell's."""
+    key, over = (r["arch"], r["shape"]), r["over"]
+    check(r["status"] == "ok", f"{label} {key} {over}: "
+          f"{r.get('error', r['status'])}")
+    base = next(c for c in cells if (c["arch"], c["shape"]) == key)
+    gib = [x["memory_analysis"]["total_per_device"] / 2**30 for x in (base, r)]
+    flops = [x["roofline"]["flops"] for x in (base, r)]
+    ag = [x["coll_bytes"].get("all-gather", 0) for x in (base, r)]
+    ar = [x["coll_bytes"].get("all-reduce", 0) for x in (base, r)]
+    wire = [sum(x["coll_wire_bytes"].values()) for x in (base, r)]
+    line = (f" {key[0]} {key[1]} {r['mesh']} with {over}: in "
+            f"{r['seconds']:.1f} s; peak {gib[1]:.3f} GiB a rank (the cell "
+            f"{gib[0]:.3f}), {flops[1]:.4e} FLOP ({flops[0]:.4e}), "
+            f"collectives {r['coll_count']} ({base['coll_count']}), output "
+            f"bytes {r['coll_bytes']} ({base['coll_bytes']}), wire bytes "
+            f"{sum(r['coll_wire_bytes'].values()):.6g} ({wire[0]:.6g}); "
+            f"roofline collective {r['roofline']['collective_s']:.4f} s "
+            f"({base['roofline']['collective_s']:.4f} s)")
+    if "seq_parallel_acts" in over:
+        from repro_torch.configs import SHAPES, get_arch
+        lim = SP_DRY_LIMITS[key[0]]
+        sh = SHAPES[key[1]]
+        act = str((sh.global_batch // 16, sh.seq_len,
+                   get_arch(key[0]).d_model))     # pod16x16: data 16
+        n_act = r["coll_shapes"].get("all-reduce", {}).get(act, 0)
+        check(gib[0] - gib[1] >= lim["gib"] and n_act == 0
+              and abs(flops[1] / flops[0] - 1) <= lim["flops"],
+              f"{label} {key} {over}: peak {gib[1]:.3f} against "
+              f"{gib[0]:.3f} GiB, {n_act} all-reduces of {act}, FLOP "
+              f"{flops[1]:.4e} against {flops[0]:.4e} ({lim})")
+        line += (f"; all-reduces of {act}: {n_act} (the cell "
+                 f"{base['coll_shapes'].get('all-reduce', {}).get(act, 0)}"
+                 f"); all-reduce bytes {ar[1]} ({ar[0]}); limits {lim}")
+    if "grad_accum" in over:
+        check(ag[1] <= ag[0], f"{label} {key} {over}: all-gather bytes "
+              f"{ag[1]} > {ag[0]} at grad_accum 1")
+    return line
+
+
 def phase_ssm_dry(recs: list) -> None:
     """16(d): the sub-quadratic dry cells with the split, each beside PR
-    24's reading, against ``SSM_DRY_LIMITS``."""
+    24's reading, against ``SSM_DRY_LIMITS``, and ``SSM_DRY_VARIANTS``
+    beside their cells."""
     lim = SSM_DRY_LIMITS
-    for r in recs:
+    cells = [r for r in recs if r["job"][0] == "cell"]
+    for r in cells:
         key = (r["arch"], r["shape"])
         check(r["status"] == "ok", f"16d {key}: {r.get('error', r['status'])}")
         ma, rf = r["memory_analysis"], r["roofline"]
@@ -3770,6 +3895,8 @@ def phase_ssm_dry(recs: list) -> None:
                   f"> {lim['long_gib']}")
         print(f"  16d {r['arch']} {r['shape']} {r['mesh']}: {r['status']}"
               + dry_cell_line(r, was), flush=True)
+    for r in (r for r in recs if r["job"][0] == "variant"):
+        print(f"  16d{dry_variant_line(r, cells, '16d')}", flush=True)
 
 
 def main() -> int:

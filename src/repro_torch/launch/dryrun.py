@@ -24,12 +24,17 @@ The record keeps the reference's keys where they mean the same thing:
 arguments, the decode cache updated in place; ``total_per_device``: the
 peak of live bytes, arguments included; ``fits`` within the H100's
 80 GB), ``coll_count`` / ``coll_bytes``, ``roofline``
-(``roofline.roofline_terms``, H100 SXM data-sheet peaks),
-``model_flops_global`` / ``_per_chip`` and ``useful_flops_ratio``, and
-``seconds`` in place of ``lower_s`` / ``compile_s``.  What has no torch
-meaning is left out: the HLO text and its size (``hlo_bytes``), the raw
-``cost_analysis``, and ``dynamic_whiles`` (the port's loops are Python
-loops, each iteration executed).  A decode cell says
+(``roofline.roofline_terms``, H100 SXM data-sheet peaks; its
+``collective_s`` weighs the per-rank output bytes as the reference does,
+so a reduce-scatter counts its output, 1/n of what it sends),
+``coll_wire_bytes`` (the bytes a rank sends, by kind:
+``parallel.shard.wire_bytes``), ``coll_shapes`` (the calls of each kind
+by output shape), ``model_flops_global`` / ``_per_chip`` and
+``useful_flops_ratio``, and ``seconds`` in place of ``lower_s`` /
+``compile_s``.  What has no torch meaning is left out: the HLO text and
+its size (``hlo_bytes``), the raw ``cost_analysis``, and
+``dynamic_whiles`` (the port's loops are Python loops, each iteration
+executed).  A decode cell says
 ``cache_seq_replicated``: whether its cache keeps whole a sequence dim
 that the plan splits (batch 1, ``long_500k``).  It reads false: the
 cache is placed by ``plan.spec`` of every dim (``steps.cache_specs``), and
@@ -172,7 +177,18 @@ def measure(fn, args, rm: RankMesh, limit_s: float | None = None) -> dict:
         temp_size_in_bytes=meter.peak - arg_b,
         output_size_in_bytes=sum(out_st.values()),
         alias_size_in_bytes=alias, total_per_device=meter.peak,
-        coll_count=dict(rm.log.count), coll_bytes=dict(rm.log.bytes))
+        coll_count=dict(rm.log.count), coll_bytes=dict(rm.log.bytes),
+        coll_wire_bytes=dict(rm.log.wire), coll_shapes=_shapes(rm.log))
+
+
+def _shapes(log) -> dict:
+    """Per kind, the count of calls by output shape (``"(16, 4096,
+    1024)"``)."""
+    out: dict = {}
+    for op, _, shape in log.calls:
+        by = out.setdefault(op, {})
+        by[str(shape)] = by.get(str(shape), 0) + 1
+    return out
 
 
 def _cache_seq_replicated(arch, shape, plan) -> bool:
@@ -214,7 +230,9 @@ def lm_record(arch, shape, spec: MeshSpec,
     ma["fits"] = ma["total_per_device"] <= HBM_BYTES
     rec.update(status="ok", seconds=round(time.perf_counter() - t0, 3),
                memory_analysis=ma, coll_count=m["coll_count"],
-               coll_bytes=m["coll_bytes"], roofline=terms,
+               coll_bytes=m["coll_bytes"],
+               coll_wire_bytes=m["coll_wire_bytes"],
+               coll_shapes=m["coll_shapes"], roofline=terms,
                model_flops_global=mf, model_flops_per_chip=mf / n_chips,
                useful_flops_ratio=(mf / n_chips) / terms["flops"]
                if terms["flops"] else 0.0)

@@ -16,10 +16,18 @@ mean over the batch ranks.  At ``grad_accum = M > 1`` the batch must
 hold this rank's block of each of the M global microbatches, in order
 (``data.pipeline.device_batch(..., grad_accum=M)``), so that each
 microbatch is made of the reference's rows: an MoE's load-balance term,
-taken per microbatch, depends on which rows those are.  The reference
-gathers the non-expert weights once a step; the port keeps its per-layer
-gather in every microbatch: the same result at M times the gather
-traffic.
+taken per microbatch, depends on which rows those are.  At ``M > 1`` a
+step gathers every non-expert leaf once over the batch axes, as the
+reference's step does (its spec with the ``fsdp`` dim dropped: the
+``model`` blocks stay), before the first microbatch
+(``parallel.shard.gather_batch``); inside the microbatches
+(``parallel.shard.batch_gathered``) a layer then gathers such a leaf only
+over ``model``, where a region runs whole, in the forward pass and in the
+remat recompute alike.  Each microbatch's gradient of a gathered leaf is
+reduced over the batch axes into this rank's float32 shard accumulator
+(``reduce_batch_grad``), and the gathered copies are dropped before the
+AdamW step.  The experts' leaves stay sharded and are gathered per layer
+in every microbatch.
 
 ``input_specs(arch, shape, mesh)`` gives (step_fn, args) of one dry-run
 cell: the torch analogue of a ``ShapeDtypeStruct`` with a
@@ -40,12 +48,15 @@ from typing import Any
 import torch
 
 from repro_torch.configs import ArchConfig, ShapeConfig, plan_for_mesh
-from repro_torch.parallel.shard import (RankMesh, ShardedLeaf, batch_mean,
-                                      current_mesh, local_shape, map_tree,
-                                      set_mesh)
+from repro_torch.parallel.shard import (RankMesh, ShardedLeaf, batch_gathered,
+                                      batch_mean, current_mesh, gather_batch,
+                                      local_shape, map_tree,
+                                      reduce_batch_grad, set_mesh)
 from repro_torch.models import (cache_defs, decode_step, loss_fn,
                                 param_defs, prefill)
-from repro_torch.models.layers import DTYPES, ParamDef, specs_of
+from repro_torch.models.layers import (DTYPES, ParamDef, flatten, specs_of,
+                                       unflatten)
+from repro_torch.models.model import gather_splits
 from repro_torch.train.optimizer import (OptConfig, adamw_update, leaves,
                                          opt_state_defs, unleaves,
                                          value_and_grad)
@@ -87,7 +98,11 @@ def make_train_step(cfg: ArchConfig, plan, opt_cfg: OptConfig):
     metrics)``: new trees, the inputs left as they were; the metrics are
     0-d tensors on the parameters' device."""
     M = cfg.grad_accum
-    specs = specs_of(param_defs(cfg), plan)
+    defs = param_defs(cfg)
+    specs = specs_of(defs, plan)
+    # the leaves gathered once a step at M > 1: all but the experts'
+    once = ["exp" not in d.dims for d in leaves(defs)]
+    paths = leaves(unflatten({k: k for k in flatten(defs)}))
 
     def loss(p, b):
         return loss_fn(p, b, cfg, plan)
@@ -96,20 +111,31 @@ def make_train_step(cfg: ArchConfig, plan, opt_cfg: OptConfig):
         if M <= 1:
             loss_v, metrics, grads = value_and_grad(loss, params, batch)
         else:
+            rm = current_mesh()
+            ax = rm.batch_axes(plan) if rm is not None else ()
+            splits = gather_splits(cfg, plan)
+            flat = [(p, sp, o and bool(ax), splits.get(k)) for p, sp, o, k
+                    in zip(leaves(params), leaves(specs), once, paths)]
+            held = unleaves(params, [gather_batch(p, sp, rm, ax, kept) if o
+                                     else p for p, sp, o, kept in flat])
             micro = {k: _split_micro(v, M, 1 if k == "pos3" else 0)
                      for k, v in batch.items()}
             g_acc = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in leaves(params)]
+                                 device=p.device) for p, *_ in flat]
             dev = g_acc[0].device
             loss_v = torch.zeros((), dtype=torch.float32, device=dev)
             aux = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(M):
                 mb = {k: v[i] for k, v in micro.items()}
-                l_i, m_i, g_i = value_and_grad(loss, params, mb)
-                g_acc = [a + g.to(torch.float32) / M
-                         for a, g in zip(g_acc, leaves(g_i))]
+                with batch_gathered(bool(ax)):
+                    l_i, m_i, g_i = value_and_grad(loss, held, mb)
+                g_acc = [a + (reduce_batch_grad(g, sp, rm, ax, kept) if o
+                              else g).to(torch.float32) / M
+                         for a, g, (_, sp, o, kept) in zip(g_acc, leaves(g_i),
+                                                           flat)]
                 loss_v = loss_v + l_i / M
                 aux = aux + m_i["aux"] / M
+            del held, flat, g_i
             grads = unleaves(params, g_acc)
             metrics = {"nll": loss_v, "aux": aux,
                        "zloss": torch.zeros((), dtype=torch.float32,

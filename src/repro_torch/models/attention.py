@@ -45,8 +45,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import NO_SHARDING, ArchConfig, ShardingPlan
-from repro_torch.parallel.shard import (copy_to_model, gather_model,
-                                        max_over, reduce_from_model,
+from repro_torch.parallel.shard import (copy_to_model, enter_region,
+                                        gather_model, leave_region, max_over,
                                         seq_block, sum_over, tp_rank,
                                         tp_ranks)
 from .layers import (ParamDef, apply_m_rope, apply_rope, constrain, f32,
@@ -282,15 +282,15 @@ def gqa_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
               pos3=None, seq=()):
     """mode: train/prefill (blockwise) | decode (ring-buffer cache);
     ``seq``: the mesh axes that split the cache's slots."""
-    B, S, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     wk, wv = p["wk"], p["wv"]
     q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
     m = tp_ranks(plan, "tp", H)
+    x = enter_region(x, m > 1)
+    B, S, d = x.shape
     kv0 = 0
     if m > 1:        # this rank's heads; replicated inputs enter the split
         H, kv0, Hkv = _heads(cfg, m)
-        x = copy_to_model(x)
         wk, wv = _kv_cols(wk, kv0, Hkv, hd), _kv_cols(wv, kv0, Hkv, hd)
         if cfg.qk_norm:      # applied to this rank's heads only
             q_norm, k_norm = copy_to_model(q_norm), copy_to_model(k_norm)
@@ -331,9 +331,7 @@ def gqa_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
             else:
                 new_cache = {"k": k.to(torch.bfloat16),
                              "v": v.to(torch.bfloat16)}
-    out = o.reshape(B, S, H * hd) @ p["wo"]
-    if m > 1:
-        out = reduce_from_model(out)
+    out = leave_region(o.reshape(B, S, H * hd) @ p["wo"], m > 1)
     return constrain(out, plan, ("batch", None, "fsdp")), new_cache
 
 
@@ -341,25 +339,24 @@ def gqa_cross_apply(p, x, enc_kv, cfg: ArchConfig, plan: ShardingPlan):
     """Cross-attention against precomputed encoder K/V (whisper decoder):
     ``enc_kv`` holds this rank's KV heads (``encode_kv``) or every KV head
     (the cache)."""
-    B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.head_dim_
     k, v = enc_kv["k"], enc_kv["v"]
     m = tp_ranks(plan, "tp", H)
+    x = enter_region(x, m > 1)
+    B, S, d = x.shape
     if m > 1:
         H, kv0, n = _heads(cfg, m)
-        x = copy_to_model(x)
         k, v = _kv_heads(k, kv0, n), _kv_heads(v, kv0, n)
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     o = _blockwise(q, k, v, causal=False, scale=hd ** -0.5)
-    out = o.reshape(B, S, H * hd) @ p["wo"]
-    if m > 1:
-        out = reduce_from_model(out)
+    out = leave_region(o.reshape(B, S, H * hd) @ p["wo"], m > 1)
     return constrain(out, plan, ("batch", None, "fsdp"))
 
 
 def encode_kv(p, x_enc, cfg: ArchConfig, plan: ShardingPlan = NO_SHARDING):
     """The encoder's K/V of this rank's KV heads (every KV head unless
-    ``model`` splits the heads)."""
+    ``model`` splits the heads); ``x_enc`` is the whole encoder output,
+    also under a sequence split."""
     B, S, _ = x_enc.shape
     Hkv, hd = cfg.n_kv_heads, cfg.head_dim_
     wk, wv = p["wk"], p["wv"]
@@ -414,31 +411,34 @@ def mla_split(cfg: ArchConfig, plan: ShardingPlan) -> dict:
             ("wq_b" if cfg.q_lora_rank > 0 else "wq"): own}
 
 
-def _mla_q(p, x, cfg: ArchConfig, split: bool):
-    B, S, _ = x.shape
+def _mla_q(p, x, xw, cfg: ArchConfig, split: bool):
+    """The queries of this rank's heads from the residual's ``x`` and its
+    whole sequence ``xw`` (``x`` itself without a sequence split)."""
+    B, S, _ = xw.shape
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
     if cfg.q_lora_rank > 0:
-        c_q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.rms_eps)
+        c_q = rms_norm(xw @ p["wq_a"], p["q_norm"], cfg.rms_eps)
         q = (copy_to_model(c_q) if split else c_q) @ p["wq_b"]
     else:
-        q = (copy_to_model(x) if split else x) @ p["wq"]
+        q = (enter_region(x, True) if split else xw) @ p["wq"]
     q = q.reshape(B, S, -1, nope + rope)      # this rank's heads
     return q[..., :nope], q[..., nope:]
 
 
 def mla_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
               mode="train", cache=None, cache_pos=None, seq=()):
-    B, S, _ = x.shape
     m = tp_ranks(plan, "tp", cfg.n_heads)
     H = cfg.n_heads // m
     nope, rope, vd, kvl = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
                            cfg.kv_lora_rank)
     scale = (nope + rope) ** -0.5
+    xw = enter_region(x, False)     # the latents run whole on every rank
+    B, S, _ = xw.shape
 
-    q_nope, q_rope = _mla_q(p, x, cfg, m > 1)
+    q_nope, q_rope = _mla_q(p, x, xw, cfg, m > 1)
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
 
-    kv_a = x @ p["wkv_a"]                                 # (B,S,kvl+rope)
+    kv_a = xw @ p["wkv_a"]                                # (B,S,kvl+rope)
     c_kv = rms_norm(kv_a[..., :kvl], p["kv_norm"], cfg.rms_eps)
     k_rope = apply_rope(kv_a[..., kvl:][:, :, None, :], pos,
                         cfg.rope_theta)                   # (B,S,1,rope)
@@ -491,7 +491,5 @@ def mla_apply(p, x, pos, cfg: ArchConfig, plan: ShardingPlan, *,
             else:
                 new_cache = {"c_kv": c_kv.to(torch.bfloat16),
                              "k_rope": k_rope[:, :, 0].to(torch.bfloat16)}
-    out = o.reshape(B, S, H * vd) @ p["wo"]
-    if m > 1:
-        out = reduce_from_model(out)
+    out = leave_region(o.reshape(B, S, H * vd) @ p["wo"], m > 1)
     return constrain(out, plan, ("batch", None, "fsdp")), new_cache

@@ -38,6 +38,17 @@ vocabulary-parallel lookup and cross entropy below, the head split in
 RWKV-6 and Mamba in ``ssm``.  ``prefill`` and ``decode_step`` return
 logits gathered over ``model``.
 
+With ``cfg.seq_parallel_acts``, in train mode, where the plan keeps
+``model`` on the sequence (``_seq_split``), the residual stream is this
+rank's block of the sequence (``parallel.shard.split_sequence``): the
+embedding's sum is reduce-scattered to it, each remat region saves it
+(1/m of the residual), the norms run on it, every mixer and FFN region
+gathers the whole sequence where it enters and reduce-scatters its output
+where it leaves (``enter_region`` / ``leave_region``; token shifts,
+convolutions and recurrences run on the whole sequence), and the loss
+gathers it before the cross entropy.  The encoder's stack is split the
+same way, in prefill too, and its output gathered whole.
+
 The decode caches are stored as the reference's plan places them: each
 leaf at this rank's block of ``plan.spec`` of all its dims
 (``init_cache``), so a rank holds its heads of RWKV-6's ``state``, its
@@ -61,16 +72,18 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import NO_SHARDING, ArchConfig, ShardingPlan
 from repro_torch.parallel.shard import (copy_to_model, current_mesh,
-                                        gather_model, gather_tree,
-                                        local_shape, max_over_model,
-                                        reduce_from_model, seq_axes, tp_rank,
-                                        tp_ranks)
+                                        enter_region, gather_model,
+                                        gather_tree, in_this_context,
+                                        leave_region, local_shape,
+                                        max_over_model, reduce_from_model,
+                                        seq_axes, sequence_split,
+                                        sequence_start, split_sequence,
+                                        tp_rank, tp_ranks)
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
 from .layers import (DTYPES, ParamDef, constrain, flatten, geglu, layer_norm,
-                     rms_norm, sinusoidal_from_pos, specs_of, swiglu,
-                     tree_map)
+                     rms_norm, sinusoidal_from_pos, swiglu, tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -359,14 +372,13 @@ def _dense_split(spec: BlockSpec, cfg: ArchConfig, plan: ShardingPlan) -> int:
 def _apply_ffn(spec: BlockSpec, p, h, cfg, plan, mode, cache):
     if spec.ffn in ("swiglu", "geglu", "mlp"):
         split = _dense_split(spec, cfg, plan) > 1
-        if split:        # column-split up, row-split down
-            h = copy_to_model(h)
+        h = enter_region(h, split)    # split: column-split up, row-split down
         if spec.ffn == "mlp":
             y = F.gelu(h @ p["w1"], approximate="tanh") @ p["w2"]
         else:
             y = (swiglu if spec.ffn == "swiglu" else geglu)(
                 h, p["w_gate"], p["w_up"], p["w_down"])
-        return (reduce_from_model(y) if split else y), 0.0, None
+        return leave_region(y, split), 0.0, None
     if spec.ffn == "moe":
         y, aux = moe_mod.moe_apply(p, h, cfg, plan)
         return y, aux, None
@@ -418,6 +430,17 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _seq_split(cfg: ArchConfig, plan: ShardingPlan, S: int,
+               mode: str) -> bool:
+    """Whether a stack of ``mode`` on a sequence of ``S`` keeps its
+    residual stream split along the sequence over ``model`` (Megatron-SP,
+    the reference's pin of each layer's carry at ``("batch", "act_seq",
+    None)``): with ``cfg.seq_parallel_acts``, in train mode, where the
+    plan keeps ``model`` on that sequence dim."""
+    return (cfg.seq_parallel_acts and mode == "train"
+            and tp_ranks(plan, "act_seq", S) > 1)
+
+
 def _vocab_split(cfg: ArchConfig, plan: ShardingPlan) -> int:
     """The ``model`` ranks that split the vocabulary (the logits' pin at
     ``("batch", None, "tp")``)."""
@@ -427,20 +450,30 @@ def _vocab_split(cfg: ArchConfig, plan: ShardingPlan) -> int:
 def _whole(params, name: str, cfg: ArchConfig, plan: ShardingPlan):
     """``params[name]`` (a leaf or a subtree) gathered on the ambient mesh:
     whole, or, for the (un)embedding of a split vocabulary, this rank's
-    vocabulary block; as it is without a mesh."""
+    vocabulary block; as it is without a mesh.  A final norm under
+    ``split_sequence`` runs on this rank's block of the sequence: its
+    gradient is summed over ``model``."""
     p = params[name]
     if current_mesh() is None:
         return p
     split = None
     if name in ("embed", "lm_head") and _vocab_split(cfg, plan) > 1:
         split = (1, False)
-    return gather_tree(p, specs_of(param_defs(cfg)[name], plan), plan, split)
+    elif name in ("final_norm", "enc_final_norm") and sequence_split():
+        split = {k: ssm.SUMMED for k in p}
+    return gather_tree(p, param_defs(cfg)[name], plan, split)
 
 
 def _block_split(spec: BlockSpec, cfg: ArchConfig, plan: ShardingPlan):
     """How a block's leaves are gathered where ``model`` splits its
-    regions (``gather_tree``'s split)."""
+    regions (``gather_tree``'s split); under ``split_sequence`` the norms
+    run on this rank's block of the sequence, so each rank's gradient of
+    them is a partial sum (summed over ``model``)."""
     out = {}
+    if sequence_split():
+        for k in ("norm1", "norm2") + (("norm_x",) if spec.cross else ()):
+            out[k] = {leaf: ssm.SUMMED
+                      for leaf in _norm_defs(cfg, cfg.params_dtype)}
     mixer = {"gqa": attn.gqa_split, "mla": attn.mla_split,
              "rwkv6": ssm.rwkv6_split, "mamba": ssm.mamba_split}.get(
                  spec.mixer)
@@ -459,19 +492,36 @@ def _block_split(spec: BlockSpec, cfg: ArchConfig, plan: ShardingPlan):
     return out
 
 
+def gather_splits(cfg: ArchConfig, plan: ShardingPlan) -> dict:
+    """Each leaf's ``(keep, summed)`` where a compute split on the ambient
+    mesh gathers it (``gather_tree``'s split), by path."""
+    out: dict[str, Any] = {}
+    for prefix, runs in (("run", layer_runs(cfg)),
+                         ("enc_run", encoder_runs(cfg))):
+        for r, (spec, _) in enumerate(runs):
+            out[f"{prefix}{r}"] = _block_split(spec, cfg, plan)
+    if _vocab_split(cfg, plan) > 1:
+        for name in ("embed",) + (() if cfg.tie_embeddings else
+                                  ("lm_head",)):
+            out[name] = (1, False)
+    return flatten(out)
+
+
 def _gathering(spec: BlockSpec, cfg: ArchConfig, plan: ShardingPlan):
     """``apply_block`` on a mesh: the layer's shards are gathered inside
     it (so a remat region saves the shards and its recompute gathers
-    again), over ``model`` only where no region of it splits."""
+    again), over ``model`` only where no region of it splits; it runs in
+    the caller's context (the mesh, the sequence split), the recompute
+    too."""
     if current_mesh() is None:
         return apply_block
-    specs = specs_of(block_defs(spec, cfg, cfg.params_dtype), plan)
+    defs = block_defs(spec, cfg, cfg.params_dtype)
     split = _block_split(spec, cfg, plan)
 
     def run(spec_, p, *args, **kw):
-        return apply_block(spec_, gather_tree(p, specs, plan, split), *args,
+        return apply_block(spec_, gather_tree(p, defs, plan, split), *args,
                            **kw)
-    return run
+    return in_this_context(run)
 
 
 def _store(stacked: dict, i: int, new: dict) -> None:
@@ -524,15 +574,18 @@ def _stack_trees(trees: list[dict]) -> dict:
 
 
 def _embed(params, tokens, cfg: ArchConfig, plan: ShardingPlan):
+    """The embeddings of ``tokens``: this rank's block of the sequence
+    under ``split_sequence``."""
     w = _whole(params, "embed", cfg, plan)
-    if _vocab_split(cfg, plan) > 1:
+    split = _vocab_split(cfg, plan) > 1
+    if split:
         # this rank's vocabulary rows, zero for the others' tokens, summed
         v0 = tp_rank() * w.shape[0]
         mine = (tokens >= v0) & (tokens < v0 + w.shape[0])
         rows = w[torch.where(mine, tokens - v0, 0)]
-        x = reduce_from_model(torch.where(mine[..., None], rows, 0))
+        x = leave_region(torch.where(mine[..., None], rows, 0), True)
     else:
-        x = w[tokens]
+        x = leave_region(w[tokens], False)
     if cfg.scale_embed:  # gemma convention
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x.to(DTYPES[cfg.compute_dtype])
@@ -559,25 +612,36 @@ def _unembedding(params, cfg: ArchConfig, plan: ShardingPlan):
 
 
 def _encoder(params, batch, cfg, plan):
+    """The encoder's output, whole: its stack runs in train mode in every
+    mode, so under ``cfg.seq_parallel_acts`` its residual is split along
+    the sequence (``_seq_split``) and gathered at the end."""
     x = batch["enc_embeds"].to(DTYPES[cfg.compute_dtype])
     enc_pos = torch.arange(x.shape[1], device=x.device)
     x = x + sinusoidal_from_pos(enc_pos, cfg.d_model).to(x.dtype)
-    for r, (spec, L) in enumerate(encoder_runs(cfg)):
-        x, _, _ = _run_stack(spec, params[f"enc_run{r}"], x, enc_pos[None],
-                             cfg, plan, mode="train", cache=None)
-    return _apply_norm(_whole(params, "enc_final_norm", cfg, plan), x, cfg)
+    with split_sequence(_seq_split(cfg, plan, x.shape[1], "train")):
+        x = leave_region(x, False)
+        for r, (spec, L) in enumerate(encoder_runs(cfg)):
+            x, _, _ = _run_stack(spec, params[f"enc_run{r}"], x,
+                                 enc_pos[None], cfg, plan, mode="train",
+                                 cache=None)
+        x = _apply_norm(_whole(params, "enc_final_norm", cfg, plan), x, cfg)
+        return enter_region(x, False)
 
 
 def backbone(params, tokens, pos, cfg, plan, *, mode, cache=None,
              pos3=None, batch=None, seq=()):
     """Shared trunk. Returns (hidden, aux, new_cache).  ``seq``: the mesh
-    axes that split the attention caches' slots (``cache_seq``)."""
+    axes that split the attention caches' slots (``cache_seq``).  Under
+    ``split_sequence`` (``loss_fn``) the hidden states are this rank's
+    block of the sequence."""
     x = _embed(params, tokens, cfg, plan)
+    s0, n = sequence_start(x.shape[1]), x.shape[1]
     if cfg.n_patches and batch is not None and "patch_embeds" in batch:
-        pe = batch["patch_embeds"].to(x.dtype)
+        pe = batch["patch_embeds"].to(x.dtype)[:, s0:s0 + n]
         x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
     if cfg.enc_dec:  # whisper decoder: absolute positions, any mode
-        x = x + sinusoidal_from_pos(pos, cfg.d_model).to(x.dtype)
+        x = x + sinusoidal_from_pos(pos[..., s0:s0 + n], cfg.d_model).to(
+            x.dtype)
     x = constrain(x, plan, ("batch", None, None))
     x_enc = _encoder(params, batch, cfg, plan) \
         if cfg.enc_dec and mode in ("train", "prefill") else None
@@ -638,14 +702,15 @@ def _xent_chunked(x, w, labels, plan: ShardingPlan, chunk: int = 512,
     Each chunk's (B,c,V) float32 logits are recomputed in the backward
     pass (``torch.utils.checkpoint``), bounding activation memory at
     (B,chunk,V/tp): with ``split``, ``w`` is this rank's vocabulary block
-    (``_xent_sums_split``).  Returns (Σ nll, Σ lse²), each over B·S."""
+    (``_xent_sums_split``).  Under ``split_sequence`` ``x`` is this rank's
+    block of the sequence, gathered here: every ``model`` rank takes the
+    same tokens.  Returns (Σ nll, Σ lse²), each over B·S."""
+    x = enter_region(x, split)
     B, S, d = x.shape
     c = min(chunk, S)
     n = S // c
     assert S % c == 0
-    sums = _xent_sums_split if split else _xent_sums
-    if split:
-        x = copy_to_model(x)
+    sums = in_this_context(_xent_sums_split if split else _xent_sums)
     nll = torch.zeros((), dtype=torch.float32, device=x.device)
     z2 = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
@@ -663,11 +728,12 @@ def loss_fn(params, batch, cfg: ArchConfig, plan: ShardingPlan):
     pos = batch.get("pos")
     if pos is None:
         pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
-    x, aux, _ = backbone(params, tokens, pos, cfg, plan, mode="train",
-                         pos3=batch.get("pos3"), batch=batch)
-    w = _unembedding(params, cfg, plan)
-    nll, z2 = _xent_chunked(x, w, batch["labels"], plan,
-                            split=_vocab_split(cfg, plan) > 1)
+    with split_sequence(_seq_split(cfg, plan, tokens.shape[1], "train")):
+        x, aux, _ = backbone(params, tokens, pos, cfg, plan, mode="train",
+                             pos3=batch.get("pos3"), batch=batch)
+        w = _unembedding(params, cfg, plan)
+        nll, z2 = _xent_chunked(x, w, batch["labels"], plan,
+                                split=_vocab_split(cfg, plan) > 1)
     z = 1e-4 * z2
     loss = nll + z + 1e-2 * aux
     return loss, {"nll": nll, "aux": aux, "zloss": z}

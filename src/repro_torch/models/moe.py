@@ -29,7 +29,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, ShardingPlan
 from repro_torch.parallel.shard import (batch_mean, copy_to_model,
-                                        reduce_from_model, tp_rank, tp_ranks)
+                                        enter_region, leave_region, tp_rank,
+                                        tp_ranks)
 from .layers import ParamDef, constrain, f32
 
 
@@ -118,12 +119,16 @@ def moe_apply(p, x, cfg: ArchConfig, plan: ShardingPlan):
     """x (B, S, d) -> (B, S, d), aux-loss scalar.
 
     GShard-style *grouped* dispatch: each batch row is a dispatch group with
-    its own capacity C = ceil(S·k·cf / E)."""
-    B, S, d = x.shape
+    its own capacity C = ceil(S·k·cf / E).  Under a sequence split ``x``
+    is this rank's block of the sequence: the router and the aux terms
+    run on the whole sequence (``xw``), as the experts do."""
     E, k = cfg.n_experts, cfg.n_experts_per_tok
+    m = tp_ranks(plan, "exp", E)
+    xw = enter_region(x, False)     # the router runs whole on every rank
+    B, S, d = xw.shape
     C = capacity(S, cfg)
 
-    logits = f32(x) @ p["router"]                              # (B, S, E)
+    logits = f32(xw) @ p["router"]                             # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
     gate, idx = top_k(probs, k)                                # (B, S, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -142,11 +147,10 @@ def moe_apply(p, x, cfg: ArchConfig, plan: ShardingPlan):
     aux = aux + 1e-3 * zloss
 
     # ---- per-group sort-based dispatch ------------------------------------
-    m = tp_ranks(plan, "exp", E)
-    xe, mine = x, None
+    xe, mine = xw, None
     if m > 1:        # this rank's experts; the replicated input enters
         E = E // m
-        xe, mine = copy_to_model(x), (tp_rank() * E, E)
+        xe, mine = enter_region(x, True), (tp_rank() * E, E)
     dispatched, slot, keep, t_sorted, order = _dispatch_group(xe, idx,
                                                               cfg.n_experts,
                                                               C, mine)
@@ -173,20 +177,23 @@ def moe_apply(p, x, cfg: ArchConfig, plan: ShardingPlan):
     y.scatter_add_(1, t_sorted[..., None].expand(B, S * k, d),
                    f32(gathered) * g_sorted[..., None])
 
-    # the ranks' partial sums (``part``) add up in one all-reduce
+    # the ranks' partial sums (``part``) add up in one all-reduce (or
+    # reduce-scatter), beside the terms every rank computes whole (``y``)
     part, y = (y, 0.0) if m > 1 else (None, y)
     if cfg.n_shared_experts:
         sh = p["shared"]
         split = tp_ranks(plan, "tp", _shared_ff(cfg)) > 1
-        xr = (copy_to_model(x) if split else x).reshape(B * S, d)
+        xr = (enter_region(x, True) if split else xw).reshape(B * S, d)
         ys = f32(F.silu(xr @ sh["w_gate"]) * (xr @ sh["w_up"])
                  @ sh["w_down"]).reshape(B, S, d)
         if split:
             part = ys if part is None else part + ys
         else:
             y = y + ys
+    if isinstance(y, torch.Tensor):
+        y = leave_region(y, False)
     if part is not None:
-        y = y + reduce_from_model(part)
+        y = y + leave_region(part, True)
 
-    y = y.to(x.dtype).reshape(B, S, d)
+    y = y.to(x.dtype).reshape(x.shape)
     return constrain(y, plan, ("batch", None, "fsdp")), aux

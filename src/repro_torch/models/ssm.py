@@ -41,8 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, ShardingPlan
-from repro_torch.parallel.shard import (copy_to_model, gather_from_model,
-                                        reduce_from_model, sum_over_model,
+from repro_torch.parallel.shard import (enter_region, gather_from_model,
+                                        leave_region, sum_over_model,
                                         tp_rank, tp_ranks)
 from .layers import ParamDef, constrain, f32, rms_norm
 
@@ -141,11 +141,11 @@ def rwkv6_chunked(p, x, x_prev, state, cfg: ArchConfig,
                   plan: ShardingPlan, chunk: int = 16):
     """x (B,S,d) -> (y, (x_last, state)). state (B,H,dk,dv) f32 (this
     rank's H/m heads on a split)."""
-    B, S, d = x.shape
     m = rwkv6_ranks(cfg, plan)
+    x_in = enter_region(x, m > 1)
+    B, S, d = x_in.shape
     dk = d // rwkv6_heads(cfg)
     H = rwkv6_heads(cfg) // m
-    x_in = copy_to_model(x) if m > 1 else x
     r, k, v, g, log_w = _rwkv6_inputs(p, x_in, x_prev, m)
     u = _cols(p["bonus_u"], m).reshape(H, dk)
 
@@ -188,9 +188,7 @@ def rwkv6_chunked(p, x, x_prev, state, cfg: ArchConfig,
     y = ys.permute(1, 0, 3, 2, 4).reshape(B, S, H * dk)
     y = _norm_split(y.to(x.dtype), _cols(p["ln_x"], m), cfg.rms_eps, d,
                     m) * g
-    out = y @ p["w_o"]
-    if m > 1:
-        out = reduce_from_model(out)
+    out = leave_region(y @ p["w_o"], m > 1)
     out = constrain(out, plan, ("batch", None, "fsdp"))
     return out, (x[:, -1:], state)
 
@@ -201,7 +199,7 @@ def rwkv6_step(p, x, x_prev, state, cfg: ArchConfig, plan: ShardingPlan):
     m = rwkv6_ranks(cfg, plan)
     dk = d // rwkv6_heads(cfg)
     H = rwkv6_heads(cfg) // m
-    x_in = copy_to_model(x) if m > 1 else x
+    x_in = enter_region(x, m > 1)
     r, k, v, g, log_w = _rwkv6_inputs(p, x_in, x_prev, m)
     u = _cols(p["bonus_u"], m).reshape(H, dk)
     rh = f32(r).reshape(B, H, dk)
@@ -213,8 +211,7 @@ def rwkv6_step(p, x, x_prev, state, cfg: ArchConfig, plan: ShardingPlan):
     state = w[..., None] * state + kv
     y = y.reshape(B, 1, H * dk).to(x.dtype)
     y = _norm_split(y, _cols(p["ln_x"], m), cfg.rms_eps, d, m) * g
-    out = y @ p["w_o"]
-    return (reduce_from_model(out) if m > 1 else out), (x, state)
+    return leave_region(y @ p["w_o"], m > 1), (x, state)
 
 
 def rwkv6_ffn_defs(cfg: ArchConfig, dt: str) -> dict:
@@ -250,9 +247,11 @@ def rwkv6_ffn(p, x, x_prev, cfg: ArchConfig, plan: ShardingPlan):
     ``w_r``, all-gathered over ``model`` (``gather_from_model``) before it
     gates the sum.  Gathering ``w_r`` whole instead would have every rank
     compute the whole (d, d) receptance: at ``rwkv6-1.6b``'s widths on 16
-    ranks that is 2.3x the rest of the rank's channel mix."""
+    ranks that is 2.3x the rest of the rank's channel mix.  Under a
+    sequence split the token shift runs on the whole sequence, and the
+    sum and the receptance leave the region as this rank's block of it."""
     m = rwkv6_ffn_ranks(cfg, plan)
-    x_in = copy_to_model(x) if m > 1 else x
+    x_in = enter_region(x, m > 1)
     xs = torch.cat([x_prev, x_in[:, :-1]], dim=1)
     mix = torch.sigmoid(p["mix"]).to(x.dtype)
     xk = x_in + (xs - x_in) * mix[0]
@@ -261,8 +260,10 @@ def rwkv6_ffn(p, x, x_prev, cfg: ArchConfig, plan: ShardingPlan):
     kv = kk @ p["w_v"]
     rr = torch.sigmoid(xr @ p["w_r"])
     if m > 1:
-        kv, rr = reduce_from_model(kv), gather_from_model(rr, -1)
-    out = rr * kv
+        kv = leave_region(kv, True)
+        out = leave_region(gather_from_model(rr, -1), False) * kv
+    else:
+        out = leave_region(rr * kv, False)
     return constrain(out, plan, ("batch", None, "fsdp")), x[:, -1:]
 
 
@@ -328,17 +329,18 @@ def mamba_apply(p, x, conv_state, h_state, cfg: ArchConfig,
                 plan: ShardingPlan):
     """x (B,S,d) -> (y, (conv_state, h_state)). h (B,di,ds) f32,
     conv_state (B, d_conv-1, di) (their ``di/m`` channels on a split)."""
-    B, S, d = x.shape
+    m = mamba_ranks(cfg, plan)
+    x_in = enter_region(x, m > 1)
+    B, S, d = x_in.shape
     di = cfg.expand * d
     dc = cfg.d_conv
-    m = mamba_ranks(cfg, plan)
     if m > 1:        # this rank's u and z columns of the whole w_in
-        x_in, n = copy_to_model(x), di // m
+        n = di // m
         w_in = p["w_in"]
         u = x_in @ w_in.narrow(-1, tp_rank() * n, n)
         z = x_in @ w_in.narrow(-1, di + tp_rank() * n, n)
     else:
-        xz = x @ p["w_in"]
+        xz = x_in @ p["w_in"]
         u, z = xz[..., :di], xz[..., di:]
     # causal depthwise conv over the sequence
     u_pad = torch.cat([conv_state.to(u.dtype), u], dim=1)
@@ -367,9 +369,7 @@ def mamba_apply(p, x, conv_state, h_state, cfg: ArchConfig,
             h_state = dA[:, t] * h_state + dBu[:, t]      # (B,di,ds)
             ys.append(torch.einsum("bds,bs->bd", h_state, C_c[:, t]))
     y = torch.stack(ys, dim=1) + uf * p["d_skip"]         # (B,S,di)
-    y = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
-    if m > 1:
-        y = reduce_from_model(y)
+    y = leave_region((y.to(x.dtype) * F.silu(z)) @ p["w_out"], m > 1)
     return constrain(y, plan, ("batch", None, "fsdp")), \
         (new_conv_state.to(x.dtype), h_state)
 

@@ -56,6 +56,24 @@ gather its ``wk`` / ``wv`` columns among themselves (``keep=s``, a
 sub-group of ``s`` consecutive ``model`` ranks) and sum their gradients
 (``summed``: a reduce-scatter over that sub-group, not a slice).
 
+With ``cfg.seq_parallel_acts`` in training (Megatron-SP: the reference's
+pin of the residual at ``("batch", "act_seq", None)``), the residual
+stream between a layer's regions is this rank's block of the sequence
+over ``model`` (``split_sequence``).  ``enter_region`` all-gathers it
+where a region enters (its gradient reduce-scattered where ``model``
+splits the region, this rank's block of it where every rank runs the
+region whole); ``leave_region`` reduce-scatters a split region's partial
+sums, or keeps this rank's block of a whole region's output (the
+gradient all-gathered either way).  Without the split the two are
+``copy_to_model`` / ``reduce_from_model``, or nothing.  A norm that runs
+on the block has its gradient summed over ``model``.
+
+A step at ``grad_accum > 1`` gathers its non-expert leaves over the batch
+axes once (``gather_batch``; their gradients ``reduce_batch_grad``);
+inside ``batch_gathered`` a layer gathers such a leaf over ``model``
+only.  ``in_this_context`` runs a remat region's recompute, which
+autograd may run on another thread, in its forward pass's context.
+
 A cache's sequence dim is split where the plan splits it (a batch of
 one leaves ``data`` to the sequence): ``seq_axes`` names the axes,
 ``seq_block`` this rank's slots, ``max_over`` / ``sum_over`` combine the
@@ -127,17 +145,35 @@ class ShardedLeaf:
         return tuple(a for e in self.spec for a in spec_axes(e))
 
 
+def wire_bytes(op: str, out_bytes: int, n: int) -> float:
+    """The bytes one rank sends in a ring collective of ``n`` ranks whose
+    per-rank output is ``out_bytes``: an all-gather sends the other ranks'
+    blocks on, a reduce-scatter n - 1 blocks of its output's size, an
+    all-reduce both."""
+    if op == ALL_GATHER:
+        return out_bytes * (n - 1) / n
+    if op == REDUCE_SCATTER:
+        return out_bytes * (n - 1)
+    return 2 * out_bytes * (n - 1) / n
+
+
 class CollectiveLog:
-    """Count and per-rank output bytes of each collective, by kind."""
+    """Count, per-rank output bytes and wire bytes (``wire_bytes``) of each
+    collective, by kind, and each call's (kind, axes, output shape) in
+    ``calls``."""
 
     def __init__(self):
         self.count: dict[str, int] = {}
         self.bytes: dict[str, int] = {}
+        self.wire: dict[str, float] = {}
+        self.calls: list[tuple[str, tuple, tuple]] = []
 
-    def add(self, op: str, out: torch.Tensor) -> None:
+    def add(self, op: str, out: torch.Tensor, axes, n: int) -> None:
+        nb = out.numel() * out.element_size()
         self.count[op] = self.count.get(op, 0) + 1
-        self.bytes[op] = (self.bytes.get(op, 0)
-                          + out.numel() * out.element_size())
+        self.bytes[op] = self.bytes.get(op, 0) + nb
+        self.wire[op] = self.wire.get(op, 0.0) + wire_bytes(op, nb, n)
+        self.calls.append((op, tuple(axes), tuple(out.shape)))
 
 
 class RankMesh:
@@ -277,9 +313,9 @@ class RankMesh:
 
 # ----------------------------------------------------------- collectives --
 
-def _record(rm: RankMesh, op: str, out: torch.Tensor) -> None:
+def _record(rm: RankMesh, op: str, out: torch.Tensor, axes, n: int) -> None:
     if rm.log is not None:
-        rm.log.add(op, out)
+        rm.log.add(op, out, axes, n)
 
 
 def _group(rm: RankMesh, axes, sub: int | None):
@@ -295,13 +331,13 @@ def _all_gather(x, rm: RankMesh, axes, dim: int, sub: int | None = None):
     if shard_uniform(rm.is_dry):       # the same mesh on every rank
         out = torch.empty(x.shape[:dim] + (n * x.shape[dim],)
                           + x.shape[dim + 1:], dtype=x.dtype, device=x.device)
-        _record(rm, ALL_GATHER, out)
+        _record(rm, ALL_GATHER, out, axes, n)
         return out
     src = torch.movedim(x, dim, 0).contiguous()
     # the ranks' blocks one after another along dim 0
     buf = src.new_empty((n,) + tuple(src.shape)).flatten(0, 1)
     dist.all_gather_into_tensor(buf, src, group=_group(rm, axes, sub))
-    _record(rm, ALL_GATHER, buf)
+    _record(rm, ALL_GATHER, buf, axes, n)
     return torch.movedim(buf, 0, dim).contiguous()
 
 
@@ -311,13 +347,13 @@ def _reduce_scatter(x, rm: RankMesh, axes, dim: int, sub: int | None = None):
     blocks = torch.movedim(x, dim, 0).unflatten(0, (n, -1))
     if shard_uniform(rm.is_dry):
         out = torch.movedim(torch.empty_like(blocks[0]), 0, dim)
-        _record(rm, REDUCE_SCATTER, out)
+        _record(rm, REDUCE_SCATTER, out, axes, n)
         return out
     buf = blocks.new_empty(blocks.shape[1:])         # contiguous
     dist.reduce_scatter_tensor(buf, blocks.flatten(0, 1).contiguous(),
                                op=dist.ReduceOp.SUM,
                                group=_group(rm, axes, sub))
-    _record(rm, REDUCE_SCATTER, buf)
+    _record(rm, REDUCE_SCATTER, buf, axes, n)
     return torch.movedim(buf, 0, dim).contiguous()
 
 
@@ -326,11 +362,11 @@ def all_reduce(x, rm: RankMesh, axes, op=dist.ReduceOp.SUM):
     tensor)."""
     if shard_uniform(rm.is_dry):
         out = torch.empty_like(x)
-        _record(rm, ALL_REDUCE, out)
+        _record(rm, ALL_REDUCE, out, axes, rm.size(axes))
         return out
     out = x.contiguous().clone()
     dist.all_reduce(out, op=op, group=rm.group(axes))
-    _record(rm, ALL_REDUCE, out)
+    _record(rm, ALL_REDUCE, out, axes, rm.size(axes))
     return out
 
 
@@ -478,6 +514,18 @@ def current_mesh() -> RankMesh | None:
     return _MESH.get()
 
 
+def in_this_context(fn):
+    """``fn`` to run in a copy of the caller's context (the ambient mesh,
+    ``split_sequence``, ``batch_gathered``): a remat region's recompute
+    runs in the backward pass, which autograd runs on another thread for
+    CUDA tensors, where the context of the forward pass is not set."""
+    ctx = contextvars.copy_context()
+
+    def run(*args, **kw):
+        return ctx.copy().run(fn, *args, **kw)
+    return run
+
+
 def gather(t: torch.Tensor, spec, plan, keep: int | None = None,
            summed: bool = False) -> torch.Tensor:
     """The whole leaf of this rank's shard ``t`` under the ambient mesh
@@ -490,15 +538,86 @@ def gather(t: torch.Tensor, spec, plan, keep: int | None = None,
                              summed)
 
 
-def gather_tree(tree, specs, plan, split=None):
-    """``gather`` over a nested dict and its spec tree; ``split``, a
-    nested dict of the same paths, holds a leaf's ``(keep, summed)``
-    where a compute split gathers it (every other leaf whole)."""
+def gather_tree(tree, defs, plan, split=None):
+    """``gather`` over a nested dict of leaves with their ``ParamDef``
+    tree ``defs`` (``plan.spec`` of each); ``split``, a nested dict of the
+    same paths, holds a leaf's ``(keep, summed)`` where a compute split
+    gathers it (every other leaf whole).  Inside ``batch_gathered`` a leaf
+    that is not an expert's is already whole over the batch axes (and
+    over its ``model`` sub-group where ``keep`` names one: ``gather_batch``):
+    it is gathered over the other axes of its spec only, and its gradient
+    is not reduced over the axes it was gathered over."""
     if isinstance(tree, dict):
         split = split or {}
-        return {k: gather_tree(v, specs[k], plan, split.get(k))
+        return {k: gather_tree(v, defs[k], plan, split.get(k))
                 for k, v in tree.items()}
-    return gather(tree, specs, plan, *(split or ()))
+    rm = current_mesh()
+    if rm is None:
+        return tree
+    spec, batch = plan.spec(defs.dims, defs.shape), rm.batch_axes(plan)
+    if _ONCE.get() and "exp" not in defs.dims:
+        if _sub_group(split):
+            return tree
+        spec, batch = drop_axes(spec, batch), ()
+    return GatherLayer.apply(tree, spec, rm, batch, *(split or ()))
+
+
+# ------------------------------------------ once a step, over the batch --
+
+_ONCE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_batch_gathered", default=False)
+
+
+@contextlib.contextmanager
+def batch_gathered(on: bool):
+    """Inside the block the non-expert leaves given to the model are whole
+    over the batch axes (``gather_batch``; ``gather_tree``)."""
+    token = _ONCE.set(bool(on))
+    try:
+        yield
+    finally:
+        _ONCE.reset(token)
+
+
+def drop_axes(spec, axes) -> tuple:
+    """``spec`` without the mesh axes ``axes``."""
+    return tuple(tuple(a for a in spec_axes(e) if a not in axes) or None
+                 for e in spec)
+
+
+def only_axes(spec, axes) -> tuple:
+    """``spec`` with only the mesh axes ``axes``."""
+    return tuple(tuple(a for a in spec_axes(e) if a in axes) or None
+                 for e in spec)
+
+
+def _sub_group(split) -> bool:
+    """Whether a compute split's ``(keep, summed)`` gathers a leaf over a
+    sub-group of ``keep`` ``model`` ranks (the KV heads that several
+    ranks share)."""
+    return split is not None and (split[0] or 1) > 1
+
+
+def gather_batch(t: torch.Tensor, spec, rm: RankMesh, batch,
+                 split=None) -> torch.Tensor:
+    """This rank's shard ``t`` all-gathered over the batch axes ``batch``
+    only (its other axes' blocks stay this rank's): the reference's leaf
+    constrained to its spec without the ``fsdp`` dim.  A leaf that a
+    compute split gathers over a ``model`` sub-group (``split``'s
+    ``keep``) is gathered over it too, as every microbatch would."""
+    if _sub_group(split):
+        return unshard(t, spec, rm, split[0])
+    return unshard(t, only_axes(spec, batch), rm)
+
+
+def reduce_batch_grad(g: torch.Tensor, spec, rm: RankMesh, batch,
+                      split=None) -> torch.Tensor:
+    """The gradient of a ``gather_batch`` copy reduced into this rank's
+    shard (``GatherLayer``'s reduction over the axes it was gathered
+    over)."""
+    if _sub_group(split):
+        return reduce_grad(g, spec, rm, batch, *split)
+    return reduce_grad(g, only_axes(spec, batch), rm, batch)
 
 
 # ------------------------------------------------- the compute split --
@@ -585,6 +704,103 @@ def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     repeats (so each rank's gradient of it is the whole gradient, and its
     own block is its share)."""
     return _GatherFromModel.apply(x, current_mesh(), dim)
+
+
+# ----------------------------------- the residual's sequence split --
+
+_SEQ: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_split_sequence", default=False)
+
+
+@contextlib.contextmanager
+def split_sequence(on: bool):
+    """Inside the block (with ``on``) the residual stream between a
+    layer's regions is this rank's block of the sequence (dim 1) over
+    ``model``: ``enter_region`` / ``leave_region`` gather and scatter it."""
+    token = _SEQ.set(bool(on))
+    try:
+        yield
+    finally:
+        _SEQ.reset(token)
+
+
+def sequence_split() -> bool:
+    return _SEQ.get()
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The ``model`` ranks' sequence blocks concatenated forward; the sum
+    of the ranks' gradients, this rank's block, backward
+    (reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, rm):
+        ctx.rm = rm
+        return _all_gather(x, rm, (MODEL,), 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.rm, (MODEL,), 1), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """The sum over ``model``, this rank's sequence block, forward
+    (reduce-scatter); the blocks of the gradient concatenated backward."""
+
+    @staticmethod
+    def forward(ctx, x, rm):
+        ctx.rm = rm
+        return _reduce_scatter(x, rm, (MODEL,), 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.rm, (MODEL,), 1), None
+
+
+class _SplitSeq(torch.autograd.Function):
+    """This rank's sequence block forward; the blocks of the gradient
+    concatenated backward."""
+
+    @staticmethod
+    def forward(ctx, x, rm):
+        ctx.rm = rm
+        return _block(x, rm, (MODEL,), 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.rm, (MODEL,), 1), None
+
+
+def enter_region(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """The residual stream's ``x`` (B, S, d) where it enters a region that
+    ``model`` splits (``split``) or that every ``model`` rank runs whole.
+    Under ``split_sequence`` ``x`` is this rank's block of the sequence
+    and the result the whole sequence: all-gathered, its gradient
+    reduce-scattered (split: each rank's is a partial sum) or this rank's
+    block of it (whole: every rank's is the same).  Otherwise ``x`` is
+    whole: ``copy_to_model`` (split) or ``x``."""
+    if not _SEQ.get():
+        return copy_to_model(x) if split else x
+    if split:
+        return _GatherSeq.apply(x, current_mesh())
+    return gather_from_model(x, 1)
+
+
+def leave_region(y: torch.Tensor, split: bool) -> torch.Tensor:
+    """A region's output ``y`` (B, S, d), whole sequence: partial sums
+    over ``model`` (``split``) or the same on every ``model`` rank.  Under
+    ``split_sequence``, this rank's block of the sequence of the sum
+    (reduce-scatter, its gradient all-gathered) or of ``y`` (its gradient
+    all-gathered); otherwise the sum (``reduce_from_model``) or ``y``."""
+    if not _SEQ.get():
+        return reduce_from_model(y) if split else y
+    return (_ScatterSeq if split else _SplitSeq).apply(y, current_mesh())
+
+
+def sequence_start(n_local: int) -> int:
+    """The first position of this rank's ``n_local`` positions of the
+    sequence (0 without ``split_sequence``)."""
+    return tp_rank() * n_local if _SEQ.get() else 0
 
 
 def max_over_model(x: torch.Tensor) -> torch.Tensor:

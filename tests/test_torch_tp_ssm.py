@@ -10,7 +10,9 @@ near-tie).  Architectures: ``rwkv6-1.6b`` (smoke: d 128, so 2 heads of
 still splits) and ``jamba-v0.1-52b`` (smoke: Mamba with ``di`` 256 at
 layers 0, 1, 3-5, 7, attention at 2 and 6, MoE at the odd layers), on
 ``(1, 2)``, ``(1, 4)``, ``(2, 2)`` (``data`` x ``model``); and RWKV-6 at d
-256 (4 heads) on ``(1, 4)``, where the time mix splits 4 ways.  Each
+256 (4 heads) on ``(1, 4)``, where the time mix splits 4 ways.  This file
+holds the RWKV-6 cases and the harness (``check``, ``TOL``);
+``jamba-v0.1-52b``'s are in ``tests/test_torch_tp_jamba.py``.  Each
 rank's cache leaves have the per-rank shapes of the reference's
 ``plan.spec`` (``NamedSharding.shard_shape`` on an ``AbstractMesh``).
 
@@ -105,17 +107,14 @@ def check(world, name, shape, over=None):
 
 
 @pytest.mark.parametrize("shape", WORLDS, ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS[:1])
 def test_split_matches_the_reference(world2, world4, name, shape):
     want = check(world2 if np.prod(shape) == 2 else world4, name, shape)
     m = shape[1]
-    if name == "rwkv6-1.6b":        # 2 heads of 64: split where m divides
-        heads = [s for k, s in want.items() if k.endswith("mixer/state")]
-        assert heads == [(4, 4 // shape[0], 2 // m if m == 2 else 2, 64,
-                          64)], heads
-    else:                           # di 256 over m
-        convs = [s for k, s in want.items() if k.endswith("mixer/conv")]
-        assert convs and all(s[-1] == 256 // m for s in convs), convs
+    # 2 heads of 64: split where m divides
+    heads = [s for k, s in want.items() if k.endswith("mixer/state")]
+    assert heads == [(4, 4 // shape[0], 2 // m if m == 2 else 2, 64,
+                      64)], heads
 
 
 def test_rwkv6_with_four_heads_splits_them_over_four_ranks(world4):
