@@ -107,8 +107,8 @@ before the final line):
    request-folded keys, a request admitted beside a running lane, and
    the recolor-mode lane form of ``select_run`` held bitwise against its
    plain version on the engine's largest step run with a frozen or empty
-   lane (timed by CUDA events, L2 flushed); (b) 24 requests on a hybrid
-   clock (scripted Poisson arrivals, each poll costing its measured wall
+   lane (timed by CUDA events, L2 flushed); (b) ``SERVE_OPEN_LOOP``
+   requests on a hybrid clock (scripted Poisson arrivals, each poll costing its measured wall
    seconds) in continuous and in flush mode: latency p50/p99, graphs/s,
    polls, engines, routes, launches against the solo runs together, the
    device idle share of the polls, peak device memory; (c) 4 ``grid3d``
@@ -218,7 +218,7 @@ before the final line):
    tokens/s, the model-flops share, device idle and top consumers of a
    profiled warm step, peak memory; (b) the SSM split on a ``(1, 2)``
    gloo world of two host processes against one process, as phase 15:
-   ``rwkv6-1.6b``'s published widths cut to 2 layers and
+   ``rwkv6-1.6b``'s published widths cut to 1 layer and
    ``jamba-v0.1-52b``'s cut to its first layer (Mamba with d 4096, di
    8192, d_state 16, dt_rank 256, and its dense SwiGLU), float32, seeded
    weights, one microbatch, batch 2 x ``SPLIT_SEQ``; the loss, the gradient norm, every leaf's
@@ -237,8 +237,28 @@ before the final line):
    24's readings (``SSM_DRY_PR24``), within ``SSM_DRY_LIMITS``, every
    decode cell's ``cache_seq_replicated`` false, and ``rwkv6-1.6b``
    ``train_4k`` with the sequence-parallel residual beside its cell
-   (``SSM_DRY_VARIANTS``: a peak at least ``SP_DRY_LIMITS`` GiB lower).  They run in the order
-   16(a), 14(b, c), 16(d), 15, 16(b), 16(c).
+   (``SSM_DRY_VARIANTS``: a peak at least ``SP_DRY_LIMITS`` GiB lower);
+17. Mamba's selective scan (``models.ssm.mamba_scan``: a log-depth scan
+   in chunks that ``SCAN_CHUNK_BYTES`` sizes, with its own backward; plain
+   PyTorch, no TPU kernel) and ``jamba-v0.1-52b`` at its published widths
+   (d 4096, di 8192, d_state 16, dt_rank 256, 32 query / 8 KV heads, 16
+   experts top-2 of d_ff 14336, vocabulary 65536) in bf16 on the card:
+   (a) cut to its first ``SCAN_SERVE_LAYERS`` layers (one period of the
+   interleave: the whole model's 96 GiB of weights do not fit), served as
+   phase 12 serves, its peak beside phase 12's; the decode equivalence
+   within ``LM_BF16_TOL`` with ample MoE capacity and the routers' picks
+   pinned to the full forward's, the picks that the two paths made on
+   their own and that differ reported with their margins; (b) one Mamba layer at full width, float32,
+   ``SCAN_BATCH`` x ``SCAN_SEQ``: the scan against its plain version
+   ``_mamba_scan_steps`` on the layer's own inputs (y, the last state and
+   every input's gradient within ``SCAN_TOL``), the walls and peaks of
+   each; (c) cut to ``SCAN_TRAIN_LAYERS`` layers (Mamba + SwiGLU, Mamba +
+   MoE) through ``make_train_step`` at 8 x 1024 with its own grad_accum 8
+   and bf16 AdamW state, remat: a cold step, warm ones and a profiled
+   one, every loss finite; (d) ``SCAN_DRY_CELLS`` (``train_4k`` and
+   ``prefill_32k`` on ``pod16x16``) among 16(d)'s cells, each ``ok`` and
+   fitting the card.  They run in the order 16(a), 17(a-c), 14(b, c),
+   16(d) and 17(d), 15, 16(b), 16(c).
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` line and, last, the
 result line.
@@ -290,7 +310,10 @@ D2_MANY_GRID = (32, 32, 24)
 # stepping 2 iterations; the traffic mix at scales 15-17
 SERVE_P, SERVE_LANES, SERVE_CHUNK = 16, 4, 2
 SERVE_SCALES, SERVE_SEED = (15, 17), 0
-SERVE_BITWISE, SERVE_OPEN_LOOP = 12, 24
+# 9(b) takes the first 12 of the 24 graphs of traffic (24 before phase 17
+# came: its seconds go with the requests, each partitioned on the host);
+# 10(c) takes all 24
+SERVE_BITWISE, SERVE_OPEN_LOOP, SERVE_TRAFFIC = 12, 12, 24
 SERVE_D2_GRIDS = ((32, 32, 32), (32, 32, 24), (24, 24, 24), (32, 24, 24))
 SERVE_D2_K, SERVE_D2_LANES = 4, 2
 SERVE_KERNELS = ("select_run", "conflict_frontier")
@@ -2208,7 +2231,7 @@ def phase_serve(core, ops, dev) -> list:
     from repro_torch.launch import serve_coloring as S
     from repro_torch.launch import serve_harness as H
     t = time.perf_counter()
-    graphs = S._traffic(SERVE_OPEN_LOOP, *SERVE_SCALES, SERVE_SEED)
+    graphs = S._traffic(SERVE_TRAFFIC, *SERVE_SCALES, SERVE_SEED)
     print(f"  traffic: {len(graphs)} graphs rmat_er/good/bad in turn, scales "
           f"{SERVE_SCALES[0]}-{SERVE_SCALES[1]}, edge factor 8 "
           f"({[g.n for g in graphs]} vertices); generate "
@@ -2217,7 +2240,7 @@ def phase_serve(core, ops, dev) -> list:
     serve_leg_bitwise(core, ops, S, H, dev, graphs)
     phase("9a service bitwise (FakeClock)", t0)
     t0 = time.perf_counter()
-    serve_leg_open_loop(core, ops, S, H, dev, graphs)
+    serve_leg_open_loop(core, ops, S, H, dev, graphs[:SERVE_OPEN_LOOP])
     phase("9b service latency (hybrid clock)", t0)
     t0 = time.perf_counter()
     serve_leg_d2(core, ops, S, H, dev)
@@ -2538,34 +2561,95 @@ def rel_err(got, want) -> float:
                                                  1e-30)
 
 
-def lm_decode_equivalence(M, arch, params, inputs, first, plan) -> tuple:
+def lm_decode_equivalence(M, arch, params, inputs, first, plan) -> dict:
     """prefill(S) + one decode step against the full forward over S+1
     tokens (the prompt and the first generated token), the cache holding
-    S+4 slots as in ``tests/test_models.py``.  Returns (relative error,
-    rows whose argmax agrees, both logits finite)."""
-    toks = torch.cat([inputs["tokens"], first], dim=1)
+    S+4 slots as in ``tests/test_models.py``.  Returns the relative error
+    (``err``), each row's (``rows``), the rows whose argmax agrees
+    (``agree``) and whether both logits are finite (``finite``).
+
+    An MoE runs it with ample capacity (``capacity_factor`` 8, as that
+    test does: with the config's own, the full forward drops tokens past
+    an expert's capacity that the decode step keeps), and its routers'
+    top-k picks in prefill and decode are pinned to the full forward's
+    (``err``, ``rows``): a bf16 rounding that moves a near-tie changes a
+    pick, a discrete change that the two paths' numerics do not bound.
+    The picks that the paths made on their own and that differ are
+    listed in ``flips`` (row, MoE layer, token, the full forward's margin
+    between its k-th and (k+1)-th expert), with the error of that
+    unpinned run (``free_err``, ``free_rows``)."""
+    import repro_torch.models.moe as moe
+    if arch.is_moe:
+        arch = dataclasses.replace(arch, capacity_factor=8.0)
     S = inputs["tokens"].shape[1]
-    x, _, _ = M.backbone(params, toks, torch.arange(S + 1, device=toks.device)
-                         [None], arch, plan, mode="train")
-    want = M._unembed(params, x[:, -1:], arch, plan)
-    del x
-    cache, _ = M.prefill(params, inputs, arch, plan, cache_len=S + 4)
-    _, got = M.decode_step(params, cache, first, arch, plan)
-    del cache
-    finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
-    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
-    return rel_err(got, want), agree, finite
+    toks = torch.cat([inputs["tokens"], first], dim=1)
+    real, full, own, pin = moe.top_k, [], [], []
+
+    def route(probs, k):
+        vals, idx = real(probs, k)
+        if len(full) < n_moe:                     # the full forward's
+            full.append((probs.float(), idx))
+            return vals, idx
+        own.append(idx)
+        if not pin:
+            return vals, idx
+        i = len(own) - 1
+        layer, lo = i % n_moe, 0 if i < n_moe else S
+        idx = full[layer][1][:, lo:lo + probs.shape[1]]
+        return torch.gather(probs, -1, idx), idx
+
+    def paths():
+        cache, _ = M.prefill(params, inputs, arch, plan, cache_len=S + 4)
+        _, got = M.decode_step(params, cache, first, arch, plan)
+        return got.float().cpu()
+
+    n_moe = sum(s.ffn == "moe" for s in M.layer_specs(arch))
+    moe.top_k = route
+    try:
+        x, _, _ = M.backbone(params, toks, torch.arange(
+            S + 1, device=toks.device)[None], arch, plan, mode="train")
+        w = M._unembed(params, x[:, -1:], arch, plan).float().cpu()
+        del x
+        got = paths()
+        if n_moe:
+            picks, own[:] = own[:], []
+            pin.append(True)
+            free, got = got, paths()
+    finally:
+        moe.top_k = real
+    scale = max(float(w.abs().max()), 1e-30)
+
+    def rows(g):
+        return [float((g[b] - w[b]).abs().max()) / scale
+                for b in range(g.shape[0])]
+    out = dict(rows=rows(got), agree=int((got.argmax(-1) == w.argmax(-1))
+                                         .sum()),
+               finite=bool(torch.isfinite(got).all()
+                           and torch.isfinite(w).all()), flips=[])
+    out["err"] = max(out["rows"])
+    if n_moe:
+        k = arch.n_experts_per_tok
+        out["free_rows"] = rows(free)
+        out["free_err"] = max(out["free_rows"])
+        for layer, (pf, idx) in enumerate(full):
+            mine = torch.cat([picks[layer], picks[n_moe + layer]], dim=1)
+            top = torch.topk(pf, k + 1, dim=-1).values
+            gap = top[..., k - 1] - top[..., k]
+            same = (idx.sort(-1).values == mine.sort(-1).values).all(-1)
+            out["flips"] += [(b, layer, t, float(gap[b, t]))
+                             for b, t in (~same).nonzero().tolist()]
+    return out
 
 
-def lm_full(dev, name: str, label: str = "12") -> int:
-    """12(a)/(b) (16(a): ``label``): one architecture at its published
-    width and depth, served."""
+def lm_full(dev, name: str, label: str = "12", arch=None) -> int:
+    """12(a)/(b) (16(a), 17(a): ``label``): one architecture at its
+    published width and depth (``arch``: a cut of it), served."""
     from repro_torch.configs import get_arch, plan_for_mesh
     from repro_torch.launch import serve as S
     from repro_torch.launch.mesh import MeshSpec
     from repro_torch.models import init_params, model as M
     from repro_torch.models.layers import flatten
-    arch = get_arch(name)
+    arch = arch or get_arch(name)
     mesh = MeshSpec.local()
     plan = plan_for_mesh(mesh)
     torch.cuda.synchronize()
@@ -2591,14 +2675,34 @@ def lm_full(dev, name: str, label: str = "12") -> int:
           f"{label} {name}: tokens {tuple(tokens.shape)} out of range")
     inputs = S.serve_inputs(arch, batch=LM_BATCH, prompt_len=LM_PROMPT,
                             seed=LM_SEED, device=dev)
-    err, agree, finite = lm_decode_equivalence(M, arch, params, inputs,
-                                               tokens[:, :1], plan)
+    eq = lm_decode_equivalence(M, arch, params, inputs, tokens[:, :1], plan)
+    err, agree, finite = eq["err"], eq["agree"], eq["finite"]
     peak = torch.cuda.max_memory_allocated()
     dt = lm_device_time(M, arch, plan, params, inputs, tokens)
     check(finite, f"{label} {name}: non-finite logits")
+    if arch.is_moe:
+        fl = eq["flips"]
+        gaps = [f[3] for f in fl]
+        print(f"  {label} {name} decode equivalence (capacity factor 8, "
+              f"the routers' picks pinned to the full forward's) by row: "
+              f"{' '.join(f'{x:.3e}' for x in eq['rows'])}; unpinned "
+              f"{eq['free_err']:.4e}, by row "
+              f"{' '.join(f'{x:.3e}' for x in eq['free_rows'])}; the "
+              f"unpinned paths picked other top-{arch.n_experts_per_tok} "
+              f"experts {len(fl)} times in rows "
+              f"{sorted({f[0] for f in fl})} (MoE layers "
+              f"{sorted({f[1] for f in fl})}), the full forward's margins "
+              f"there {min(gaps, default=0):.3e}-{max(gaps, default=0):.3e}"
+              f"; the last token's: "
+              f"{[f for f in fl if f[2] == LM_PROMPT]}", flush=True)
     check(err <= LM_BF16_TOL, f"{label} {name}: prefill + decode against the "
           f"full forward {err:.3e} > {LM_BF16_TOL}")
     bound_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    if arch.is_moe:
+        print(f"  {label} {name}: the weight-bytes bound counts every "
+              f"weight once, all {arch.n_experts} experts of each MoE layer "
+              f"(top-{arch.n_experts_per_tok} of {LM_BATCH} rows can reach "
+              f"all of them)", flush=True)
     for run, (_, st) in zip(("cold", "warm"), runs):
         step_ms = st["decode_s"] / (LM_GEN - 1) * 1e3
         print(f"  {label} {name} {run}: prefill {st['prefill_s']:.4f} s, decode "
@@ -2615,12 +2719,14 @@ def lm_full(dev, name: str, label: str = "12") -> int:
           f"{dt['step_kernels']:.0f} device kernels a step "
           f"({dt['step_kernels'] / arch.n_layers:.1f} a layer); per decode "
           f"step: {dt['top']}", flush=True)
-    print(f"  {label} {name}: {arch.n_layers} layers, d_model {arch.d_model}, "
+    print(f"  {label} {name}: {arch.n_layers} of {get_arch(name).n_layers} "
+          f"layers, d_model {arch.d_model}, "
           f"vocab {arch.vocab_size} (padded {arch.vocab_padded()}), {n:,} "
           f"parameters, {w_bytes / 1e9:.3f} GB bf16, drawn in {t_init:.3f} s; "
           f"batch {LM_BATCH}, prompt {LM_PROMPT}, gen {LM_GEN}; peak "
           f"{peak / 2**30:.3f} GiB; decode equivalence {err:.4e} of the "
-          f"largest logit (tol {LM_BF16_TOL}), argmax agrees on {agree}/"
+          f"largest logit{' (routers pinned)' if arch.is_moe else ''} (tol "
+          f"{LM_BF16_TOL}), argmax agrees on {agree}/"
           f"{LM_BATCH} rows, logits finite", flush=True)
     del params, runs
     gc.collect()
@@ -3078,15 +3184,20 @@ def dry_job(job) -> dict:
 
 def start_dry():
     """The dry-run jobs in ``DRY_WORKERS`` background processes (CPU only;
-    they run while the card works through phases 12-16(a)): (the pool,
-    16(d)'s cells, 14(b, c)'s jobs)."""
+    they run while the card works through phases 12-17(c)): (the pool,
+    16(d)'s and 17(d)'s cells, 14(b, c)'s jobs).  The longest jobs go
+    first (``qwen3-0.6b`` ``prefill_32k``, then jamba's ``train_4k``), so
+    that the pool ends about when the card's phases do."""
     import multiprocessing
     pool = multiprocessing.get_context("spawn").Pool(DRY_WORKERS)
-    ssm = pool.map_async(dry_job, [("cell", a, sh, SSM_DRY_LIMIT_S)
-                                   for a, sh in SSM_DRY_CELLS]
+    jobs = pool.map_async(dry_job, dry_jobs(), chunksize=1)
+    first = [c for c in SSM_DRY_CELLS if c in SCAN_DRY_CELLS]
+    ssm = pool.map_async(dry_job, [("cell", a, sh, SSM_DRY_LIMIT_S) for a, sh
+                                   in first + [c for c in SSM_DRY_CELLS
+                                               if c not in first]]
                          + [("variant", a, sh, over, SSM_DRY_LIMIT_S)
                             for a, sh, over in SSM_DRY_VARIANTS], chunksize=1)
-    return pool, ssm, pool.map_async(dry_job, dry_jobs(), chunksize=1)
+    return pool, ssm, jobs
 
 
 def mesh_train(dev, M) -> None:
@@ -3249,7 +3360,9 @@ def phase_dry(pool, pending, early, peak12: dict, peak13: int) -> list:
 # -- phase 15: the compute split on a (1, 2) gloo world of host processes ------
 
 TP_ARCH, TP_LAYERS = "qwen3-0.6b", 2
-TP_BATCH, TP_SEQ, TP_GEN = 2, 256, 8
+# 4 greedy tokens (8 before phase 17 came: each decode step of a split
+# run gathers weights over gloo, the most of 15's and 16(b)'s seconds)
+TP_BATCH, TP_SEQ, TP_GEN = 2, 256, 4
 TP_THREADS = 4            # torch threads of each of the two ranks
 # the CPU tests' tolerances for one train step and for serving
 # (tests/test_torch_tp.py): the loss and the gradient norm relative to
@@ -3265,9 +3378,10 @@ TP_THREADS = 4            # torch threads of each of the two ranks
 TP_TOL = dict(loss=3e-7, norm=6.3e-7, m=3e-6, v=3.3e-5, logits=1.6e-6,
               tie=2e-5)
 # the layers each architecture keeps in the split runs of phases 15 and
-# 16(b): qwen3-0.6b's first two; rwkv6-1.6b's first two; jamba-v0.1-52b's
-# first (a Mamba mixer and its dense SwiGLU)
-SPLIT_LAYERS = {"qwen3-0.6b": TP_LAYERS, "rwkv6-1.6b": 2,
+# 16(b): qwen3-0.6b's first two; rwkv6-1.6b's first (its first two before
+# phase 17 came); jamba-v0.1-52b's first (a Mamba mixer and its dense
+# SwiGLU)
+SPLIT_LAYERS = {"qwen3-0.6b": TP_LAYERS, "rwkv6-1.6b": 1,
                 "jamba-v0.1-52b": 1}
 # and the sequence length of their batch and prompt (16(b) at a quarter of
 # phase 15's: its two runs took 63 s and 150 s at 256, 69 s and 147 s at
@@ -3552,7 +3666,8 @@ SSM_SPLIT_TOL = {
 # AdamW state, and half as much again in each of the two ranks
 SSM_SPLIT_FREE_GIB = 40.0
 # 16(c): batch-1 decode over a cache split over data on a (2, 1) world
-SEQ_ARCH, SEQ_PROMPT, SEQ_CACHE, SEQ_GEN = "qwen3-0.6b", 1024, 4096, 8
+# (4 greedy tokens: 8 before phase 17 came)
+SEQ_ARCH, SEQ_PROMPT, SEQ_CACHE, SEQ_GEN = "qwen3-0.6b", 1024, 4096, 4
 # the CPU tests' tolerances (tests/test_torch_seq_cache.py): logits
 # relative to the largest logit; the cache after decode relative to each
 # leaf's largest value (the first layer's bitwise, as after the prefill)
@@ -3561,8 +3676,13 @@ SEQ_TOL = dict(logits=1.6e-6, cache=3.1e-6, tie=2e-5)
 # same cells (peak GiB a rank, FLOP a rank, useful-flops ratio), taken
 # from PR 24's tree on the chip machine's host (PERF.md section 6, PR 25)
 SSM_DRY_CELLS = tuple(("rwkv6-1.6b", sh) for sh in (
-    "prefill_32k", "train_4k", "decode_32k", "long_500k")) + (
-    ("jamba-v0.1-52b", "decode_32k"), ("jamba-v0.1-52b", "long_500k"))
+    "prefill_32k", "train_4k", "decode_32k", "long_500k")) + tuple(
+    ("jamba-v0.1-52b", sh) for sh in (
+        "train_4k", "prefill_32k", "decode_32k", "long_500k"))
+# 17(d): the cells of SSM_DRY_CELLS that Mamba's scan lets finish (past
+# 600 s with the per-step loop, PRs 23-26)
+SCAN_DRY_CELLS = (("jamba-v0.1-52b", "train_4k"),
+                  ("jamba-v0.1-52b", "prefill_32k"))
 SSM_DRY_PR24 = {
     ("rwkv6-1.6b", "prefill_32k"): (6.644, 1.7339e14, 0.0748),
     ("rwkv6-1.6b", "train_4k"): (28.461, 6.9794e14, 0.0558),
@@ -3877,8 +3997,12 @@ def phase_ssm_dry(recs: list) -> None:
     cells = [r for r in recs if r["job"][0] == "cell"]
     for r in cells:
         key = (r["arch"], r["shape"])
-        check(r["status"] == "ok", f"16d {key}: {r.get('error', r['status'])}")
+        label = "17d" if key in SCAN_DRY_CELLS else "16d"
+        check(r["status"] == "ok", f"{label} {key}: "
+              f"{r.get('error', r['status'])}")
         ma, rf = r["memory_analysis"], r["roofline"]
+        check(ma["fits"], f"{label} {key}: {ma['total_per_device']} bytes a "
+              "rank do not fit the card")
         gib = ma["total_per_device"] / 2**30
         was = SSM_DRY_PR24.get(key, (None,) * 3)
         if "cache_seq_replicated" in r:
@@ -3893,10 +4017,210 @@ def phase_ssm_dry(recs: list) -> None:
         if key == ("jamba-v0.1-52b", "long_500k"):
             check(gib <= lim["long_gib"], f"16d {key}: {gib:.3f} GiB a rank "
                   f"> {lim['long_gib']}")
-        print(f"  16d {r['arch']} {r['shape']} {r['mesh']}: {r['status']}"
-              + dry_cell_line(r, was), flush=True)
+        print(f"  {label} {r['arch']} {r['shape']} {r['mesh']}: "
+              f"{r['status']}" + dry_cell_line(r, was), flush=True)
     for r in (r for r in recs if r["job"][0] == "variant"):
         print(f"  16d{dry_variant_line(r, cells, '16d')}", flush=True)
+
+
+# -- phase 17: Mamba's selective scan, jamba at its published widths ------------
+
+SCAN_ARCH = "jamba-v0.1-52b"
+# 17(a): served cut to one period of its interleave (Mamba at 0-3 and 5-7,
+# attention at 4, MoE at the odd layers): the whole model's 96 GiB of bf16
+# weights do not fit the card
+SCAN_SERVE_LAYERS = 8
+# 17(b): one Mamba layer at full width, float32, the scan against its plain
+# version within the CPU test's float32 tolerances against the reference
+# (tests/test_torch_mamba_scan.py's FWD_TOL, GRAD_TOL: y and h_S, and every
+# input's gradient, relative to each one's largest value)
+SCAN_BATCH, SCAN_SEQ = 8, 1024
+SCAN_TOL = dict(fwd=1.2e-6, grad=3.3e-6)
+# 17(c): trained cut to its first two layers (Mamba + SwiGLU, Mamba + MoE)
+# with the config's own grad_accum (8) and bf16 AdamW state, remat; a
+# cold step and two warm ones, then one profiled
+SCAN_TRAIN_LAYERS, SCAN_TRAIN_STEPS = 2, 3
+
+
+def jamba_cut(layers: int):
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(SCAN_ARCH), n_layers=layers)
+
+
+def scan_inputs(dev) -> list:
+    """17(b)'s scan inputs: what ``mamba_apply`` hands ``mamba_scan`` in
+    one Mamba layer at full width (seeded float32 weights, the zero-drawn
+    ``log_a``, ``dt_bias`` and ``conv_b`` drawn as the CPU test draws them;
+    a seeded input and state) on ``SCAN_BATCH`` x ``SCAN_SEQ``."""
+    from repro_torch.configs import NO_SHARDING
+    from repro_torch.models import init_params, ssm
+    arch = jamba_cut(1)
+    defs = {k: dataclasses.replace(d, init="normal", scale=0.5)
+            if d.init == "zeros" else d
+            for k, d in ssm.mamba_defs(arch, "float32").items()}
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    p = init_params(defs, gen, dev)
+    di = arch.expand * arch.d_model
+    x = 0.5 * torch.randn((SCAN_BATCH, SCAN_SEQ, arch.d_model), generator=gen,
+                          device=dev)
+    conv = torch.zeros((SCAN_BATCH, arch.d_conv - 1, di), device=dev)
+    h0 = torch.randn((SCAN_BATCH, di, arch.d_state), generator=gen,
+                     device=dev)
+    seen, real = [], ssm.mamba_scan
+
+    def grab(*args):
+        seen.extend(a.detach().clone() for a in args)
+        return real(*args)
+    ssm.mamba_scan = grab
+    try:
+        with torch.no_grad():
+            ssm.mamba_apply(p, x, conv, h0, arch, NO_SHARDING)
+    finally:
+        ssm.mamba_scan = real
+    return seen
+
+
+def scan_vs_plain(dev) -> None:
+    """17(b): ``mamba_scan`` against ``_mamba_scan_steps`` on one full-width
+    layer's own inputs: y, h_S and the gradient of every input under seeded
+    cotangents, each within ``SCAN_TOL`` of the plain version's largest
+    value; the walls and peaks of each (a cold and a warm run)."""
+    from repro_torch.models import ssm
+    args = scan_inputs(dev)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    gy = torch.randn(args[0].shape, generator=gen, device=dev)
+    gh = torch.randn(args[5].shape, generator=gen, device=dev)
+
+    def run(fn):
+        walls = []
+        for _ in range(2):                                # cold, warm
+            ins = [a.clone().requires_grad_() for a in args]
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y, h = fn(*ins)
+            torch.cuda.synchronize()
+            t_fwd = time.perf_counter() - t
+            g = torch.autograd.grad((y * gy).sum() + (h * gh).sum(), ins)
+            torch.cuda.synchronize()
+            walls.append((t_fwd, time.perf_counter() - t))
+            peak = torch.cuda.max_memory_allocated() - base
+        return y.detach(), h.detach(), g, walls, peak
+
+    got = run(ssm.mamba_scan)
+    want = run(ssm._mamba_scan_steps)
+    gaps = dict(y=rel_err(got[0], want[0]), h=rel_err(got[1], want[1]))
+    for name, a, b in zip(("dt", "u", "B", "C", "A", "h0"), got[2], want[2]):
+        gaps["d" + name] = rel_err(a, b)
+    for k, v in gaps.items():
+        tol = SCAN_TOL["grad" if k.startswith("d") else "fwd"]
+        check(v <= tol, f"17b {k}: the scan against the plain steps {v:.3e} "
+              f"> {tol}")
+    B, S, di = args[0].shape
+    ds = args[2].shape[-1]
+    chunk = ssm.scan_chunk(B, S, di, ds)
+
+    def walls(w):
+        return (f"cold {w[0][0]:.4f} s forward, {w[0][1]:.4f} s with the "
+                f"backward; warm {w[1][0]:.4f} s, {w[1][1]:.4f} s")
+    print(f"  17b one Mamba layer of {SCAN_ARCH} at full width (di {di}, "
+          f"d_state {ds}), float32, {B} x {S}: the scan (chunks of {chunk} "
+          f"steps, {(S + chunk - 1) // chunk} chunks) against the plain steps"
+          f", y {gaps['y']:.3e}, h_S {gaps['h']:.3e} (tol "
+          f"{SCAN_TOL['fwd']}); gradients "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()
+                      if k.startswith("d"))
+          + f" (tol {SCAN_TOL['grad']}); scan {walls(got[3])}, peak "
+          f"{got[4] / 2**30:.3f} GiB above its inputs; plain steps "
+          f"{walls(want[3])}, peak {want[4] / 2**30:.3f} GiB", flush=True)
+    del got, want, args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def scan_train(dev) -> None:
+    """17(c): jamba's published widths cut to ``SCAN_TRAIN_LAYERS`` layers
+    through ``make_train_step`` at ``TRAIN_BATCH`` x ``TRAIN_SEQ`` with its
+    own grad_accum and bf16 AdamW state, remat: a cold step and warm ones,
+    then one profiled."""
+    from repro_torch.configs import ShapeConfig, plan_for_mesh
+    from repro_torch.data.pipeline import DataConfig, device_batch, host_batch
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, param_defs
+    from repro_torch.roofline import model_flops
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    arch = jamba_cut(SCAN_TRAIN_LAYERS)
+    check(arch.params_dtype == arch.compute_dtype == "bfloat16" and arch.remat
+          and arch.grad_accum == 8 and arch.opt_state_dtype == "bfloat16",
+          f"17c {SCAN_ARCH}: not bf16 with remat, grad_accum 8, bf16 state")
+    plan = plan_for_mesh(MeshSpec.local())
+    opt_cfg = OptConfig(peak_lr=1e-3, warmup_steps=2,
+                        total_steps=SCAN_TRAIN_STEPS + 1,
+                        state_dtype=arch.opt_state_dtype)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(param_defs(arch),
+                         torch.Generator(device=dev).manual_seed(LM_SEED), dev)
+    opt = init_opt_state(params, opt_cfg)
+    step = make_train_step(arch, plan, opt_cfg)
+    dc = DataConfig(arch.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    times, losses = [], []
+    for i in range(SCAN_TRAIN_STEPS):
+        batch = device_batch(host_batch(dc, i, arch), None, plan, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    batch = device_batch(host_batch(dc, SCAN_TRAIN_STEPS, arch), None, plan,
+                         dev)
+    dt = train_device_time(step, params, opt, batch)
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(losses)), f"17c {SCAN_ARCH}: losses {losses}")
+    flops = model_flops(arch, ShapeConfig("train", "train", TRAIN_SEQ,
+                                          TRAIN_BATCH))
+    warm = statistics.median(times[1:])
+    print(f"  17c {SCAN_ARCH} training: {arch.n_layers} of 32 layers "
+          f"(Mamba + SwiGLU, Mamba + MoE), d_model {arch.d_model}, "
+          f"{arch.n_params():,} parameters ({arch.n_active_params():,} "
+          f"active), bf16, remat, grad_accum {arch.grad_accum}, bf16 AdamW "
+          f"state; batch {TRAIN_BATCH} x seq {TRAIN_SEQ}; steps: cold "
+          f"{times[0]:.4f} s, warm median {warm:.4f} s ("
+          + " ".join(f"{x:.4f}" for x in times[1:])
+          + f"), {TRAIN_BATCH * TRAIN_SEQ / warm:.1f} tokens/s; model flops "
+          f"(6 N_active D) {flops:.4e} a step, {flops / warm / 1e12:.1f} "
+          f"TFLOP/s = {flops / warm / H100_BF16_PEAK:.4f} of the H100 SXM "
+          f"dense bf16 peak; peak {peak / 2**30:.3f} GiB; losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    print(f"  17c {SCAN_ARCH} device time of a warm step (profiled): "
+          f"{dt['busy_s']:.4f} s, idle {1 - dt['busy_s'] / warm:.3f} of the "
+          f"warm median, {dt['kernels']} device kernels; top: {dt['top']}",
+          flush=True)
+
+
+def phase_scan(dev, peak12: dict) -> None:
+    """17(a)-(c) on the card (17(d) runs in the dry-run pool)."""
+    t = time.perf_counter()
+    peak = lm_full(dev, SCAN_ARCH, "17a", jamba_cut(SCAN_SERVE_LAYERS))
+    print(f"  17a peak {peak / 2**30:.3f} GiB against phase 12's "
+          + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in peak12.items()),
+          flush=True)
+    phase(f"17a {SCAN_ARCH} served at published widths, "
+          f"{SCAN_SERVE_LAYERS} layers, bf16", t)
+    t = time.perf_counter()
+    scan_vs_plain(dev)
+    phase("17b the Mamba scan against its plain steps at full width", t)
+    t = time.perf_counter()
+    scan_train(dev)
+    phase(f"17c {SCAN_ARCH} trained at published widths, "
+          f"{SCAN_TRAIN_LAYERS} layers", t)
 
 
 def main() -> int:
@@ -3992,12 +4316,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase(f"16a {SSM_ARCH} served and trained at full width and depth, "
           "bf16", t)
+    phase_scan(dev, peak12)
     t = time.perf_counter()
     ssm_recs = phase_dry(pool, pending, early, peak12, peak13)
     phase("14bc dry-run cells and predicted peaks", t)
     t = time.perf_counter()
     phase_ssm_dry(ssm_recs)
-    phase("16d the sub-quadratic dry cells with the split", t)
+    phase("16d, 17d the sub-quadratic dry cells with the split", t)
     t = time.perf_counter()
     phase_tp()
     phase(f"15 the compute split on a (1, 2) gloo world, {TP_ARCH} at "

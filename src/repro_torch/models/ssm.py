@@ -8,9 +8,11 @@ state (B, H, dk, dv) is carried by a loop over S/C steps (the reference's
 ``lax.scan``).  A step form (``rwkv6_step``) serves decode with O(1) state.
 
 Mamba is the classic selective SSM: causal depthwise conv + input-dependent
-(dt, B, C) and a diagonal state recurrence carried over the sequence in
-chunks of 128 steps; decode keeps (conv window, h) as cache.  States and
-the decay's clips are float32, as in the reference.
+(dt, B, C) and a diagonal state recurrence, run as a log-depth scan
+inside chunks whose length a byte budget sets (``mamba_scan``: its own
+backward recomputes each chunk from its entry state, so no (B, S, di, ds)
+tensor is ever whole); decode keeps (conv window, h) as cache and runs one
+step.  States and the decay's clips are float32, as in the reference.
 
 On a mesh whose ``model`` axis splits the dim that the reference's plan
 splits in these blocks' states (RWKV-6's heads, Mamba's ``di``:
@@ -325,6 +327,134 @@ def _mamba_bcdt(p, u, m: int = 1):
     return dt, f32(bc[..., :ds]), f32(bc[..., ds:])
 
 
+# One (B, chunk, di, ds) float32 tensor of the scan stays within this budget.
+SCAN_CHUNK_BYTES = 32 << 20
+
+
+def scan_chunk(B: int, S: int, di: int, ds: int) -> int:
+    """The scan's chunk length: the most steps whose (B, chunk, di, ds)
+    float32 tensor fits ``SCAN_CHUNK_BYTES`` (at least 1, at most S).
+    The reference's 128-step chunks, cut to a divisor of S, are a memory
+    choice too: its steps run in the same order whatever their length."""
+    return max(1, min(S, SCAN_CHUNK_BYTES // (B * di * ds * 4)))
+
+
+def _scan_pairs(a, b, reverse: bool = False) -> None:
+    """In place along dim 1, Hillis–Steele, log2(n) rounds: the inclusive
+    scan of the pairs (a_t, b_t) under (a1, b1)∘(a2, b2) = (a1·a2,
+    a2·b1 + b2), so that b_t becomes the recurrence h_t = a_t·h_{t-1} +
+    b_t from h_{-1} = 0.  ``reverse`` runs it from the end: b_t = b_t +
+    a_t·b_{t+1}.  ``a`` is left as scratch (its last round is skipped).
+    Every product is of factors in (0, 1], never an exp of a sum."""
+    n, k = a.shape[1], 1
+    while k < n:
+        w, r = (slice(0, n - k), slice(k, n)) if reverse else \
+            (slice(k, n), slice(0, n - k))
+        aw, bw = a[:, w], b[:, w]
+        bw += aw * b[:, r]
+        if 2 * k < n:
+            aw.copy_(aw * a[:, r])
+        k *= 2
+
+
+def _decay(dt, A):
+    """exp(dt·A), (B, c, di, ds)."""
+    return torch.mul(dt[..., None], A).exp_()
+
+
+class _MambaScan(torch.autograd.Function):
+    """The selective scan h_t = exp(dt_t·A)·h_{t-1} + dt_t·u_t·B_t, y_t =
+    h_t·C_t, chunk by chunk.  Forward saves the inputs and each chunk's
+    entry state; backward recomputes a chunk's states from its entry state
+    and runs the reverse recurrence g_t = dy_t ⊗ C_t + exp(dt_{t+1}·A)·
+    g_{t+1} with the same scan, carrying g across chunks.  At most four
+    (B, chunk, di, ds) tensors are live at once."""
+
+    @staticmethod
+    def forward(ctx, dt, u, Bm, Cm, A, h0, chunk: int):
+        S = dt.shape[1]
+        starts = range(0, S, chunk)
+        entry = h0.new_empty((len(starts),) + h0.shape)
+        y = torch.empty_like(dt)
+        h = h0
+        for i, c0 in enumerate(starts):
+            sl = slice(c0, c0 + chunk)
+            entry[i] = h
+            a = _decay(dt[:, sl], A)
+            b = (dt[:, sl] * u[:, sl])[..., None] * Bm[:, sl, None, :]
+            b[:, 0].addcmul_(a[:, 0], h)                  # h_0 from h_in
+            _scan_pairs(a, b)                             # h_t, (B, c, di, ds)
+            del a
+            y[:, sl] = torch.einsum("bcin,bcn->bci", b, Cm[:, sl])
+            h = b[:, -1].clone()
+        ctx.chunk = chunk
+        ctx.save_for_backward(dt, u, Bm, Cm, A, entry)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        dt, u, Bm, Cm, A, entry = ctx.saved_tensors
+        chunk, S = ctx.chunk, dt.shape[1]
+        d_dt, d_u = torch.empty_like(dt), torch.empty_like(u)
+        d_B, d_C = torch.empty_like(Bm), torch.empty_like(Cm)
+        d_A = torch.zeros_like(A)
+        g_in = dh                                  # dL/dh at the chunk's end
+        for i in reversed(range(len(entry))):
+            sl = slice(i * chunk, min(S, (i + 1) * chunk))
+            dt_c, u_c, B_c, C_c = dt[:, sl], u[:, sl], Bm[:, sl], Cm[:, sl]
+            dy_c, h_in = dy[:, sl], entry[i]
+            a = _decay(dt_c, A)
+            h = (dt_c * u_c)[..., None] * B_c[:, :, None, :]
+            h[:, 0].addcmul_(a[:, 0], h_in)
+            _scan_pairs(a, h)                             # h_t
+            del a
+            d_C[:, sl] = torch.einsum("bci,bcin->bcn", dy_c, h)
+            w = _decay(dt_c, A)                           # exp(dt_t·A)·h_{t-1}
+            w[:, 1:] *= h[:, :-1]
+            w[:, 0] *= h_in
+            del h
+            g = dy_c[..., None] * C_c[:, :, None, :]
+            g[:, -1] += g_in
+            _scan_pairs(_decay(torch.roll(dt_c, -1, 1), A), g,
+                        reverse=True)                     # g_t = dL/dh_t
+            s = torch.einsum("bcin,bcn->bci", g, B_c)     # through dt·u·B
+            d_B[:, sl] = torch.einsum("bcin,bci->bcn", g, dt_c * u_c)
+            g_in = _decay(dt_c[:, 0], A) * g[:, 0]        # dL/dh_in
+            q = g.mul_(w)                                 # through exp(dt·A)
+            del w
+            d_dt[:, sl] = torch.einsum("bcin,in->bci", q, A) + s * u_c
+            d_u[:, sl] = s * dt_c
+            d_A += torch.einsum("bcin,bci->in", q, dt_c)
+        return d_dt, d_u, d_B, d_C, d_A, g_in, None
+
+
+def mamba_scan(dt, u, Bm, Cm, A, h0, chunk: int | None = None):
+    """The selective scan over S steps: dt, u (B, S, di), Bm, Cm (B, S,
+    ds), A (di, ds), h0 (B, di, ds), all float32 -> y (B, S, di) (without
+    the ``d_skip`` term) and the last state.  ``chunk`` defaults to
+    ``scan_chunk``; the last chunk may be short.  One step (decode) is
+    the recurrence's two ops, with no chunk."""
+    B, S, di = dt.shape
+    if S == 1:
+        h = torch.exp(dt[:, 0, :, None] * A) * h0 \
+            + (dt[:, 0] * u[:, 0])[..., None] * Bm[:, 0, None, :]
+        return torch.einsum("bds,bs->bd", h, Cm[:, 0])[:, None], h
+    if chunk is None:
+        chunk = scan_chunk(B, S, di, A.shape[1])
+    return _MambaScan.apply(dt, u, Bm, Cm, A, h0, chunk)
+
+
+def _mamba_scan_steps(dt, u, Bm, Cm, A, h):
+    """The plain version of ``mamba_scan``: the reference's ``lax.scan``
+    of the recurrence, one step at a time."""
+    ys = []
+    for t in range(dt.shape[1]):
+        h = torch.exp(dt[:, t, :, None] * A) * h \
+            + (dt[:, t] * u[:, t])[..., None] * Bm[:, t, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
 def mamba_apply(p, x, conv_state, h_state, cfg: ArchConfig,
                 plan: ShardingPlan):
     """x (B,S,d) -> (y, (conv_state, h_state)). h (B,di,ds) f32,
@@ -352,23 +482,8 @@ def mamba_apply(p, x, conv_state, h_state, cfg: ArchConfig,
     dt, Bm, Cm = _mamba_bcdt(p, u, m)                     # (B,S,di),(B,S,ds)
     A = -torch.exp(p["log_a"])                            # (di, ds)
     uf = f32(u)
-
-    # chunked selective scan: exp(dt·A) over the whole sequence would be
-    # (B,S,di,ds); chunks of ck steps keep the working set (B,ck,di,ds)
-    # while the recurrence stays exact.
-    ck = 128
-    while S % ck != 0:
-        ck -= 1
-    ys = []
-    for c0 in range(0, S, ck):
-        dt_c, u_c = dt[:, c0:c0 + ck], uf[:, c0:c0 + ck]
-        B_c, C_c = Bm[:, c0:c0 + ck], Cm[:, c0:c0 + ck]
-        dA = torch.exp(dt_c[..., None] * A)               # (B,ck,di,ds)
-        dBu = (dt_c * u_c)[..., None] * B_c[:, :, None, :]
-        for t in range(dt_c.shape[1]):
-            h_state = dA[:, t] * h_state + dBu[:, t]      # (B,di,ds)
-            ys.append(torch.einsum("bds,bs->bd", h_state, C_c[:, t]))
-    y = torch.stack(ys, dim=1) + uf * p["d_skip"]         # (B,S,di)
+    y, h_state = mamba_scan(dt, uf, Bm, Cm, A, h_state)
+    y = y + uf * p["d_skip"]                              # (B,S,di)
     y = leave_region((y.to(x.dtype) * F.silu(z)) @ p["w_out"], m > 1)
     return constrain(y, plan, ("batch", None, "fsdp")), \
         (new_conv_state.to(x.dtype), h_state)

@@ -138,6 +138,10 @@ def global_norm(tree, specs=None) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+# a leaf's float32 temporaries of the update stay within this many elements
+UPDATE_BLOCK = 1 << 26
+
+
 @torch.no_grad()
 def adamw_update(params, grads, opt_state, cfg: OptConfig, *, specs=None):
     """One AdamW step; returns (params, opt_state, info) as new trees.  On
@@ -153,16 +157,30 @@ def adamw_update(params, grads, opt_state, cfg: OptConfig, *, specs=None):
     c1 = 1.0 - torch.pow(_f32(cfg.b1, dev), cf)
     c2 = 1.0 - torch.pow(_f32(cfg.b2, dev), cf)
 
-    def upd(p, g, m, v):
+    def step(p, g, m, v, decay: bool):
         g = g.to(torch.float32) * scale
         m32, v32 = m.to(torch.float32), v.to(torch.float32)
         m32 = cfg.b1 * m32 + (1 - cfg.b1) * g
         v32 = cfg.b2 * v32 + (1 - cfg.b2) * g * g
         step_ = lr * (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps)
-        if p.ndim >= 2:  # decoupled weight decay on matrices only
+        if decay:
             step_ = step_ + lr * cfg.weight_decay * p.to(torch.float32)
         return ((p.to(torch.float32) - step_).to(p.dtype),
                 m32.to(m.dtype), v32.to(v.dtype))
+
+    def upd(p, g, m, v):
+        decay = p.ndim >= 2           # decoupled weight decay on matrices only
+        if p.numel() <= UPDATE_BLOCK:
+            return step(p, g, m, v, decay)
+        # a large leaf in blocks of its elements: the same values
+        out = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                    for t in (p, m, v))
+        ins = [t.reshape(-1) for t in (p, g, m, v)]
+        for r in range(0, p.numel(), UPDATE_BLOCK):
+            for o, u in zip(out, step(*(t[r:r + UPDATE_BLOCK] for t in ins),
+                                      decay)):
+                o.view(-1)[r:r + UPDATE_BLOCK] = u
+        return out
 
     out = [upd(*xs) for xs in zip(leaves(params), leaves(grads),
                                   leaves(opt_state["m"]),

@@ -395,7 +395,10 @@ class TestMamba:
                                    atol=1e-4, rtol=1e-4)
 
     def test_matches_the_reference(self):
-        """S=260 spans three of the scan's 128-step chunks (the last 4)."""
+        """S=260 at smoke width (B 2, di 256): the port's byte budget
+        makes it one chunk of the log-depth scan (9 rounds), where the
+        reference's divisor search runs four chunks of 65 steps; several
+        chunks and a ragged tail are ``tests/test_torch_mamba_scan.py``'s."""
         rcfg, cfg, rp, pp = self._setup(seed=1)
         r = np.random.default_rng(1)
         B, S, d = 2, 260, cfg.d_model
