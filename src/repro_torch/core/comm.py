@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.kernels.ref import take_rows  # noqa: F401 (re-export)
 
 AXIS = "workers"        # the shard (graph-partition) mesh axis
@@ -177,7 +178,8 @@ def sparse_rounds(arrs: dict) -> int:
     own row reads the count every rank reads."""
     if "shift_to_round" not in arrs:
         return 0
-    return shard_uniform(int((arrs["shift_to_round"][0] >= 0).sum()))
+    with tracing.span("read.exchange_build"):
+        return shard_uniform(int((arrs["shift_to_round"][0] >= 0).sum()))
 
 
 class _Exchange:
@@ -247,18 +249,21 @@ class FlatExchange(_Exchange):
         return out
 
     def __call__(self, view: torch.Tensor, lanes=None, rounds=None):
-        due = self._due(lanes, rounds)
-        ranges = self._ranges(due)
-        if ranges:
-            if len(ranges) == 1:
-                (a, b), = ranges
-                dst, src = self.dst[a:b], self.src[a:b]
-            else:
-                dst = torch.cat([self.dst[a:b] for a, b in ranges])
-                src = torch.cat([self.src[a:b] for a, b in ranges])
-            flat = view.view(-1)
-            flat[dst] = _wire(flat[src], self.cfg.wire16)
-        return view, self._bytes(due)
+        with tracing.span("exchange"):
+            due = self._due(lanes, rounds)
+            ranges = self._ranges(due)
+            if ranges:
+                tracing.count("exchange.entries",
+                              sum(b - a for a, b in ranges))
+                if len(ranges) == 1:
+                    (a, b), = ranges
+                    dst, src = self.dst[a:b], self.src[a:b]
+                else:
+                    dst = torch.cat([self.dst[a:b] for a, b in ranges])
+                    src = torch.cat([self.src[a:b] for a, b in ranges])
+                flat = view.view(-1)
+                flat[dst] = _wire(flat[src], self.cfg.wire16)
+            return view, self._bytes(due)
 
 
 def _lane_flat(P: int, L: int, n_slots: int, dev) -> torch.Tensor:
@@ -317,7 +322,8 @@ def _sparse_exchange(arrs: dict, comm: AxisComm, n_local_max: int,
     order = torch.argsort(seg, stable=True)
     counts = torch.bincount(seg[order] + 1, minlength=L * n_rounds + 1)
     widths = arrs["round_widths"][::P, :n_rounds]
-    host = torch.cat([counts, widths.reshape(-1).long()]).tolist()
+    with tracing.span("read.exchange_build"):
+        host = torch.cat([counts, widths.reshape(-1).long()]).tolist()
     counts, widths = host[:L * n_rounds + 1], host[L * n_rounds + 1:]
     skip = counts[0]                                   # entries of no round
     return FlatExchange(dst[order][skip:], src[order][skip:], counts[1:],
@@ -335,12 +341,13 @@ def make_exchange(arrs: dict, cfg: CommConfig, lanes: int = 1, comm=None):
         raise ValueError(f"scheme {cfg.scheme!r} must be resolved to "
                          f"{SCHEMES} before the run")
     sparse = cfg.scheme == SPARSE
-    if isinstance(comm, MeshComm):
-        return MeshExchange(arrs, comm, n_local_max, cfg, sparse)
-    comm = AxisComm(arrs["prio"].shape[0] // lanes, lanes)
-    if sparse:
-        return _sparse_exchange(arrs, comm, n_local_max, cfg)
-    return _allgather_exchange(arrs, comm, n_local_max, cfg)
+    with tracing.span("exchange.build"):
+        if isinstance(comm, MeshComm):
+            return MeshExchange(arrs, comm, n_local_max, cfg, sparse)
+        comm = AxisComm(arrs["prio"].shape[0] // lanes, lanes)
+        if sparse:
+            return _sparse_exchange(arrs, comm, n_local_max, cfg)
+        return _allgather_exchange(arrs, comm, n_local_max, cfg)
 
 
 def stats_to_host(stats: dict) -> dict:
@@ -536,7 +543,8 @@ class MeshComm:
             return flag
         t = torch.tensor([int(flag)], device=self.device)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.batch_group)
-        return bool(t.item())
+        with tracing.span("read.lane_uniform"):
+            return bool(t.item())
 
     def wait_lanes(self) -> None:
         """For a rank whose lanes are done: take the loop's remaining
@@ -569,7 +577,8 @@ class MeshComm:
         ranks make up the whole world)."""
         t = torch.tensor([float(x)], dtype=torch.float64, device=self.device)
         dist.broadcast(t, src=self._root)
-        return float(t.item())
+        with tracing.span("read.root_value"):
+            return float(t.item())
 
 
 class MeshExchange(_Exchange):
@@ -621,8 +630,9 @@ class MeshExchange(_Exchange):
                           -1).reshape(-1)
         order = torch.argsort(seg, stable=True)
         counts = torch.bincount(seg[order] + 1, minlength=L * R + 1)
-        host = torch.cat([s2r, counts, arrs["round_widths"][:, :R]
-                          .reshape(-1).long()]).tolist()   # the one read
+        with tracing.span("read.exchange_build"):
+            host = torch.cat([s2r, counts, arrs["round_widths"][:, :R]
+                              .reshape(-1).long()]).tolist()   # the one read
         s2r_h, counts = host[:P], host[P:P + L * R + 1]
         widths = host[P + L * R + 1:]
         super().__init__([widths[i * R:(i + 1) * R] for i in range(L)], R,
@@ -639,7 +649,10 @@ class MeshExchange(_Exchange):
                      for l in range(L)]
 
     def __call__(self, view: torch.Tensor, lanes=None, rounds=None):
-        due = self._due(lanes, rounds)
+        with tracing.span("exchange"):
+            return self._exchange(view, self._due(lanes, rounds))
+
+    def _exchange(self, view: torch.Tensor, due: list):
         flat = view.view(-1)
         wire = (lambda v: v.to(torch.int16)) if self.cfg.wire16 else (
             lambda v: v)
@@ -648,6 +661,8 @@ class MeshExchange(_Exchange):
             if on:
                 sel = (slice(None) if len(on) == self.n_lanes else
                        torch.tensor(on, device=view.device))
+                tracing.count("exchange.entries",
+                              len(on) * self.pay.shape[1])
                 table = self.comm.all_gather(wire(flat[self.pay[sel]]))
                 lane = torch.arange(len(on), device=view.device)[:, None]
                 flat[self.dst[sel]] = table[self.owner[sel], lane,
@@ -661,6 +676,7 @@ class MeshExchange(_Exchange):
             if not part:
                 continue
             offs = np.cumsum([0] + [self.widths[lane][r] for lane in part])
+            tracing.count("exchange.entries", int(offs[-1]))
             idx = torch.cat([self.send[lane][r] for lane in part])
             sends.append((wire(flat[idx]), (p + k) % P, (p - k) % P))
             recvs.append((torch.cat([self.recv[lane][r][0] for lane in part]),

@@ -42,7 +42,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from repro_torch import rng
+from repro_torch import rng, tracing
 
 from . import ordering
 from .comm import (ALLGATHER, AUTO, AXIS, SPARSE, AxisComm, MeshComm,
@@ -240,58 +240,64 @@ def _advance(arrs: dict, carry: RecolorCarry, keys: torch.Tensor,
         if not any(on):      # a lane of another batch row still runs
             comm.wait_lanes()
             break
-        kind_ids = [schedule[min(it, K) - 1] for it in carry.it]
-        kinds = [ALL_PERMS[k] for k in kind_ids]
-        live = {kinds[lane] for lane in range(L) if on[lane]}
-        # a frozen lane's rank is never used: it takes a running kind
-        kind = (live.pop() if len(live) == 1 else
-                [k if o else kinds[on.index(True)] for k, o in zip(kinds, on)])
-        rand_key = None
-        if RAND in (kind if isinstance(kind, list) else [kind]):
-            its = carry.it
-            rand_key = rng.fold_in(keys, its[0] if len(set(its)) == 1 else
-                                   torch.tensor(its, device=dev))
-        n_classes = (sizes > 0).sum(dim=1)
-        rank = permutation_rank(sizes, kind, rand_key)
-        sched = recolor_schedule(arrs, view, rank, n_classes, rcfg, n_rounds,
-                                 comm)
-        for lane in range(L):
-            if pending[lane]:
-                fold(lane, sched.n_classes[lane])
-        if not any(on):
-            continue
-        if not all(on) and (masks is None or masks[0] != on):
-            lane_ints = torch.tensor(on, dtype=torch.int32, device=dev)
-            masks = (list(on), lane_ints[:, None],
-                     comm.per_shard(lane_ints.bool())[:, None])
-        if masks is not None:
-            sched.class_chunks.mul_(masks[1])
-        new_view, st = recolor_steps(arrs, sched, exchange, rcfg,
-                                     lanes_on=None if all(on) else on,
-                                     comm=comm)
-        view = new_view if masks is None else torch.where(
-            masks[2], new_view, view)
-        sizes, oor_next = class_sizes(view, arrs["n_local"], n_local_max, mc,
-                                      lanes=L, comm=comm)
-        dev_part = torch.stack([st["n_colors"].long(), (sizes > 0).sum(dim=1),
-                                n_oor.long()])
-        host = [(carry.it[lane], (st["n_colors_before"][lane],
-                                  st["n_exchanges"][lane],
-                                  st["n_steps"][lane],
-                                  st["wire_bytes"][lane], kind_ids[lane]))
-                if on[lane] else None for lane in range(L)]
-        rows.append((dev_part, host))
-        for lane in range(L):
-            if on[lane]:
-                carry.it[lane] += 1
-                pending[lane] = True
-                if carry.it[lane] > K:
-                    on[lane] = False
-        n_oor = oor_next
+        # a trip whose schedule read trips the adaptive stop of every lane
+        # ends in the span without recoloring
+        with tracing.span("recolor.iteration"):
+            kind_ids = [schedule[min(it, K) - 1] for it in carry.it]
+            kinds = [ALL_PERMS[k] for k in kind_ids]
+            live = {kinds[lane] for lane in range(L) if on[lane]}
+            # a frozen lane's rank is never used: it takes a running kind
+            kind = (live.pop() if len(live) == 1 else
+                    [k if o else kinds[on.index(True)]
+                     for k, o in zip(kinds, on)])
+            rand_key = None
+            if RAND in (kind if isinstance(kind, list) else [kind]):
+                its = carry.it
+                rand_key = rng.fold_in(keys, its[0] if len(set(its)) == 1
+                                       else torch.tensor(its, device=dev))
+            with tracing.span("recolor.schedule"):
+                n_classes = (sizes > 0).sum(dim=1)
+                rank = permutation_rank(sizes, kind, rand_key)
+                sched = recolor_schedule(arrs, view, rank, n_classes, rcfg,
+                                         n_rounds, comm)
+            for lane in range(L):
+                if pending[lane]:
+                    fold(lane, sched.n_classes[lane])
+            if not any(on):
+                continue
+            if not all(on) and (masks is None or masks[0] != on):
+                lane_ints = torch.tensor(on, dtype=torch.int32, device=dev)
+                masks = (list(on), lane_ints[:, None],
+                         comm.per_shard(lane_ints.bool())[:, None])
+            if masks is not None:
+                sched.class_chunks.mul_(masks[1])
+            new_view, st = recolor_steps(arrs, sched, exchange, rcfg,
+                                         lanes_on=None if all(on) else on,
+                                         comm=comm)
+            view = new_view if masks is None else torch.where(
+                masks[2], new_view, view)
+            sizes, oor_next = class_sizes(view, arrs["n_local"], n_local_max,
+                                          mc, lanes=L, comm=comm)
+            dev_part = torch.stack([st["n_colors"].long(),
+                                    (sizes > 0).sum(dim=1), n_oor.long()])
+            host = [(carry.it[lane], (st["n_colors_before"][lane],
+                                      st["n_exchanges"][lane],
+                                      st["n_steps"][lane],
+                                      st["wire_bytes"][lane], kind_ids[lane]))
+                    if on[lane] else None for lane in range(L)]
+            rows.append((dev_part, host))
+            for lane in range(L):
+                if on[lane]:
+                    carry.it[lane] += 1
+                    pending[lane] = True
+                    if carry.it[lane] > K:
+                        on[lane] = False
+            n_oor = oor_next
     else:
         comm.wait_lanes()    # the batch rows leave the loop together
     if rows:
-        vals = torch.stack([d for d, _ in rows]).tolist()  # the one read
+        with tracing.span("read.history"):
+            vals = torch.stack([d for d, _ in rows]).tolist()  # the one read
         for (n_colors, nd, oor), (_, host) in zip(vals, rows):
             for lane, h in enumerate(host):
                 if h is not None:

@@ -47,7 +47,7 @@ import itertools
 import numpy as np
 import torch
 
-from repro_torch import rng
+from repro_torch import rng, tracing
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import take_rows
 
@@ -374,7 +374,8 @@ def _lane_schedule(arrs, view, rank, n_classes, cfg: RecolorConfig,
     parts = [n_classes.reshape(-1).long(), needed.reshape(-1).long()]
     if needed_rounds is not None:
         parts.append(needed_rounds.reshape(-1).long())
-    host = torch.cat(parts).cpu().numpy()              # the one read
+    with tracing.span("read.schedule"):
+        host = torch.cat(parts).cpu().numpy()          # the one read
     k = mc + 1
     rounds = None
     if needed_rounds is not None:
@@ -420,13 +421,15 @@ def recolor_steps(arrs, sched: _Schedule, exchange, cfg: RecolorConfig,
     first = 1
     for t, due in sorted(events.items()):
         # classes first … t in one run: no exchange falls between them
-        if cfg.distance == 2:
-            new_view = ops.recolor_run_d2(
-                new_view, arrs["nbr"], arrs["nbr2"], *sched_args,
-                first_class=first, last_class=t, **kw)
-        else:
-            new_view = ops.recolor_run(new_view, arrs["nbr"], *sched_args,
-                                       first_class=first, last_class=t, **kw)
+        with tracing.span("recolor.run"):
+            if cfg.distance == 2:
+                new_view = ops.recolor_run_d2(
+                    new_view, arrs["nbr"], arrs["nbr2"], *sched_args,
+                    first_class=first, last_class=t, **kw)
+            else:
+                new_view = ops.recolor_run(
+                    new_view, arrs["nbr"], *sched_args, first_class=first,
+                    last_class=t, **kw)
         first = t + 1
         rounds = None
         if sched.needed_rounds is not None:

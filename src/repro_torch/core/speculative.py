@@ -58,7 +58,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch import rng
+from repro_torch import rng, tracing
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import take_rows
 
@@ -275,49 +275,61 @@ def _speculate(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
                 n_bytes[lane] += b[lane]
 
     while True:
-        order_r, n_need = _compact_order(order, view)
-        order_pad = torch.cat(
-            [order_r, torch.full((rows, S), -1, dtype=order_r.dtype,
-                                 device=dev)], dim=1)
-        # which superstep chunks color a boundary vertex on any shard of
-        # the lane: the exchanges the others would trigger are elided
-        # (ghosts cannot move)
-        opad = order_pad[:, :n_chunks_max * S]
-        bnd = ((opad >= 0) & (pos < n_need[:, None])
-               & ~take_rows(arrs["is_internal"], opad.clamp(min=0)))
-        lane_max = comm.pmax(torch.cat(
-            [n_need[:, None],
-             bnd.reshape(rows, n_chunks_max, S).any(dim=2).long()], dim=1))
-        # the round's one device->host read, one row per lane
-        host = torch.cat([torch.stack([n_conf, do_final], dim=1), lane_max],
-                         dim=1).tolist()
-        final = [bool(h[1]) for h in host]
-        if any(final):     # publish the previous round's uncolorings
-            run_exchange(final)
-        active = [h[0] > 0 and rnd < cfg.max_rounds for h in host]
-        if not comm.lane_uniform(any(active)):
-            break
-        if not any(active):   # a lane of another batch row still runs
-            comm.wait_lanes()
-            break
-        steps = [-(-h[2] // S) if on else 0 for h, on in zip(host, active)]
-        for lane in range(L):
-            n_rounds[lane] += active[lane]
-        rand = rng.as_int32_bits(rng.bits(round_keys[:, rnd], n_local_max))
-        first = 0
-        for si, due in _round_plan(steps, [h[3:] for h in host],
-                                   cfg.exchange_every):
-            view = _color_supersteps(view, usage, order_pad, rand, arrs,
-                                     offset, cfg, S, first, si + 1 - first)
-            first = si + 1
-            if any(due):
-                run_exchange(due)
-        view, n_conf, bnd_conf = _detect_conflicts_frontier(
-            view, arrs, order_pad, max(steps), n_need, S, backend=cfg.backend,
-            distance=cfg.distance, lanes=L)
-        counts = comm.lane_psum(torch.stack([n_conf, bnd_conf.long()], dim=1))
-        n_conf, do_final = counts[:, 0], counts[:, 1]
-        rnd += 1
+        with tracing.span("color.frontier"):
+            order_r, n_need = _compact_order(order, view)
+            order_pad = torch.cat(
+                [order_r, torch.full((rows, S), -1, dtype=order_r.dtype,
+                                     device=dev)], dim=1)
+            # which superstep chunks color a boundary vertex on any shard
+            # of the lane: the exchanges the others would trigger are
+            # elided (ghosts cannot move)
+            opad = order_pad[:, :n_chunks_max * S]
+            bnd = ((opad >= 0) & (pos < n_need[:, None])
+                   & ~take_rows(arrs["is_internal"], opad.clamp(min=0)))
+            lane_max = comm.pmax(torch.cat(
+                [n_need[:, None],
+                 bnd.reshape(rows, n_chunks_max, S).any(dim=2).long()],
+                dim=1))
+            # the round's one device->host read, one row per lane
+            with tracing.span("read.round"):
+                host = torch.cat([torch.stack([n_conf, do_final], dim=1),
+                                  lane_max], dim=1).tolist()
+            if rnd:           # the last repair's losers (round 0 has none)
+                tracing.count("color.losers", sum(h[0] for h in host))
+            final = [bool(h[1]) for h in host]
+            if any(final):     # publish the previous round's uncolorings
+                run_exchange(final)
+            active = [h[0] > 0 and rnd < cfg.max_rounds for h in host]
+            if not comm.lane_uniform(any(active)):
+                break
+            if not any(active):   # a lane of another batch row still runs
+                comm.wait_lanes()
+                break
+        with tracing.span("color.round"):
+            steps = [-(-h[2] // S) if on else 0
+                     for h, on in zip(host, active)]
+            for lane in range(L):
+                n_rounds[lane] += active[lane]
+            rand = rng.as_int32_bits(rng.bits(round_keys[:, rnd],
+                                              n_local_max))
+            first = 0
+            for si, due in _round_plan(steps, [h[3:] for h in host],
+                                       cfg.exchange_every):
+                with tracing.span("color.run"):
+                    view = _color_supersteps(view, usage, order_pad, rand,
+                                             arrs, offset, cfg, S, first,
+                                             si + 1 - first)
+                first = si + 1
+                if any(due):
+                    run_exchange(due)
+            with tracing.span("color.repair"):
+                view, n_conf, bnd_conf = _detect_conflicts_frontier(
+                    view, arrs, order_pad, max(steps), n_need, S,
+                    backend=cfg.backend, distance=cfg.distance, lanes=L)
+                counts = comm.lane_psum(
+                    torch.stack([n_conf, bnd_conf.long()], dim=1))
+            n_conf, do_final = counts[:, 0], counts[:, 1]
+            rnd += 1
     return view, n_rounds, n_ex, n_bytes
 
 
@@ -358,8 +370,9 @@ def color_lanes(arrs: dict, order: torch.Tensor, keys: torch.Tensor,
     in_use = torch.zeros(lanes * mc + 1, dtype=torch.bool, device=dev)
     in_use[torch.where(valid, flat, lanes * mc)] = True
     in_use = comm.lane_pmax(in_use[:-1].view(lanes, mc))
-    dev_stats = torch.stack([comm.pmax(local.amax(dim=1)).long(),
-                             in_use[:, 1:].sum(dim=1)], dim=1).tolist()
+    with tracing.span("read.stats"):
+        dev_stats = torch.stack([comm.pmax(local.amax(dim=1)).long(),
+                                 in_use[:, 1:].sum(dim=1)], dim=1).tolist()
     return view, [dict(n_colors=nc, n_colors_distinct=nd,
                        n_rounds=n_rounds[lane], n_exchanges=n_ex[lane],
                        wire_bytes=n_bytes[lane])
