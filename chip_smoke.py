@@ -37,6 +37,11 @@ before the final line):
    time of the plain version and of the unfused sequence it replaced
    (ELL gathers + the tile kernel + the scatters, per tile or superstep
    chunk), and the bytes bound of the work this run's data needs; then
+   (phase 3c) ``exchange_push`` against its plain version on the path's
+   own recoloring exchange and one ND iteration's schedule of its final
+   coloring, every push of the iteration, plain, with wire16 and with a
+   frozen lane, bitwise, timed by CUDA events (L2 flushed) against its
+   bytes bound (its launches are counted in the main-path run); then
    the same path
    ``WARM_RUNS`` times more, warm and unprofiled (their median stage
    walls), and once under ``torch.profiler`` for the device-time
@@ -55,8 +60,8 @@ before the final line):
    and conflict kernels must not (counted in this run); then (phase 5b)
    ``select_run_d2`` and ``conflict_frontier_d2`` against their plain
    versions as in phase 3b (16 shards x 32 tiles of 16 rows; the largest
-   class in 256-row chunks; round 0's repair); then the warm and
-   profiled repeats;
+   class in 256-row chunks; round 0's repair), ``exchange_push`` as in
+   phase 3c (phase 5c); then the warm and profiled repeats;
 6. distance-2 cross-check — ``grid3d(32, 32, 32)`` at P=16, K=4: kernels
    vs plain under both exchanges, then partial D2 of the even global ids,
    kernels vs plain; bitwise equal, unmarked vertices left uncolored;
@@ -1062,6 +1067,82 @@ def phase_runs(core, ops, dev, pg, order, cfg, view_final) -> dict:
     return {name: out}
 
 
+def phase_push(core, ops, dev, pg, cfg, view_final) -> dict:
+    """``exchange_push`` against its plain version on this path's own
+    exchange and schedule: the fan-out of the path's recoloring exchange
+    (its resolved scheme) and the schedule of one ND iteration of
+    ``view_final``, every push of the iteration in turn (each run of
+    classes between two of its events), from ``view_final`` with its
+    ghosts set to 0.  Bitwise after each push, plain, with ``wire16`` and
+    with the shards split into two lanes of which the second is frozen;
+    after the plain pushes every ghost they write holds ``view_final``'s.
+    Times each push by CUDA events, L2 flushed before each launch (the
+    mean of ``GREEDY_READINGS`` launches), and the plain pushes' device
+    time; the bound: a row id, a color and two offsets a pushed row, a
+    4-byte id read and a color written an entry.  Returns the kernels
+    line's numbers, the mean of a push."""
+    from repro_torch.core import comm
+    from repro_torch.core import recolor as rc
+    rcfg = core.resolve_pipeline_cfg(pg, cfg).recolor
+    arrs = core.to_device(pg, dev, sparse=rcfg.scheme == core.SPARSE)
+    fan_ptr, fan_dst, lane_entries = comm.make_exchange(
+        arrs, rcfg.comm_config).fan_out()
+    n_local_max = pg.n_local_max
+    sizes, _ = rc.class_sizes(view_final, arrs["n_local"], n_local_max,
+                              rcfg.max_colors, lanes=1)
+    sched = rc.recolor_schedule(arrs, view_final,
+                                rc.permutation_rank(sizes, rc.ND),
+                                (sizes > 0).sum(dim=1), rcfg,
+                                comm.sparse_rounds(arrs))
+    rows = (sched.sorted_pad, sched.start_local, sched.local_sizes)
+    ts = sched.events(0)
+    windows = list(zip([1] + [t + 1 for t in ts[:-1]], ts))
+    base = view_final.clone()
+    base[:, n_local_max:] = 0
+    S = base.shape[0]
+
+    def push(view, first, last, backend, lane_on=None, wire16=False):
+        return ops.exchange_push(view, fan_ptr, fan_dst, *rows, lane_on,
+                                 first_class=first, last_class=last,
+                                 wire16=wire16, backend=backend)
+
+    frozen = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    for label, kw in (("", {}), (", wire16", dict(wire16=True)),
+                      (", second lane frozen", dict(lane_on=frozen))):
+        got, want = base.clone(), base.clone()
+        for first, last in windows:
+            push(got, first, last, "cuda", **kw)
+            push(want, first, last, "torch", **kw)
+            check(torch.equal(got, want),
+                  f"exchange_push classes {first}..{last}{label}: kernel "
+                  "and plain views differ")
+        if not kw:
+            fan = fan_dst.long()
+            check(torch.equal(got.view(-1)[fan], view_final.view(-1)[fan]),
+                  "exchange_push: after an iteration's pushes a ghost "
+                  "differs from the path's view")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    view = base.clone()
+    each = [event_ms(lambda: flush.fill_(next(_FILLS)),
+                     lambda f=first, l=last: push(view, f, l, "cuda"),
+                     GREEDY_READINGS) for first, last in windows]
+    plain = device_ms(lambda: [push(view, f, l, "torch")
+                               for f, l in windows], 3, skip="Memcpy")
+    n_rows = int(arrs["n_local"].sum())    # each pushed once an iteration
+    n_entries = int(lane_entries.sum())
+    b, by = bound_ms(n_rows * 16 + n_entries * 8, n_entries)
+    n = len(windows)
+    print(f"  exchange_push, one ND iteration's {n} pushes ({S} shards, "
+          f"{n_rows} rows, fan-out {n_entries} entries, scheme "
+          f"{rcfg.scheme}): kernel {sum(each):.4f} ms an iteration by CUDA "
+          f"events, L2 flushed (a push: median {statistics.median(each):.4f}"
+          f", max {max(each):.4f}), plain {plain:.4f} ms device, bound "
+          f"{b:.4f} ms ({by}); bitwise plain, with wire16 and with a "
+          "frozen lane", flush=True)
+    return dict(ms=sum(each) / n, plain_ms=plain / n, bound=b / n, by=by,
+                err=0)
+
+
 def stage_seconds(res) -> str:
     return ", ".join(f"{k} {v:.3f} s" for k, v in res["seconds"].items())
 
@@ -1072,9 +1153,11 @@ def drive_path(core, ops, dev, g, pg, order, cfg, kernels) -> dict:
     distance, the iteration count, that each of ``kernels`` launched and
     that the tile-form select and conflict kernels did not.  Then the run
     and frontier kernels against their plain versions on this path
-    (``phase_runs``, ``phase_frontier``) and the warm and profiled
-    repeats (``profile_path``).
-    Returns the launch counts, ``phase_runs``' numbers and the view."""
+    (``phase_runs``, ``phase_frontier``), the push exchange against its
+    plain version on this path's exchange and schedule (``phase_push``)
+    and the warm and profiled repeats (``profile_path``).
+    Returns the launch counts, ``phase_runs``' numbers (and at distance 1
+    ``phase_push``'s) and the view."""
     distance = cfg.color.distance
     torch.cuda.reset_peak_memory_stats(dev)
     for k in ops.KERNELS:
@@ -1113,6 +1196,12 @@ def drive_path(core, ops, dev, g, pg, order, cfg, kernels) -> dict:
         distance == 2))
     phase(f"{'5b' if distance == 2 else '3b'} run and frontier kernels vs "
           "plain (bitwise) on this path's arrays", t)
+    t = time.perf_counter()
+    push = phase_push(core, ops, dev, pg, cfg, view)
+    if distance == 1:
+        measured["exchange_push"] = push
+    phase(f"{'5c' if distance == 2 else '3c'} exchange_push vs plain "
+          "(bitwise) on this path's exchange and schedule", t)
     profile_path(core, pg, order, cfg, dev, res, kernels)
     return launches, measured, view, peak
 
@@ -1136,7 +1225,8 @@ def phase_main_path(core, ops, dev):
           f"{t_part:.3f} s; scheme {scheme}", flush=True)
     launches, measured, view, peak = drive_path(
         core, ops, dev, g, pg, order, cfg, ("select_run",
-                                            "conflict_frontier"))
+                                            "conflict_frontier",
+                                            "exchange_push"))
     # the view waits on the host, out of the later paths' peak memory
     return launches, measured, (g, pg, order, view.cpu()), dict(
         label=f"rmat_good({MAIN_SCALE}) P={MAIN_P}", pg=pg, scheme=scheme,
@@ -1176,7 +1266,8 @@ def phase_d2_path(core, ops, dev) -> dict:
           f"{(D2_MAXD, D2_MAXD2)}")
     launches, measured, _, peak = drive_path(
         core, ops, dev, g, pg, order, cfg, ("select_run_d2",
-                                            "conflict_frontier_d2"))
+                                            "conflict_frontier_d2",
+                                            "exchange_push"))
     return launches, measured, dict(label=f"grid3d{D2_GRID} halo=2 P={D2_P}",
                                     pg=pg, scheme=scheme, peak=peak)
 
@@ -2028,6 +2119,12 @@ def check_served(core, ops, out, n: int, label: str, dev) -> dict:
     return solo
 
 
+def pulled(launches: dict) -> dict:
+    """Launch counts without ``exchange_push``: a one-device run pushes its
+    recoloring exchanges, a mesh's ``MeshExchange`` pulls them."""
+    return {k: v for k, v in launches.items() if k != "exchange_push"}
+
+
 def serve_launches(launches: dict, names) -> str:
     return ", ".join(f"{k} {launches[k]}" for k in names)
 
@@ -2288,7 +2385,8 @@ def mesh_pipeline(core, ops, dev, M, g) -> dict:
           "10a: pipeline_sharded differs from pipeline_sim")
     st = core.check_coloring(g, core.colors_from_views(pg, v_sh))
     check(st["valid"], f"10a: coloring invalid: {st}")
-    check(l_sh == l_sim, f"10a: launches {l_sh} sharded, {l_sim} sim")
+    check(pulled(l_sh) == pulled(l_sim),
+          f"10a: launches {l_sh} sharded, {l_sim} sim")
     for name in ("select_run", "conflict_frontier"):
         check(l_sh[name] > 0, f"10a: {name} never launched")
     del v_sim
@@ -2338,7 +2436,8 @@ def mesh_many(core, ops, dev, M, goods) -> None:
               and a["n_iters_run"] == b["n_iters_run"],
               f"10b: graph {i} differs between color_many_sharded and "
               "color_many")
-    check(l_sh == l_sim, f"10b: launches {l_sh} sharded, {l_sim} sim")
+    check(pulled(l_sh) == pulled(l_sim),
+          f"10b: launches {l_sh} sharded, {l_sim} sim")
     print(f"  10b every lane bitwise color_many's; colors "
           f"{[r['history'][-1]['n_colors_distinct'] for r in sh]}; launches "
           f"{serve_launches(l_sh, SERVE_KERNELS)} (sim the same); walls "
@@ -4340,7 +4439,9 @@ def main() -> int:
     # conflict kernels serve ops.select_colors[_d2] and
     # ops.detect_conflicts[_d2] and are expected at 0 there)
     # (the sequential kernels replace the reference's _greedy_chunk loop,
-    # which is no Pallas kernel; their launches are phase 7's)
+    # which is no Pallas kernel; their launches are phase 7's; the push
+    # exchange replaces no kernel, the reference's exchange being a plain
+    # gather; its launches are phase 3's)
     firstfit, greedy = "src/repro/kernels/firstfit.py", (
         "src/repro/core/speculative.py:188")
     for name, where in (("color_select", f"{firstfit}:172"),
@@ -4351,7 +4452,8 @@ def main() -> int:
                         ("select_run_d2", f"{firstfit}:205"),
                         ("conflict_frontier", f"{firstfit}:240"),
                         ("conflict_frontier_d2", f"{firstfit}:258"),
-                        ("greedy_run", greedy), ("greedy_run_d2", greedy)):
+                        ("greedy_run", greedy), ("greedy_run_d2", greedy),
+                        ("exchange_push", None)):
         m = measured[name]
         src = f"src/repro_torch/kernels/csrc/{build.SOURCES[name]}"
         kernels.append(dict(name=name, route="cuda", source=src,

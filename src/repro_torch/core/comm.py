@@ -28,7 +28,13 @@ view entry it copies.  They give the reference's views and wire bytes:
 An exchange takes a lane mask and per-lane round masks: the entries are
 sorted by (lane, round), so the due lanes' rounds are a few contiguous
 segments of one index pair, and only those lanes refresh their ghosts and
-add wire bytes.
+add wire bytes.  That is the pull form (``__call__``), which the
+speculative stage and every other exchange object take.  The recoloring
+loop pushes instead (``FlatExchange.push``): after a run of classes, each
+vertex the run recolored stores its color at its ghost copies through the
+same entries keyed by source (``fan_out``), one ``ops.exchange_push``
+launch, and nothing else is copied.  Its views and wire bytes are the
+pull's (``recolor.recolor_steps``).
 
 **On a mesh** (``torch.distributed``, one shard per rank: the reference's
 ``shard_map`` with ``P(axis)``), a rank holds one shard of each of its L
@@ -51,6 +57,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tracing
+from repro_torch.kernels import ops
 from repro_torch.kernels.ref import take_rows  # noqa: F401 (re-export)
 
 AXIS = "workers"        # the shard (graph-partition) mesh axis
@@ -220,17 +227,62 @@ class FlatExchange(_Exchange):
     ``dst``/``src`` (int64 device tensors) pair each ghost entry's flat
     view index with the flat index it copies; ``seg`` (host ints) is each
     entry's (lane, round) segment ``lane * n_rounds + round``, and the
-    entries come sorted by it.  Called as every ``_Exchange``.
+    entries come sorted by it.  ``n_slots``/``n_local_max``: the view's
+    columns and local rows; ``n_local`` ``(L·P,)``: each view row's valid
+    local rows.  Called as every ``_Exchange``; ``push`` is the recoloring
+    loop's form.
     """
 
     def __init__(self, dst, src, seg_counts: list, widths: list,
-                 n_rounds: int, cfg: CommConfig, broadcast: bool):
+                 n_rounds: int, cfg: CommConfig, broadcast: bool,
+                 n_slots: int, n_local_max: int, n_local: torch.Tensor):
         super().__init__(widths, n_rounds, cfg, broadcast)
         bounds = [0]
         for c in seg_counts:
             bounds.append(bounds[-1] + c)
         self.bounds = bounds
         self.dst, self.src = dst, src
+        self.n_slots, self.n_local_max = n_slots, n_local_max
+        self.n_local = n_local
+        self._fan = None
+
+    def fan_out(self):
+        """``(fan_ptr, fan_dst, lane_entries)``: the entries keyed by
+        source.  ``fan_dst`` lists the entries' ``dst`` grouped by source
+        row, and shard p's row v owns ``fan_dst[fan_ptr[p, v] : fan_ptr[p,
+        v + 1]]``; int32, or int64 for a view of 2^31 entries or more.
+        Entries whose source is no valid local row (padding, the sentinel)
+        sort past the last offset: no run recolors their source, so they
+        stay 0 through an iteration, as the view they start from.
+        ``lane_entries`` ``(L,)`` int64: each lane's entries with a valid
+        source, which its pushes write once an iteration.  Built at the
+        first push with one stable sort and no host read, then kept."""
+        if self._fan is None:
+            with tracing.span("exchange.build"):
+                nlm, n_slots = self.n_local_max, self.n_slots
+                rows, dev = self.n_local.shape[0], self.src.device
+                idx = (torch.int64 if rows * n_slots > 2**31 - 1
+                       else torch.int32)
+                shard, slot = self.src // n_slots, self.src % n_slots
+                n_keys = rows * nlm
+                key, order = torch.sort(
+                    torch.where(slot < self.n_local[shard],
+                                shard * nlm + slot, n_keys).to(idx),
+                    stable=True)
+                ptr = torch.searchsorted(key, torch.arange(
+                    n_keys + 1, dtype=idx, device=dev))
+                at = (torch.arange(rows, device=dev)[:, None] * nlm
+                      + torch.arange(nlm + 1, device=dev))
+                fan_ptr = ptr[at].to(idx)
+                lane = (fan_ptr[:, -1] - fan_ptr[:, 0]).long()
+                self._fan = (fan_ptr, self.dst[order].to(idx),
+                             lane.view(self.n_lanes, -1).sum(dim=1))
+        return self._fan
+
+    def _due_entries(self, due: list) -> int:
+        R = self.n_rounds
+        return sum(self.bounds[lane * R + r + 1] - self.bounds[lane * R + r]
+                   for lane, rs in enumerate(due) for r in rs or ())
 
     def _ranges(self, due: list) -> list:
         """The due segments as merged ``[start, end)`` entry ranges."""
@@ -253,8 +305,9 @@ class FlatExchange(_Exchange):
             due = self._due(lanes, rounds)
             ranges = self._ranges(due)
             if ranges:
-                tracing.count("exchange.entries",
-                              sum(b - a for a, b in ranges))
+                n = sum(b - a for a, b in ranges)
+                tracing.count("exchange.entries", n)
+                tracing.count("exchange.entries_due", n)
                 if len(ranges) == 1:
                     (a, b), = ranges
                     dst, src = self.dst[a:b], self.src[a:b]
@@ -263,6 +316,26 @@ class FlatExchange(_Exchange):
                     src = torch.cat([self.src[a:b] for a, b in ranges])
                 flat = view.view(-1)
                 flat[dst] = _wire(flat[src], self.cfg.wire16)
+            return view, self._bytes(due)
+
+    def push(self, view: torch.Tensor, rows: tuple, first: int, last: int,
+             lane_on=None, lanes=None, rounds=None, backend: str = "auto"):
+        """The exchange after recolor classes ``first … last`` ran, as a
+        push: each vertex they recolored stores its color at its ghost
+        copies (``ops.exchange_push`` on the schedule's ``rows`` =
+        ``(sorted_pad, start_local, local_sizes)``; a lane that is 0 in
+        ``lane_on``, ``(L,)`` int32 on the device, pushes nothing), in
+        place.  ``lanes``/``rounds`` are the pull's due masks: they give
+        the wire bytes, ``(view, bytes per lane)`` as ``__call__`` returns,
+        and ``exchange.entries_due``.  The entries written are counted
+        once an iteration, by the loop (``fan_out``'s ``lane_entries``)."""
+        fan_ptr, fan_dst, _ = self.fan_out()    # its span beside "exchange"
+        with tracing.span("exchange"):
+            due = self._due(lanes, rounds)
+            tracing.count("exchange.entries_due", self._due_entries(due))
+            ops.exchange_push(view, fan_ptr, fan_dst, *rows, lane_on,
+                              first_class=first, last_class=last,
+                              wire16=self.cfg.wire16, backend=backend)
             return view, self._bytes(due)
 
 
@@ -291,7 +364,8 @@ def _allgather_exchange(arrs: dict, comm: AxisComm, n_local_max: int,
            + torch.arange(n_ghost_cols, device=dev)).reshape(-1)
     width = (P - 1) * max_b
     return FlatExchange(dst, src, [P * n_ghost_cols] * L, [[width]] * L, 1,
-                        cfg, broadcast=True)
+                        cfg, broadcast=True, n_slots=n_slots,
+                        n_local_max=n_local_max, n_local=arrs["n_local"])
 
 
 def _sparse_exchange(arrs: dict, comm: AxisComm, n_local_max: int,
@@ -328,7 +402,9 @@ def _sparse_exchange(arrs: dict, comm: AxisComm, n_local_max: int,
     skip = counts[0]                                   # entries of no round
     return FlatExchange(dst[order][skip:], src[order][skip:], counts[1:],
                         [widths[i * n_rounds:(i + 1) * n_rounds]
-                         for i in range(L)], n_rounds, cfg, broadcast=False)
+                         for i in range(L)], n_rounds, cfg, broadcast=False,
+                        n_slots=n_slots, n_local_max=n_local_max,
+                        n_local=arrs["n_local"])
 
 
 def make_exchange(arrs: dict, cfg: CommConfig, lanes: int = 1, comm=None):
@@ -661,8 +737,8 @@ class MeshExchange(_Exchange):
             if on:
                 sel = (slice(None) if len(on) == self.n_lanes else
                        torch.tensor(on, device=view.device))
-                tracing.count("exchange.entries",
-                              len(on) * self.pay.shape[1])
+                for name in ("exchange.entries", "exchange.entries_due"):
+                    tracing.count(name, len(on) * self.pay.shape[1])
                 table = self.comm.all_gather(wire(flat[self.pay[sel]]))
                 lane = torch.arange(len(on), device=view.device)[:, None]
                 flat[self.dst[sel]] = table[self.owner[sel], lane,
@@ -676,7 +752,8 @@ class MeshExchange(_Exchange):
             if not part:
                 continue
             offs = np.cumsum([0] + [self.widths[lane][r] for lane in part])
-            tracing.count("exchange.entries", int(offs[-1]))
+            for name in ("exchange.entries", "exchange.entries_due"):
+                tracing.count(name, int(offs[-1]))
             idx = torch.cat([self.send[lane][r] for lane in part])
             sends.append((wire(flat[idx]), (p + k) % P, (p - k) % P))
             recvs.append((torch.cat([self.recv[lane][r][0] for lane in part]),

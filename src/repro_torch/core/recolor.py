@@ -12,7 +12,14 @@ which colors its chunks in order (one kernel launch on the card).
 Piggybacking (§3.1): a ghost color written at step s is only read at a
 later step t, so the boundary exchange after s is deferred to t-1 and
 everything pending rides one exchange; under the sparse scheme the
-schedule is refined per ring-shift round.
+schedule is refined per ring-shift round.  On one device the exchange at
+an event is a push (``FlatExchange.push``): the vertices of the run that
+just ended store their colors at their ghost copies, so each ghost is
+written once an iteration.  A reader at step t of a writer at step s < t
+finds the color as the pull gives it (an event falls in [s, t-1], and the
+push lands at the first event at or after s); one at t <= s reads 0 as
+it does there, so every run reads what the pull gives it.  Every other
+exchange object (a mesh's ``MeshExchange``) keeps the pull.
 
 The schedule (the class count, chunks per class and exchange events) is
 computed on the device and read to the host once per iteration; the chunk
@@ -52,7 +59,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import take_rows
 
 from .comm import (AUTO, DEFAULT_SCHEME, SCHEME_CHOICES, SPARSE, AxisComm,
-                   CommConfig, make_exchange, run_sharded, sparse_rounds)
+                   CommConfig, FlatExchange, make_exchange, run_sharded,
+                   sparse_rounds)
 from .graph import PartitionedGraph, to_device
 from .speculative import (ColorConfig, color_shards, require_halo,
                           resolve_cfg, resolve_device, validate_color_bounds)
@@ -394,7 +402,9 @@ def recolor_steps(arrs, sched: _Schedule, exchange, cfg: RecolorConfig,
     """The chunked step loop of one iteration over a host-known schedule,
     for the L lanes of ``sched`` (``lanes_on``: host bools, ``None`` =
     all; a lane that is off takes no exchange and gets no stats — its
-    chunk counts should be 0, so it colors nothing).
+    chunk counts should be 0, so it colors nothing).  A ``FlatExchange``
+    pushes after each run (``FlatExchange.push``); any other exchange
+    object pulls at each event, as its ``__call__`` does.
 
     Returns ``(new_view, stats)``: ``n_colors`` as an ``(L,)`` device
     tensor, and per lane (python-int lists) ``n_colors_before``/``n_steps``
@@ -418,6 +428,11 @@ def recolor_steps(arrs, sched: _Schedule, exchange, cfg: RecolorConfig,
                 events.setdefault(t, [False] * L)[lane] = True
     sched_args = (sched.sorted_pad, sched.start_local, sched.local_sizes,
                   sched.class_chunks)
+    push = isinstance(exchange, FlatExchange)
+    running = [lane for lane in range(L) if lanes_on is None or lanes_on[lane]]
+    lane_on = None
+    if push and lanes_on is not None:
+        lane_on = torch.tensor(lanes_on, dtype=torch.int32, device=dev)
     first = 1
     for t, due in sorted(events.items()):
         # classes first … t in one run: no exchange falls between them
@@ -430,16 +445,27 @@ def recolor_steps(arrs, sched: _Schedule, exchange, cfg: RecolorConfig,
                 new_view = ops.recolor_run(
                     new_view, arrs["nbr"], *sched_args, first_class=first,
                     last_class=t, **kw)
-        first = t + 1
         rounds = None
         if sched.needed_rounds is not None:
             rounds = [None if t == sched.n_classes[lane]
                       else sched.needed_rounds[lane, t] for lane in range(L)]
-        new_view, b = exchange(new_view, lanes=due, rounds=rounds)
+        if push:
+            new_view, b = exchange.push(
+                new_view, sched_args[:3], first, t, lane_on, lanes=due,
+                rounds=rounds, backend=cfg.backend)
+        else:
+            new_view, b = exchange(new_view, lanes=due, rounds=rounds)
+        first = t + 1
         for lane in range(L):
             if due[lane]:
                 n_ex[lane] += 1
                 n_bytes[lane] += b[lane]
+    if push and events:
+        # every valid row of a running lane ran once, so its pushes wrote
+        # each of its entries once (device scalars, read with the counters)
+        lane_entries = exchange.fan_out()[2]
+        for lane in running:
+            tracing.count("exchange.entries", lane_entries[lane])
 
     valid_local = (torch.arange(n_local_max, device=dev)
                    < arrs["n_local"][:, None])

@@ -28,7 +28,8 @@ SOURCES = {"color_select": "color_select.cu", "conflict": "conflict.cu",
            "select_run_d2": "select_run_d2.cu",
            "conflict_frontier": "conflict_frontier.cu",
            "conflict_frontier_d2": "conflict_frontier_d2.cu",
-           "greedy_run": "greedy_run.cu", "greedy_run_d2": "greedy_run_d2.cu"}
+           "greedy_run": "greedy_run.cu", "greedy_run_d2": "greedy_run_d2.cu",
+           "exchange_push": "exchange_push.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -20,7 +20,9 @@ the uncolored copy of the view and the two counts.  ``greedy_run`` (and
 its ``_d2`` form) is the sequential superstep coloring (the paper's
 scalar loop, and every Least-Used run): one call colors a run of
 supersteps one vertex at a time per shard, each vertex seeing every color
-written before it.  ``backend``:
+written before it.  ``exchange_push`` is the recoloring loop's boundary
+exchange: after a run of recolor classes, each recolored row stores its
+color at its ghost copies.  ``backend``:
 
   "cuda"  — the hand-written Hopper kernels in ``csrc/`` (built by
             ``build.py`` at first use); CUDA tensors only, and a launch
@@ -143,9 +145,13 @@ _GREEDY_ARGS = [_P] * 7 + [ctypes.c_int, ctypes.c_longlong] + (
     [ctypes.c_int] * 14) + [_P]
 GREEDY_RUN = Kernel("greedy_run", "repro_greedy_run", _GREEDY_ARGS)
 GREEDY_RUN_D2 = Kernel("greedy_run_d2", "repro_greedy_run_d2", _GREEDY_ARGS)
+EXCHANGE_PUSH = Kernel(
+    "exchange_push", "repro_exchange_push",
+    [_P] * 7 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 9
+    + [_P])
 KERNELS = (COLOR_SELECT, CONFLICT, COLOR_SELECT_D2, CONFLICT_D2, SELECT_RUN,
            SELECT_RUN_D2, CONFLICT_FRONTIER, CONFLICT_FRONTIER_D2,
-           GREEDY_RUN, GREEDY_RUN_D2)
+           GREEDY_RUN, GREEDY_RUN_D2, EXCHANGE_PUSH)
 
 
 def resolve_backend(backend: str, t: torch.Tensor) -> str:
@@ -658,6 +664,78 @@ def launch_frontier(view, prio, is_internal, order_pad, nbrs, n_need,
         rows.shape[1], n_pos, nbrs[0].shape[1], nbrs[0].shape[2],
         nbrs[1].shape[2] if len(nbrs) > 1 else 0, P // counts.shape[0],
         view.device.index, _stream(view))
+
+
+def exchange_push(view: torch.Tensor, fan_ptr: torch.Tensor,
+                  fan_dst: torch.Tensor, sorted_pad: torch.Tensor,
+                  start: torch.Tensor, sizes: torch.Tensor, lane_on=None, *,
+                  first_class: int, last_class: int, wire16: bool = False,
+                  backend: str = "auto") -> torch.Tensor:
+    """Push the colors of recolor classes ``first_class … last_class`` to
+    their ghost copies (``ref.exchange_push``): the recoloring loop's
+    boundary exchange, one launch a run of classes.
+
+    ``view`` ``(S, n_slots)`` int32 is updated in place and returned.
+    ``fan_ptr`` ``(S, n_local_max + 1)`` and ``fan_dst`` ``(E,)`` (both
+    int32, or both int64 for a view of 2^31 entries or more) are the
+    exchange's fan-out: the ghost copies of shard p's local row v are the
+    flat view entries ``fan_dst[fan_ptr[p, v] : fan_ptr[p, v + 1]]``.
+    ``sorted_pad``, ``start``, ``sizes`` as in ``recolor_run``, int32:
+    shard p pushes its sorted rows ``[start[p, first_class], start[p,
+    last_class] + sizes[p, last_class])``.  ``lane_on`` ``(L,)`` int32
+    (``None`` = all): the S shards are L lanes of ``S / L``, and a lane
+    that is 0 pushes nothing.  ``wire16`` sends each color through int16.
+    The operands are taken as they are, not converted: one call a run of
+    classes, and the host time of a call counts where the host sets the
+    pace.
+    """
+    S, n_slots = view.shape
+    if view.dim() != 2 or any(t is not None and t.dtype != torch.int32 for t
+                              in (view, sorted_pad, start, sizes, lane_on)):
+        raise TypeError("the view, sorted_pad, start, sizes and lane_on "
+                        "must be int32, the view (S, n_slots)")
+    n_local_max = fan_ptr.shape[1] - 1
+    if (fan_ptr.dim() != 2 or fan_ptr.shape[0] != S
+            or fan_ptr.dtype != fan_dst.dtype
+            or fan_ptr.dtype not in (torch.int32, torch.int64)):
+        raise ValueError(f"fan_ptr {fan_ptr.dtype} {tuple(fan_ptr.shape)} "
+                         f"and fan_dst {fan_dst.dtype} must be int32 or "
+                         f"int64 alike, fan_ptr (S={S}, n_local_max + 1)")
+    if fan_ptr.dtype == torch.int32 and view.numel() > 2**31 - 1:
+        raise ValueError("a view of 2^31 entries or more needs an int64 "
+                         "fan-out")
+    if sorted_pad.shape[0] != S or sorted_pad.shape[1] < n_local_max:
+        raise ValueError(f"sorted_pad {tuple(sorted_pad.shape)} must have "
+                         f"{S} rows of at least {n_local_max} positions")
+    if start.shape != sizes.shape or start.shape[0] != S:
+        raise ValueError(f"start {tuple(start.shape)} and sizes "
+                         f"{tuple(sizes.shape)} must be (S={S}, n_cls)")
+    if first_class < 0 or last_class >= start.shape[1]:
+        raise ValueError(f"classes [{first_class}, {last_class}] out of "
+                         f"range of {start.shape[1]}")
+    if lane_on is not None and (lane_on.dim() != 1
+                                or S % lane_on.shape[0]):
+        raise ValueError(f"lane_on {tuple(lane_on.shape)} must be (L,) with "
+                         f"L dividing the {S} shards")
+    backend = resolve_backend(backend, view)
+    if last_class < first_class:
+        return view
+    if backend == "torch":
+        return ref.exchange_push(view, fan_ptr, fan_dst, sorted_pad, start,
+                                 sizes, lane_on, first_class=first_class,
+                                 last_class=last_class, wire16=wire16)
+    on = lane_on
+    _check_cuda(*(t for t in (view, fan_ptr, fan_dst, sorted_pad, start,
+                              sizes, on) if t is not None))
+    EXCHANGE_PUSH.launch(
+        view.data_ptr(), fan_ptr.data_ptr(), fan_dst.data_ptr(),
+        sorted_pad.data_ptr(), start.data_ptr(), sizes.data_ptr(),
+        None if on is None else on.data_ptr(), S, n_slots,
+        sorted_pad.shape[1], n_local_max, start.shape[1],
+        S if on is None else S // on.shape[0], first_class, last_class,
+        int(wire16), int(fan_ptr.dtype == torch.int64), view.device.index,
+        _stream(view))
+    return view
 
 
 def greedy_run(view: torch.Tensor, usage: torch.Tensor,

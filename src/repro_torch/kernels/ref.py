@@ -31,7 +31,9 @@ of the frontier conflict kernels: the repair's chunk loop, one ELL
 gather, one tile test and one scatter per superstep chunk.
 ``greedy_run`` is the plain version of the sequential kernels: one
 vertex per shard at a time through the same row-wise strategies, with
-Least-Used beside them.
+Least-Used beside them.  ``exchange_push`` is the plain version of the
+push exchange: the recolored rows' fan-outs expanded and written with one
+scatter.
 """
 from __future__ import annotations
 
@@ -333,3 +335,34 @@ def greedy_run(view, usage, order_pad, nbrs: tuple, rand, offset, *,
                       torch.where(active, c, 0)[:, None].to(view.dtype))
         usage.scatter_add_(1, c[:, None], active[:, None].to(usage.dtype))
     return view, usage
+
+
+def exchange_push(view, fan_ptr, fan_dst, sorted_pad, start, sizes, lane_on,
+                  *, first_class: int, last_class: int, wire16: bool):
+    """Store the color of every row of classes ``first_class …
+    last_class`` at its ghost copies: shard p's rows are its sorted
+    positions ``[start[p, first_class], start[p, last_class] + sizes[p,
+    last_class])`` of ``sorted_pad``, the copies of its row v the flat view
+    entries ``fan_dst[fan_ptr[p, v] : fan_ptr[p, v + 1]]``; a lane whose
+    ``lane_on`` is 0 (``(L,)``, the S shards L lanes of ``S / L``; ``None``
+    = all) pushes nothing.  ``view`` is updated in place and returned."""
+    S = view.shape[0]
+    lo = start[:, first_class].long()
+    hi = (start[:, last_class] + sizes[:, last_class]).long()
+    if lane_on is not None:
+        on = lane_on.repeat_interleave(S // lane_on.shape[0]) != 0
+        hi = torch.where(on, hi, lo)
+    pos = torch.arange(sorted_pad.shape[1], device=view.device)
+    p, i = ((pos >= lo[:, None]) & (pos < hi[:, None])).nonzero(
+        as_tuple=True)
+    v = sorted_pad[p, i].long()
+    first, n = fan_ptr[p, v].long(), (fan_ptr[p, v + 1] - fan_ptr[p, v]).long()
+    row = torch.repeat_interleave(torch.arange(v.numel(), device=view.device),
+                                  n)
+    entry = (first - (n.cumsum(0) - n))[row] + torch.arange(
+        row.numel(), device=view.device)
+    color = view[p, v]
+    if wire16:
+        color = color.to(torch.int16).to(view.dtype)
+    view.view(-1)[fan_dst[entry].long()] = color[row]
+    return view

@@ -17,8 +17,12 @@ Spans: ``color.frontier`` (a round's compaction and read), ``color.round``,
 ``color.run``, ``color.repair``, ``recolor.iteration``,
 ``recolor.schedule``, ``recolor.run``, ``exchange``, ``exchange.build``
 and ``read.<site>``, each blocking device-to-host read.  Counters:
-``color.losers`` (vertices the repairs uncolored) and ``exchange.entries``
-(ghost entries the exchanges copied or, on a mesh, sent).
+``color.losers`` (vertices the repairs uncolored), ``exchange.entries``
+(ghost entries the exchanges wrote or, on a mesh, sent) and
+``exchange.entries_due`` (the entries of the lanes and rounds each exchange
+was due to refresh: what a pull copies; the recoloring loop's pushes write
+each recolored vertex's copies once an iteration, counted once an
+iteration).
 """
 from __future__ import annotations
 
@@ -44,15 +48,17 @@ def span(name: str):
     return _NULL
 
 
-def count(name: str, n: int) -> None:
-    """Add ``n`` to the counter ``name`` while a profiler records."""
+def count(name: str, n) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler records: an int,
+    or a device scalar, which is read with the counters, so that counting
+    adds no read to the recorded window."""
     if torch.autograd._profiler_enabled():
-        _counts[name] = _counts.get(name, 0) + int(n)
+        _counts.setdefault(name, []).append(n)
 
 
 def counters() -> dict:
-    """A copy of the counters."""
-    return dict(_counts)
+    """The counters, as ints (this reads their device scalars)."""
+    return {k: sum(int(n) for n in v) for k, v in _counts.items()}
 
 
 def reset() -> None:

@@ -156,8 +156,8 @@ def test_each_kernel_has_its_own_name_symbol_and_source():
     assert names == ["color_select", "conflict", "color_select_d2",
                      "conflict_d2", "select_run", "select_run_d2",
                      "conflict_frontier", "conflict_frontier_d2",
-                     "greedy_run", "greedy_run_d2"]
-    assert len({k.symbol for k in ops.KERNELS}) == 10
+                     "greedy_run", "greedy_run_d2", "exchange_push"]
+    assert len({k.symbol for k in ops.KERNELS}) == 11
     assert set(names) == set(build.SOURCES)
     for k in ops.KERNELS:
         src = (build.CSRC / build.SOURCES[k.name]).read_text()

@@ -68,17 +68,34 @@ class Solve:
     counters: dict
     losers: int             # recounted from the repairs of the plain run
     entries: int            # recounted from the exchanges of the plain run
+    entries_due: int        # what a pull copies at each of those exchanges
 
     def count(self, name):
         return sum(n == name for n, _ in self.spans)
 
 
+def _rewritten(ex, view, run):
+    """``run(view)``'s result and how many ghost entries of ``ex`` it
+    wrote: every ghost slot is marked first, and the ones left unwritten
+    get their values back."""
+    flat = view.view(-1)
+    mark = flat.clone()
+    flat[ex.dst] = -1
+    out = run(view)
+    written = out[0].view(-1)[ex.dst] != -1
+    flat[ex.dst[~written]] = mark[ex.dst[~written]]
+    return out, int(written.sum())
+
+
 def _recount(monkeypatch, arrs, order, cfg):
-    """The plain run, with the repairs' losers and the ghost entries each
-    exchange wrote counted from outside the program."""
-    losers, entries = [], []
+    """The plain run, with the repairs' losers, the ghost entries each
+    exchange wrote (a pull's copies or the recoloring loop's push) and
+    the entries a pull copies at each of them, counted from outside the
+    program."""
+    losers, entries, due = [], [], []
     repair = speculative._detect_conflicts_frontier
     exchange = comm.FlatExchange.__call__
+    push = comm.FlatExchange.push
 
     def counted_repair(*a, **k):
         out = repair(*a, **k)
@@ -86,21 +103,27 @@ def _recount(monkeypatch, arrs, order, cfg):
         return out
 
     def counted_exchange(self, view, lanes=None, rounds=None):
-        # mark every ghost slot, then see which the exchange rewrote
-        flat = view.view(-1)
-        mark = flat.clone()
-        flat[self.dst] = -1
-        out = exchange(self, view, lanes=lanes, rounds=rounds)
-        written = out[0].view(-1)[self.dst] != -1
-        entries.append(int(written.sum()))
-        flat[self.dst[~written]] = mark[self.dst[~written]]
+        out, n = _rewritten(self, view, lambda v: exchange(
+            self, v, lanes=lanes, rounds=rounds))
+        entries.append(n)
+        due.append(n)
+        return out
+
+    def counted_push(self, view, *a, lanes=None, rounds=None, **k):
+        # what the pull would have copied here, on a copy of the view
+        due.append(_rewritten(self, view.clone(), lambda v: exchange(
+            self, v, lanes=lanes, rounds=rounds))[1])
+        out, n = _rewritten(self, view, lambda v: push(
+            self, v, *a, lanes=lanes, rounds=rounds, **k))
+        entries.append(n)
         return out
 
     with monkeypatch.context() as m:
         m.setattr(speculative, "_detect_conflicts_frontier", counted_repair)
         m.setattr(comm.FlatExchange, "__call__", counted_exchange)
+        m.setattr(comm.FlatExchange, "push", counted_push)
         plain = _solve(arrs, order, cfg)
-    return plain, sum(losers), sum(entries)
+    return plain, sum(losers), sum(entries), sum(due)
 
 
 _CACHE = {}
@@ -113,12 +136,13 @@ def solve(monkeypatch):
         key = (distance, scheme, tuple(sorted(kw.items())))
         if key not in _CACHE:
             arrs, order, cfg = _setup(distance, scheme, **kw)
-            plain, losers, entries = _recount(monkeypatch, arrs, order, cfg)
+            plain, losers, entries, due = _recount(monkeypatch, arrs, order,
+                                                   cfg)
             tracing.reset()
             with profile(activities=[ProfilerActivity.CPU]) as prof:
                 traced = _solve(arrs, order, cfg)
             _CACHE[key] = Solve(cfg, plain, traced, _spans(prof),
-                                tracing.counters(), losers, entries)
+                                tracing.counters(), losers, entries, due)
         return _CACHE[key]
     return get
 
@@ -145,7 +169,9 @@ def test_spans_agree_with_the_stats(solve, distance, scheme):
     assert s.count("recolor.run") >= n_run
     assert s.count("exchange") == (cstats["n_exchanges"]
                                    + sum(h["n_exchanges"] for h in hist))
-    assert s.count("exchange.build") == 2
+    # the two exchanges' builds, and the recoloring one's fan-out for its
+    # push, built at its first push
+    assert s.count("exchange.build") == 3
     # the blocking reads: one a round and the trip that ends the loop, the
     # stats, one a schedule, the history, and two a sparse build
     assert s.count("read.round") == rounds + 1
@@ -171,7 +197,8 @@ def test_spans_nest_as_the_calls(solve, distance):
                             "recolor.iteration"},
                "read.exchange_build": {"exchange.build"},
                "color.round": {None}, "color.frontier": {None},
-               "recolor.iteration": {None}, "exchange.build": {None}}
+               "recolor.iteration": {None},
+               "exchange.build": {None, "recolor.iteration"}}
     for name, parent in s.spans:
         assert parent in parents.get(name, {None}), (name, parent)
 
@@ -181,7 +208,8 @@ def test_counters_count_what_a_plain_run_recounts(solve, distance, scheme):
     s = solve(distance, scheme)
     assert s.losers > 0 and s.entries > 0
     assert s.counters == {"color.losers": s.losers,
-                          "exchange.entries": s.entries}
+                          "exchange.entries": s.entries,
+                          "exchange.entries_due": s.entries_due}
 
 
 def test_stopped_trip_is_one_more_iteration_span(solve):
